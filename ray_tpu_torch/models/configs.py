@@ -1,0 +1,54 @@
+"""Named model configs: the same registry and values as
+`ray_tpu/models/configs.py`, with torch dtypes."""
+from __future__ import annotations
+
+from ray_tpu_torch.models.transformer import TransformerConfig
+
+TINY = TransformerConfig(
+    name="tiny", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+    n_kv_heads=2, d_ff=128, max_seq_len=256, remat=False,
+)
+
+GPT2_124M = TransformerConfig(
+    name="gpt2-124m", vocab_size=50304, d_model=768, n_layers=12, n_heads=12,
+    n_kv_heads=12, d_ff=3072, max_seq_len=1024, tie_embeddings=True,
+)
+
+BENCH_350M = TransformerConfig(
+    name="bench-350m", vocab_size=32000, d_model=1024, n_layers=24, n_heads=16,
+    n_kv_heads=16, d_ff=4096, max_seq_len=2048,
+)
+
+BENCH_1B4 = TransformerConfig(
+    name="bench-1b4", vocab_size=32000, d_model=2048, n_layers=20,
+    n_heads=16, n_kv_heads=16, d_ff=8192, max_seq_len=2048,
+)
+
+LLAMA2_7B = TransformerConfig(
+    name="llama2-7b", vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+    n_kv_heads=32, d_ff=11008, max_seq_len=4096,
+)
+
+LLAMA3_8B = TransformerConfig(
+    name="llama3-8b", vocab_size=128256, d_model=4096, n_layers=32, n_heads=32,
+    n_kv_heads=8, d_ff=14336, max_seq_len=8192, rope_theta=500000.0,
+)
+
+TINY_MOE = TransformerConfig(
+    name="tiny-moe", vocab_size=512, d_model=64, n_layers=2, n_heads=4,
+    n_kv_heads=4, d_ff=128, max_seq_len=256, remat=False,
+    n_experts=4, expert_top_k=2,
+)
+
+MIXTRAL_8X7B = TransformerConfig(
+    name="mixtral-8x7b", vocab_size=32000, d_model=4096, n_layers=32,
+    n_heads=32, n_kv_heads=8, d_ff=14336, max_seq_len=8192,
+    rope_theta=1000000.0, n_experts=8, expert_top_k=2,
+)
+
+REGISTRY = {c.name: c for c in [TINY, GPT2_124M, BENCH_350M, BENCH_1B4,
+                                LLAMA2_7B, LLAMA3_8B, TINY_MOE, MIXTRAL_8X7B]}
+
+
+def get(name: str) -> TransformerConfig:
+    return REGISTRY[name]
