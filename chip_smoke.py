@@ -6,12 +6,16 @@
 Run from a checkout of the repository on a machine with a Hopper card
 (sm_90a) and the CUDA toolkit. Phases:
 
-1. build: compile `ray_tpu_torch/csrc/*.cu` with nvcc (first use);
+1. build: compile `ray_tpu_torch/csrc/*.cu` with nvcc (first use), and
+   print ptxas's registers, spills and shared memory for each bf16 wgmma
+   kernel, with any report line on a serialised wgmma or an ignored
+   setmaxnreg; fails if setmaxnreg would not get its registers;
 2. kernels: hold each flash-attention kernel against its plain PyTorch
    version on the card, in bf16 (bench-350m heads, llama3-8b heads, a
-   ragged T) and fp32, causal and not, within `KERNEL_TOLERANCE` of
-   ray_tpu_torch/ops/attention.py; time kernel, plain version and
-   `scaled_dot_product_attention` as a yardstick;
+   ragged T, odd unequal Tq and Tkv at D 64 and 128) and fp32, causal and
+   not, within `KERNEL_TOLERANCE` of ray_tpu_torch/ops/attention.py; time
+   kernel, plain version and `scaled_dot_product_attention` as a
+   yardstick;
 3. reference: a 2-layer model's loss and gradients at fp32 through the
    kernels on the card against the same model through the plain versions
    on the CPU;
@@ -49,11 +53,21 @@ KERNELS = {  # wrapper name -> TPU kernel it replaces
     "fa_bwd_dkv": "ray_tpu/ops/attention.py:145",
 }
 SOURCE = "ray_tpu_torch/csrc/flash_attention.cu"
-# (label, B, T, H, D); the first is the main path's shape.
-BF16_SHAPES = [("bench-350m", 8, 2048, 16, 64),
-               ("llama3-8b-heads", 2, 2048, 32, 128),
-               ("ragged-T", 2, 1000, 16, 64)]
-FP32_SHAPES = [("fp32-d64", 1, 300, 4, 64), ("fp32-d128", 1, 200, 2, 128)]
+# (label, B, Tq, Tkv, H, D); the first is the main path's shape.
+BF16_SHAPES = [("bench-350m", 8, 2048, 2048, 16, 64),
+               ("llama3-8b-heads", 2, 2048, 2048, 32, 128),
+               ("ragged-T", 2, 1000, 1000, 16, 64),
+               ("odd-unequal-d64", 1, 257, 300, 4, 64),
+               ("odd-unequal-d128", 1, 257, 300, 4, 128)]
+FP32_SHAPES = [("fp32-d64", 1, 300, 300, 4, 64),
+               ("fp32-d128", 1, 200, 200, 2, 128)]
+# The bf16 forward and dk/dv kernels: (kernel, its code for
+# rtt_flash_wgmma_smem). Each block is 384 threads at __launch_bounds__
+# (384, 1), so ptxas must start it at 65536 / 384 -> 168 registers: the
+# producer warpgroup's setmaxnreg down to 24 then frees the 72 more that
+# each consumer thread takes up to 240 (csrc/flash_attention.cu).
+WGMMA_KERNELS = {"fa_fwd_wgmma_kernel": 0, "fa_bwd_dkv_wgmma_kernel": 1}
+WGMMA_ENTRY_REGISTERS = 168
 
 
 def log(msg: str) -> None:
@@ -95,19 +109,26 @@ def max_err(got, want, tol) -> tuple[float, float]:
     return float(diff.max()), float((diff / limit).max())
 
 
-def work(kernel: str, b: int, t: int, h: int, d: int, causal: bool) -> dict:
+def work(kernel: str, b: int, tq: int, tkv: int, h: int, d: int,
+         causal: bool) -> dict:
     """Least time for the bf16 function on an H100: max(FLOPs/peak, bytes/HBM).
 
     FLOPs count the matrix products over the (q, k) pairs the causal mask
-    keeps; bytes count each input read once and each output written once.
+    keeps (k <= q); bytes count each input read once and each output
+    written once.
     """
-    pairs = t * (t + 1) // 2 if causal else t * t
-    tensor = b * t * h * d * 2
-    stats = b * h * t * 4
+    if causal:
+        kept = min(tq, tkv)
+        pairs = kept * (kept + 1) // 2 + (tq - kept) * tkv
+    else:
+        pairs = tq * tkv
+    q_like = b * tq * h * d * 2   # q, do, o, dq
+    kv_like = b * tkv * h * d * 2  # k, v, dk, dv
+    stats = b * h * tq * 4
     products, reads, writes = {
-        "fa_fwd": (2, 3 * tensor, tensor + stats),         # QK^T, PV
-        "fa_bwd_dq": (3, 4 * tensor + 2 * stats, tensor),  # QK^T, dOV^T, dSK
-        "fa_bwd_dkv": (4, 4 * tensor + 2 * stats, 2 * tensor),
+        "fa_fwd": (2, q_like + 2 * kv_like, q_like + stats),  # QK^T, PV
+        "fa_bwd_dq": (3, 2 * q_like + 2 * kv_like + 2 * stats, q_like),
+        "fa_bwd_dkv": (4, 2 * q_like + 2 * kv_like + 2 * stats, 2 * kv_like),
     }[kernel]
     flops = 2.0 * products * b * h * pairs * d
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -125,12 +146,12 @@ def check_kernels(torch, attention, gen) -> dict:
             for name in KERNELS}
     shapes = [(s, torch.bfloat16) for s in BF16_SHAPES] + \
              [(s, torch.float32) for s in FP32_SHAPES]
-    for (label, b, t, h, d), dtype in shapes:
+    for (label, b, tq, tkv, h, d), dtype in shapes:
         bf16 = dtype == torch.bfloat16
         tol = tols["bf16" if bf16 else "fp32"]
         for causal in (True, False):
             q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device="cuda",
-                                       dtype=dtype) for _ in range(4))
+                                       dtype=dtype) for t in (tq, tkv, tkv, tq))
             kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
             o_ref, lse_ref = attention.fa_fwd_plain(q, k, v, **kw)
             delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
@@ -149,7 +170,7 @@ def check_kernels(torch, attention, gen) -> dict:
                 "fa_bwd_dkv": (max_err(dk, dk_ref, tol), max_err(dv, dv_ref, tol)),
             }.items()}
             del o_ref, dk_ref, dv_ref
-            entry = {"shape": label, "B": b, "T": t, "H": h, "D": d,
+            entry = {"shape": label, "B": b, "Tq": tq, "Tkv": tkv, "H": h, "D": d,
                      "dtype": "bf16" if bf16 else "fp32", "causal": causal}
             timed = {}
             if bf16:
@@ -180,7 +201,7 @@ def check_kernels(torch, attention, gen) -> dict:
                         # SDPA's backward computes dq, dk and dv in one call.
                         "library_ms": lib_fwd if name == "fa_fwd" else lib_bwd,
                         "library_fwd_bwd_ms": lib_fwd_bwd,
-                        **work(name, b, t, h, d, causal)}
+                        **work(name, b, tq, tkv, h, d, causal)}
             for name in KERNELS:
                 err, share = errs[name]
                 row = rows[name]
@@ -198,6 +219,39 @@ def check_kernels(torch, attention, gen) -> dict:
             del q, k, v, do, stats, delta
             torch.cuda.empty_cache()
     return rows
+
+
+def build_report(_cuda) -> dict:
+    """Phase 1's report: ptxas's figures for each bf16 wgmma kernel, with
+    the dynamic shared memory its launch asks for. Raises if ptxas ignored
+    a setmaxnreg, or started a kernel below the registers its setmaxnreg
+    split frees (the consumers' setmaxnreg would then wait forever), or if
+    a kernel at the main path's D = 64 spills or serialises its wgmmas."""
+    import ctypes
+
+    with open(os.path.join(_cuda.BUILD_DIR, "libflash_attention.log")) as f:
+        kernels = _cuda.ptxas_report(f.read())
+    smem = _cuda.load("flash_attention").rtt_flash_wgmma_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    report = {}
+    for label, row in kernels.items():
+        name = label.split("<")[0]
+        if name not in WGMMA_KERNELS:
+            continue
+        d = int(label.split("<")[1].rstrip(">"))
+        report[label] = {**row, "dynamic_smem_bytes": smem(WGMMA_KERNELS[name], d)}
+        if any("setmaxnreg" in note for note in row["notes"]):
+            raise AssertionError(f"{label}: {row['notes']}")
+        # The main path's head dim: no spill and no serialised wgmma.
+        if d == 64 and (row["spill_store_bytes"] or row["notes"]):
+            raise AssertionError(f"{label} spills or serialises: {row}")
+        if (row["registers"] or 0) < WGMMA_ENTRY_REGISTERS:
+            raise AssertionError(
+                f"{label} starts at {row['registers']} registers, below the "
+                f"{WGMMA_ENTRY_REGISTERS} its setmaxnreg split needs")
+    if len(report) != 2 * len(WGMMA_KERNELS):
+        raise AssertionError(f"ptxas report lacks wgmma kernels: {sorted(report)}")
+    return report
 
 
 def check_reference(torch, models) -> None:
@@ -255,13 +309,14 @@ def main_path(torch, models, attention, steps: int, seed: int) -> dict:
                 "fa_bwd_dkv": cfg.n_layers}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, per_step = [], [], []
+    losses, step_ms, host_ms, per_step = [], [], [], []
     attention.reset_launches()
     seen = dict(attention.launches)
     for i in range(steps):
         tokens = host[i].to("cuda", non_blocking=True)
         t0 = time.perf_counter()
         state, metrics = step_fn(state, {"tokens": tokens})
+        host_ms.append((time.perf_counter() - t0) * 1e3)  # enqueued, not run
         loss = float(metrics["loss"])
         grad_norm = float(metrics["grad_norm"])
         torch.cuda.synchronize()
@@ -271,7 +326,7 @@ def main_path(torch, models, attention, steps: int, seed: int) -> dict:
         per_step.append(counts)
         losses.append(loss)
         log(f"step {i}: loss {loss:.5f} grad_norm {grad_norm:.4f} "
-            f"{step_ms[-1]:.1f} ms launches {counts}")
+            f"{step_ms[-1]:.1f} ms (host {host_ms[-1]:.1f}) launches {counts}")
         if not (math.isfinite(loss) and math.isfinite(grad_norm)):
             raise AssertionError(f"step {i}: non-finite loss or grad norm")
         if counts != expected:
@@ -288,6 +343,9 @@ def main_path(torch, models, attention, steps: int, seed: int) -> dict:
     profile["busy_share_of_steady_step"] = profile["device_busy_ms"] / median_ms
     return {"config": cfg.name, "batch": batch, "seq": seq, "steps": steps,
             "losses": losses, "step_ms": step_ms, "steady_step_ms": median_ms,
+            # Host time to enqueue each step; near step_ms, the host sets
+            # the step and the device waits on it.
+            "host_enqueue_ms": host_ms,
             "tokens_per_s": tokens_per_s,
             "mfu_bf16_989": tokens_per_s * fpt / PEAK_BF16_FLOPS,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -324,6 +382,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.library_path("flash_attention")
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    log("build report: " + json.dumps(build_report(_cuda)))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = check_kernels(torch, attention, gen)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -79,6 +80,63 @@ def compile_library(src: str, lib: str) -> None:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
     os.replace(tmp, lib)
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+_MANGLED = re.compile(r"(_Z\w+)")
+
+
+def kernel_label(mangled: str) -> str:
+    """`fa_fwd_wgmma_kernel<64>`, `fa_bwd_dq_kernel<bf16, 64>` and the like
+    from a mangled kernel name of flash_attention.cu."""
+    m = re.search(r"(fa_\w+?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    dtype = {"f": "float", "13__nv_bfloat16": "bf16", None: None}[m.group(2)]
+    return f"{m.group(1)}<{', '.join(a for a in (dtype, m.group(3)) if a)}>"
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Each kernel's entry in nvcc's `-Xptxas -v` report (the text of a
+    lib<name>.log): registers, stack and spill bytes, static shared memory,
+    and every report line about it that mentions wgmma or setmaxnreg (a
+    serialised wgmma pipeline, an ignored setmaxnreg)."""
+    kernels: dict[str, dict] = {}
+
+    def record(mangled: str) -> dict:
+        return kernels.setdefault(kernel_label(mangled), {
+            "registers": None, "stack_bytes": 0, "spill_store_bytes": 0,
+            "spill_load_bytes": 0, "static_smem_bytes": 0, "notes": []})
+
+    current = None
+    for line in log.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            current = record(entry.group(1))
+            continue
+        said = _MANGLED.sub("", line)  # kernel names may hold "wgmma"
+        if "wgmma" in said or "setmaxnreg" in said:
+            named = _MANGLED.search(line)
+            target = record(named.group(1)) if named else current
+            if target is not None:
+                target["notes"].append(line.strip())
+            continue
+        if current is None:
+            continue
+        spills = _SPILLS.search(line)
+        if spills:
+            current["stack_bytes"], current["spill_store_bytes"], \
+                current["spill_load_bytes"] = map(int, spills.groups())
+        used = _USED.search(line)
+        if used:
+            current["registers"] = int(used.group(1))
+            smem = _SMEM.search(line)
+            current["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return kernels
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,7 +11,9 @@ not, against the plain versions; the package's own build runs with
 SEEDS seeds, each fault with the first. One JSON line per variant gives,
 for each output, the largest |kernel - plain|, the largest share of its
 tolerance an element takes (`KERNEL_TOLERANCE`), the elements outside that
-tolerance, and the elements outside one with an atol ten times larger.
+tolerance, and the elements outside one with an atol ten times larger,
+and each kernel's time at the causal shape (CUDA events, the first seed),
+so a reading that edits the design shows what the edit costs or saves.
 Exits 1 unless the package's kernels pass and each fault is caught as
 FAULTS says (None: a reading, held to nothing).
 """
@@ -37,23 +39,33 @@ SOURCE = os.path.join(_cuda.CSRC_DIR, "flash_attention.cu")
 # reading). Each text occurs once in the source.
 FAULTS = [
     ("fwd: running max rescale (alpha) not applied",
-     "acc[j][e] *= alpha[e >> 1];", "acc[j][e] *= 1.f;", True),
-    ("bf16 products: one k in 16 of B read from its neighbour",
-     "b[(k0 + 2 * t + 9) * ldb + n]",
-     "b[(k0 + 2 * t + 9 - (t == 3)) * ldb + n]", True),
+     "o_acc[4 * j + e] *= alpha[e >> 1];", "o_acc[4 * j + e] *= 1.f;", True),
+    ("wgmma: K-major operands' k16 slice 3 read from slice 2",
+     "(kk & 3) * 32", "((kk & 3) == 3 ? 2 : (kk & 3)) * 32", True),
     ("dq: last live kv tile skipped",
      "n0 += kBlockN) {\n    __syncthreads();\n",
      "n0 += kBlockN) {\n    if (n0 + kBlockN >= kv_end) break;\n"
      "    __syncthreads();\n", True),
     ("dkv: last q tile skipped",
-     "q0 < Tq; q0 += kBlockN", "q0 < Tq - kBlockN; q0 += kBlockN", True),
+     "(Tq - q_begin + kDkvQ - 1) / kDkvQ", "(Tq - q_begin - 1) / kDkvQ", True),
     # P rounded to bf16 before P.V, as the backward kernels round it: a
     # loss of precision against `_fa_kernel`, whose distance from the
     # fp32-P plain forward is a reading.
     ("fwd: P rounded to bf16 (lo product dropped)",
-     "if constexpr (kHiLo) mma_bf16(acc[j], af_lo, bfr);", "", None),
+     "wgmma_rs(o_acc, p_lo[kk], v_desc);", "", None),
+    # hi = p truncated to bf16 (bit mask, no conversion) and lo = bf16(p -
+    # hi): one conversion per pair of p instead of two, P kept to 2^-16.
+    ("fwd: hi truncated, not rounded (a reading of the conversions' cost)",
+     "const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);\n"
+     "          const float2 hf = __bfloat1622float2(hi);\n"
+     "          p_hi[kk][i] = *reinterpret_cast<const uint32_t*>(&hi);\n"
+     "          p_lo[kk][i] = bf16x2(p0 - hf.x, p1 - hf.y);",
+     "const uint32_t b0 = __float_as_uint(p0) & 0xFFFF0000u;\n"
+     "          const uint32_t b1 = __float_as_uint(p1) & 0xFFFF0000u;\n"
+     "          p_hi[kk][i] = (b0 >> 16) | b1;\n"
+     "          p_lo[kk][i] = bf16x2(p0 - __uint_as_float(b0),\n"
+     "                               p1 - __uint_as_float(b1));", None),
 ]
-
 
 def edit(src: str, old: str, new: str) -> str:
     if src.count(old) != 1:
@@ -78,8 +90,22 @@ def merge(a: dict | None, b: dict) -> dict:
             for k in a}
 
 
+def time_ms(fn, iters: int = 10) -> float:
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def readings(seeds: int) -> dict:
-    """Each output of the bound kernels against its plain version."""
+    """Each output of the bound kernels against its plain version, and the
+    kernels' times at the causal shape."""
     b, t, h, d = SHAPE
     tol, tol_lse = attention.KERNEL_TOLERANCE["bf16"], attention.KERNEL_TOLERANCE["lse"]
     out = {}
@@ -101,6 +127,11 @@ def readings(seeds: int) -> dict:
                    "dq": compare(dq, attention.fa_bwd_dq_plain(*stats, **kw), tol),
                    "dk": compare(dk, dk_ref, tol), "dv": compare(dv, dv_ref, tol)}
             rows = {name: merge(rows.get(name), r) for name, r in got.items()}
+            if causal and seed == 0:
+                out["ms"] = {
+                    "fa_fwd": time_ms(lambda: attention.fa_fwd(q, k, v, **kw)),
+                    "fa_bwd_dq": time_ms(lambda: attention.fa_bwd_dq(*stats, **kw)),
+                    "fa_bwd_dkv": time_ms(lambda: attention.fa_bwd_dkv(*stats, **kw))}
             del q, k, v, do, o_ref, lse_ref, delta, stats, dk_ref, dv_ref
             torch.cuda.empty_cache()
         out["causal" if causal else "full"] = rows
@@ -108,7 +139,8 @@ def readings(seeds: int) -> dict:
 
 
 def caught(result: dict) -> bool:
-    return any(r["outside"] > 0 for rows in result.values() for r in rows.values())
+    return any(r["outside"] > 0 for key in ("causal", "full")
+               for r in result[key].values())
 
 
 def main() -> int:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import tempfile
 import time
 
@@ -27,7 +28,7 @@ ATTENTION_KERNELS = ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv")
 
 def kernel_group(name: str) -> str:
     for key in ATTENTION_KERNELS:
-        if f"{key}_kernel" in name:
+        if re.search(rf"{key}(_wgmma)?_kernel", name):
             return key
     lowered = name.lower()
     if any(k in lowered for k in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):

@@ -82,7 +82,22 @@ def _jax_stats(q, k, v, do, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("tq,tkv", [(64, 64), (100, 100), (48, 80)])
 def test_plain_kernels_match_jax(causal, tq, tkv):
-    q, k, v, do = _arrays(2, tq=tq, tkv=tkv, n=4)
+    _check_plain_kernels_against_jax(_arrays(2, tq=tq, tkv=tkv, n=4), causal)
+
+
+# Lengths where the kernels' TMA boxes run past T (zero-filled rows) and
+# the causal diagonal and ragged-edge masks meet: one row, one past a
+# 64-row tile, one past two 128-row tiles, and Tq != Tkv either way.
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tq,tkv", [(1, 1), (65, 65), (257, 257), (257, 300),
+                                    (300, 257), (1, 65)])
+def test_plain_kernels_match_jax_at_tile_edges(causal, tq, tkv):
+    _check_plain_kernels_against_jax(
+        _arrays(5, b=1, tq=tq, tkv=tkv, h=2, d=64, n=4), causal)
+
+
+def _check_plain_kernels_against_jax(arrays, causal):
+    q, k, v, do = arrays
     o_j, lse_j, delta_j, scale = _jax_stats(q, k, v, do, causal)
     _, vjp = jax.vjp(lambda q_, k_, v_: jax_mha(q_, k_, v_, causal=causal),
                      q, k, v)
@@ -148,6 +163,55 @@ def test_planted_faults_each_edit_the_kernel_source_once():
         assert kernel_faults.edit(src, old, new) != src, name
 
 
+# Lines as nvcc -Xptxas -v prints them for two kernels of the source.
+_PTXAS_LOG = """\
+ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized due to insufficient register resources for the \
+function '_ZN51_GLOBAL__N__ba107a96_18_flash_attention_cu_a0e9620c23fa_bwd_\
+dkv_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiifi'
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__ba107a96_18_flash_\
+attention_cu_a0e9620c23fa_bwd_dkv_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_\
+S1_PKfS3_P13__nv_bfloat16S5_iiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__ba107a96_18_flash_\
+attention_cu_a0e9620c23fa_bwd_dkv_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_\
+S1_PKfS3_P13__nv_bfloat16S5_iiifi
+    264 bytes stack frame, 264 bytes spill stores, 260 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1088 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__ba107a96_18_flash_\
+attention_cu_a0e9620c16fa_bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_\
+PKfS6_PS2_iiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__ba107a96_18_flash_\
+attention_cu_a0e9620c16fa_bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_\
+PKfS6_PS2_iiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, 16 bytes smem, 408 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_each_kernel():
+    report = _cuda.ptxas_report(_PTXAS_LOG)
+    assert sorted(report) == ["fa_bwd_dkv_wgmma_kernel<128>",
+                              "fa_bwd_dq_kernel<bf16, 64>"]
+    dkv = report["fa_bwd_dkv_wgmma_kernel<128>"]
+    assert (dkv["registers"], dkv["spill_store_bytes"],
+            dkv["spill_load_bytes"], dkv["static_smem_bytes"]) == (168, 264, 260, 0)
+    # Only the serialisation line is a note: kernel names holding "wgmma"
+    # are not.
+    assert len(dkv["notes"]) == 1 and "serialized" in dkv["notes"][0]
+    dq = report["fa_bwd_dq_kernel<bf16, 64>"]
+    assert (dq["registers"], dq["static_smem_bytes"], dq["notes"]) == (128, 16, [])
+
+
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN1a19fa_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16",
+     "fa_fwd_wgmma_kernel<64>"),
+    ("_ZN1a13fa_fwd_kernelIfLi128EEEvPKT_", "fa_fwd_kernel<float, 128>"),
+    ("_ZN1a16fa_bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_", "fa_bwd_dq_kernel<bf16, 64>"),
+])
+def test_kernel_labels(mangled, label):
+    assert _cuda.kernel_label(mangled) == label
+
+
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -166,11 +230,13 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_kernels_match_plain_on_card(cuda_device, causal):
+@pytest.mark.parametrize("b,tq,tkv,h,d", [
+    (2, 200, 200, 4, 64), (1, 257, 300, 4, 64), (1, 257, 300, 4, 128)])
+def test_kernels_match_plain_on_card(cuda_device, causal, b, tq, tkv, h, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v, do = (torch.randn(2, 200, 4, 64, generator=g, device=cuda_device,
-                               dtype=torch.bfloat16) for _ in range(4))
-    kw = dict(causal=causal, sm_scale=0.125)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=g, device=cuda_device,
+                               dtype=torch.bfloat16) for t in (tq, tkv, tkv, tq))
+    kw = dict(causal=causal, sm_scale=1.0 / math.sqrt(d))
     o, lse = attention.fa_fwd(q, k, v, **kw)
     o_p, lse_p = attention.fa_fwd_plain(q, k, v, **kw)
     delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
@@ -186,3 +252,30 @@ def test_kernels_match_plain_on_card(cuda_device, causal):
                                attention.fa_bwd_dq_plain(*stats, **kw).float(), **tol)
     torch.testing.assert_close(dk.float(), dk_p.float(), **tol)
     torch.testing.assert_close(dv.float(), dv_p.float(), **tol)
+
+
+@pytest.mark.parametrize("tq,tkv,causal,pairs", [
+    (4, 4, True, 10), (4, 4, False, 16), (5, 3, True, 6 + 2 * 3), (3, 5, True, 6)])
+def test_chip_smoke_bound_counts_kept_pairs(tq, tkv, causal, pairs):
+    """The bound counts the (q, k) pairs the causal mask keeps, k <= q."""
+    import chip_smoke
+
+    b, h, d = 1, 1, 64
+    got = chip_smoke.work("fa_fwd", b, tq, tkv, h, d, causal)
+    flops = 2.0 * 2 * pairs * d
+    nbytes = (2 * tq + 2 * tkv) * d * 2 + tq * 4
+    assert got["bound_ms"] == pytest.approx(
+        max(flops / chip_smoke.PEAK_BF16_FLOPS, nbytes / chip_smoke.PEAK_HBM_BYTES) * 1e3)
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::fa_fwd_wgmma_kernel<64>(CUtensorMap_st, ...)", "fa_fwd"),
+    ("void (anonymous namespace)::fa_bwd_dkv_wgmma_kernel<64>(...)", "fa_bwd_dkv"),
+    ("void (anonymous namespace)::fa_bwd_dq_kernel<__nv_bfloat16, 64>(...)", "fa_bwd_dq"),
+    ("void (anonymous namespace)::fa_fwd_kernel<float, 64>(...)", "fa_fwd"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul (cuBLAS)"),
+])
+def test_profile_groups_attention_kernels(name, group):
+    from ray_tpu_torch.scripts.profile_step import kernel_group
+
+    assert kernel_group(name) == group
