@@ -13,9 +13,9 @@ Run from a checkout of the repository on a machine with a Hopper card
 2. kernels: hold each flash-attention kernel against its plain PyTorch
    version on the card, in bf16 (bench-350m heads, llama3-8b heads, a
    ragged T, odd unequal Tq and Tkv at D 64 and 128) and fp32, causal and
-   not, within `KERNEL_TOLERANCE` of ray_tpu_torch/ops/attention.py; time
-   kernel, plain version and `scaled_dot_product_attention` as a
-   yardstick;
+   not, within `KERNEL_TOLERANCE` of ray_tpu_torch/ops/attention.py, and
+   two bf16 dq launches on the same inputs bit for bit; time kernel, plain
+   version and `scaled_dot_product_attention` as a yardstick;
 3. reference: a 2-layer model's loss and gradients at fp32 through the
    kernels on the card against the same model through the plain versions
    on the CPU;
@@ -24,7 +24,8 @@ Run from a checkout of the repository on a machine with a Hopper card
    for --steps steps; every kernel must launch 2L / L / L times a step.
    The step time is the median of the steps after the first. One further
    step runs under torch.profiler, after the launch counts are read, for
-   the device time by kernel group and the idle share
+   the device time by kernel group and the idle share; its attention
+   launches must all be the wgmma kernels, 2L / L / L of them
    (`ray_tpu_torch/scripts/profile_step.py` gives the full tables).
 
 Any failure exits nonzero and prints no result. The last lines are the
@@ -61,12 +62,13 @@ BF16_SHAPES = [("bench-350m", 8, 2048, 2048, 16, 64),
                ("odd-unequal-d128", 1, 257, 300, 4, 128)]
 FP32_SHAPES = [("fp32-d64", 1, 300, 300, 4, 64),
                ("fp32-d128", 1, 200, 200, 2, 128)]
-# The bf16 forward and dk/dv kernels: (kernel, its code for
-# rtt_flash_wgmma_smem). Each block is 384 threads at __launch_bounds__
-# (384, 1), so ptxas must start it at 65536 / 384 -> 168 registers: the
-# producer warpgroup's setmaxnreg down to 24 then frees the 72 more that
-# each consumer thread takes up to 240 (csrc/flash_attention.cu).
-WGMMA_KERNELS = {"fa_fwd_wgmma_kernel": 0, "fa_bwd_dkv_wgmma_kernel": 1}
+# The bf16 wgmma kernels: (kernel, its code for rtt_flash_wgmma_smem).
+# Each block is 384 threads at __launch_bounds__ (384, 1), so ptxas must
+# start it at 65536 / 384 -> 168 registers: the producer warpgroup's
+# setmaxnreg down to 24 then frees the 72 more that each consumer thread
+# takes up to 240 (csrc/flash_attention.cu).
+WGMMA_KERNELS = {"fa_fwd_wgmma_kernel": 0, "fa_bwd_dkv_wgmma_kernel": 1,
+                 "fa_bwd_dq_wgmma_kernel": 2}
 WGMMA_ENTRY_REGISTERS = 168
 
 
@@ -159,6 +161,9 @@ def check_kernels(torch, attention, gen) -> dict:
             o, lse = attention.fa_fwd(q, k, v, **kw)
             dq = attention.fa_bwd_dq(*stats, **kw)
             dk, dv = attention.fa_bwd_dkv(*stats, **kw)
+            # dq is summed in a fixed order (no atomics): same bits again.
+            if bf16 and not torch.equal(dq, attention.fa_bwd_dq(*stats, **kw)):
+                raise AssertionError(f"{label}: two dq launches differ")
             torch.cuda.synchronize()
             dk_ref, dv_ref = attention.fa_bwd_dkv_plain(*stats, **kw)
             # Each kernel's (max |diff|, largest share of its tolerance).
@@ -337,6 +342,11 @@ def main_path(torch, models, attention, steps: int, seed: int) -> dict:
     if not abs(losses[0] - (math.log(cfg.vocab_size) + 0.5)) < 1.0:
         raise AssertionError(f"first loss {losses[0]} far from ln(V) + 1/2")
     profile = profile_step(step_fn, state, host[-1].to("cuda"))
+    # bf16 runs the wgmma kernels only, each as often as its wrapper counts.
+    want = {f"{n}_wgmma_kernel<{cfg.head_dim}>": c for n, c in expected.items()}
+    if profile["attention_launches"] != want:
+        raise AssertionError(f"profiled step launched {profile['attention_launches']},"
+                             f" not {want}")
     median_ms = statistics.median(step_ms[1:] or step_ms)
     tokens_per_s = batch * seq / (median_ms / 1e3)
     fpt = 6.0 * cfg.num_params + 6 * cfg.n_layers * cfg.d_model * seq

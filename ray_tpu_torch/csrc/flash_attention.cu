@@ -3,10 +3,10 @@
 //
 // Replaces the three Pallas kernels of ray_tpu/ops/attention.py:
 //   fa_fwd_wgmma_kernel     <- _fa_kernel      (online-softmax forward, emits lse)
-//   fa_bwd_dq_kernel        <- _bwd_dq_kernel  (dq accumulated over kv tiles)
+//   fa_bwd_dq_wgmma_kernel  <- _bwd_dq_kernel  (dq accumulated over kv tiles)
 //   fa_bwd_dkv_wgmma_kernel <- _bwd_dkv_kernel (dk, dv accumulated over q tiles)
-// fp32 inputs run fa_fwd_kernel and fa_bwd_dkv_kernel, the SIMT versions of
-// the first and third (TF32 would not hold fp32's tolerance).
+// fp32 inputs run fa_fwd_kernel, fa_bwd_dq_kernel and fa_bwd_dkv_kernel,
+// SIMT versions of the three (TF32 would not hold fp32's tolerance).
 //
 // Layout. q, k, v, o, do and the gradients are contiguous (B, T, H, D)
 // tensors, read in place through their strides (no folded copy); lse and
@@ -14,20 +14,20 @@
 // bounds the T dimension; the SIMT kernels zero-fill) and are masked out of
 // every score, so any T >= 1 runs in the kernel.
 //
-// Design of the bf16 forward and dk/dv kernels. A block owns 128 rows (q
-// rows in the forward, kv rows in dk/dv) and loops over the other axis,
+// Design of the bf16 kernels. A block owns 128 rows (q rows in the
+// forward and dq, kv rows in dk/dv) and loops over the other axis,
 // which the TPU runs as its sequential grid dimension. It has three
 // warpgroups: two consumers of 64 rows each, and a producer whose first
 // warp issues every load (setmaxnreg gives its registers to the
 // consumers). The producer copies tiles with TMA (128-byte swizzle, 64
 // columns a box, so D = 128 is two boxes) into a ring of two stages with
-// full/empty mbarriers; the tile that stays (Q, or K and V) is loaded once.
-// Consumers run every product as wgmma (bf16 in, fp32 accumulate): scores
-// with both operands K-major in shared memory, and the second product with
-// its A operand (P, P^T or dS^T) taken from registers, converted in place
-// from the scores' accumulator fragment, and B (V, dO or Q) read MN-major.
-// No probability goes through shared memory. The forward issues its
-// heaviest causal q tiles first.
+// full/empty mbarriers; the tile that stays (Q, Q and dO, or K and V) is
+// loaded once. Consumers run every product as wgmma (bf16 in, fp32
+// accumulate): scores with both operands K-major in shared memory, and the
+// second product with its A operand (P, P^T, dS or dS^T) taken from
+// registers, converted in place from the scores' accumulator fragment, and
+// B (V, dO, K or Q) read MN-major. No probability goes through shared
+// memory. The forward and dq issue their heaviest causal q tiles first.
 //
 // Precision of P. `_fa_kernel` upcasts v to fp32, so its P.V product takes
 // P in fp32; the backward kernels cast P and dS to the input dtype before
@@ -48,8 +48,8 @@
 // warpgroup's products wait for its own softmax, and only the other
 // consumer warpgroup fills the tensor cores meanwhile. The causal skip
 // (tiles above the diagonal are never loaded) halves the work, as in the
-// TPU kernels. The dq kernel is still the first design: mma.sync fragments
-// per warp, tiles copied through registers.
+// TPU kernels. dq has the forward's three products and exp2 count per
+// tile, but no running max or rescale and one conversion to bf16 per pair.
 //
 // Arithmetic follows the Pallas kernels: scores in fp32, the scale applied
 // before masking, masked scores set to -1e30 (not -inf, so a fully masked
@@ -74,6 +74,7 @@ constexpr float kNegInf = -1e30f;
 
 using bf16 = __nv_bfloat16;
 
+// The SIMT kernels run fp32 only; bf16 runs the wgmma kernels.
 template <typename T>
 struct Traits;
 template <>
@@ -81,20 +82,6 @@ struct Traits<float> {
   static constexpr int kPad = 4;  // row pad (elements) against bank conflicts
   static constexpr int kVec = 4;  // elements per 16-byte load
 };
-template <>
-struct Traits<bf16> {
-  static constexpr int kPad = 8;
-  static constexpr int kVec = 8;
-};
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Copies rows [row0, row0 + kRows) of one (b, h) slice into shared memory
 // with row stride D + pad; rows at or past `rows` are zero-filled.
@@ -124,78 +111,29 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-__device__ __forceinline__ uint32_t pack2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The A fragment of one m16n8k16 step: rows g, g + 8, columns k0 + 2t + {0,
-// 1, 8, 9} of a row-major 16-row tile.
-__device__ __forceinline__ void load_a(uint32_t* af, const bf16* a, int lda,
-                                       int k0, int g, int t) {
-  af[0] = pack2(a + g * lda + k0 + 2 * t);
-  af[1] = pack2(a + (g + 8) * lda + k0 + 2 * t);
-  af[2] = pack2(a + g * lda + k0 + 8 + 2 * t);
-  af[3] = pack2(a + (g + 8) * lda + k0 + 8 + 2 * t);
-}
-
 // One warp: acc (16 x 8*NT, fragment layout) += A (16 x K) . B (K x 8*NT).
 // A is row-major at `a` (row stride lda). B is read as b[n*ldb + k] when
 // kNK (the n-major tile, e.g. K for Q.K^T) and as b[k*ldb + n] otherwise.
 // Fragment entry acc[j][e] is row g + 8*(e/2), column 8*j + 2*t + e%2, where
 // g = lane/4 and t = lane%4.
-template <typename T, int NT, int K, bool kNK>
-__device__ __forceinline__ void warp_gemm(float (*acc)[4], const T* a,
-                                          int lda, const T* b, int ldb) {
+template <int NT, int K, bool kNK>
+__device__ __forceinline__ void warp_gemm(float (*acc)[4], const float* a,
+                                          int lda, const float* b, int ldb) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (std::is_same<T, bf16>::value) {
+  for (int k = 0; k < K; ++k) {
+    const float a0 = a[g * lda + k];
+    const float a1 = a[(g + 8) * lda + k];
 #pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t af[4];
-      load_a(af, a, lda, k0, g, t);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = j * 8 + g;
-        uint32_t bfr[2];
-        if constexpr (kNK) {
-          bfr[0] = pack2(b + n * ldb + k0 + 2 * t);
-          bfr[1] = pack2(b + n * ldb + k0 + 8 + 2 * t);
-        } else {
-          bfr[0] = pack2(b[(k0 + 2 * t) * ldb + n], b[(k0 + 2 * t + 1) * ldb + n]);
-          bfr[1] = pack2(b[(k0 + 2 * t + 8) * ldb + n],
-                         b[(k0 + 2 * t + 9) * ldb + n]);
-        }
-        mma_bf16(acc[j], af, bfr);
-      }
-    }
-  } else {
-    for (int k = 0; k < K; ++k) {
-      const float a0 = a[g * lda + k];
-      const float a1 = a[(g + 8) * lda + k];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int c0 = j * 8 + 2 * t;
-        const float b0 = kNK ? b[c0 * ldb + k] : b[k * ldb + c0];
-        const float b1 = kNK ? b[(c0 + 1) * ldb + k] : b[k * ldb + c0 + 1];
-        acc[j][0] = fmaf(a0, b0, acc[j][0]);
-        acc[j][1] = fmaf(a0, b1, acc[j][1]);
-        acc[j][2] = fmaf(a1, b0, acc[j][2]);
-        acc[j][3] = fmaf(a1, b1, acc[j][3]);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const int c0 = j * 8 + 2 * t;
+      const float b0 = kNK ? b[c0 * ldb + k] : b[k * ldb + c0];
+      const float b1 = kNK ? b[(c0 + 1) * ldb + k] : b[k * ldb + c0 + 1];
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
     }
   }
 }
@@ -235,7 +173,7 @@ __device__ __forceinline__ void store_rows(T* dst, int64_t row_stride,
       const int row = row0 + g + 8 * (e >> 1);
       if (row < rows) {
         dst[row * row_stride + j * 8 + 2 * t + (e & 1)] =
-            from_float<T>(acc[j][e] * scale);
+            acc[j][e] * scale;
       }
     }
   }
@@ -302,7 +240,7 @@ __global__ void __launch_bounds__(kThreads)
 
     float s[kBlockN / 8][4];
     zero<kBlockN / 8>(s);
-    warp_gemm<T, kBlockN / 8, D, true>(s, qw, kLd, ks, kLd);
+    warp_gemm<kBlockN / 8, D, true>(s, qw, kLd, ks, kLd);
 
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -342,7 +280,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
     }
     __syncwarp();
-    warp_gemm<T, D / 8, kBlockN, false>(acc, pw, kLdp, vs, kLd);
+    warp_gemm<D / 8, kBlockN, false>(acc, pw, kLdp, vs, kLd);
     __syncwarp();  // the next tile's P overwrites pw
   }
 
@@ -363,8 +301,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dq. Grid (ceil(Tq/64), B*H). Replaces _bwd_dq_kernel: the block owns a q
-// tile and loops over the live kv tiles, dq in registers.
+// SIMT dq (fp32). Grid (ceil(Tq/64), B*H). The block owns a q tile and
+// loops over the live kv tiles, dq in registers.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -372,6 +310,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dq,
                      int H, int Tq, int Tkv, float scale, int causal) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 runs fa_bwd_dq_wgmma_kernel");
   constexpr int kLd = D + Traits<T>::kPad;
   constexpr int kLdp = kBlockN + Traits<T>::kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -421,8 +361,8 @@ __global__ void __launch_bounds__(kThreads)
     float dp[kBlockN / 8][4];
     zero<kBlockN / 8>(s);
     zero<kBlockN / 8>(dp);
-    warp_gemm<T, kBlockN / 8, D, true>(s, qw, kLd, ks, kLd);
-    warp_gemm<T, kBlockN / 8, D, true>(dp, dow, kLd, vs, kLd);
+    warp_gemm<kBlockN / 8, D, true>(s, qw, kLd, ks, kLd);
+    warp_gemm<kBlockN / 8, D, true>(dp, dow, kLd, vs, kLd);
 #pragma unroll
     for (int j = 0; j < kBlockN / 8; ++j) {
 #pragma unroll
@@ -434,11 +374,11 @@ __global__ void __launch_bounds__(kThreads)
         if (row >= Tq || col >= Tkv || (causal && col > row)) x = kNegInf;
         const float p = expf(x - lse_r[r]);
         dsw[(g + 8 * r) * kLdp + j * 8 + 2 * t + (e & 1)] =
-            from_float<T>(p * (dp[j][e] - delta_r[r]));
+            p * (dp[j][e] - delta_r[r]);
       }
     }
     __syncwarp();
-    warp_gemm<T, D / 8, kBlockN, false>(acc, dsw, kLdp, ks, kLd);
+    warp_gemm<D / 8, kBlockN, false>(acc, dsw, kLdp, ks, kLd);
     __syncwarp();
   }
   store_rows<T, D / 8>(dq + q_off, row_stride, acc, scale, q0 + warp * 16, Tq);
@@ -457,6 +397,8 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ delta, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int Tq, int Tkv, float scale,
                       int causal) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 runs fa_bwd_dkv_wgmma_kernel");
   constexpr int kLd = D + Traits<T>::kPad;
   constexpr int kLdp = kBlockN + Traits<T>::kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -505,7 +447,7 @@ __global__ void __launch_bounds__(kThreads)
 
     float p[kBlockN / 8][4];
     zero<kBlockN / 8>(p);
-    warp_gemm<T, kBlockN / 8, D, true>(p, kw, kLd, qs, kLd);
+    warp_gemm<kBlockN / 8, D, true>(p, kw, kLd, qs, kLd);
 #pragma unroll
     for (int j = 0; j < kBlockN / 8; ++j) {
 #pragma unroll
@@ -516,15 +458,15 @@ __global__ void __launch_bounds__(kThreads)
         float x = p[j][e] * scale;
         if (col >= Tq || row >= Tkv || (causal && row > col)) x = kNegInf;
         p[j][e] = expf(x - lse_s[qi]);
-        pw[(g + 8 * (e >> 1)) * kLdp + qi] = from_float<T>(p[j][e]);
+        pw[(g + 8 * (e >> 1)) * kLdp + qi] = p[j][e];
       }
     }
     __syncwarp();
-    warp_gemm<T, D / 8, kBlockN, false>(dv_acc, pw, kLdp, dos, kLd);
+    warp_gemm<D / 8, kBlockN, false>(dv_acc, pw, kLdp, dos, kLd);
 
     float dp[kBlockN / 8][4];
     zero<kBlockN / 8>(dp);
-    warp_gemm<T, kBlockN / 8, D, true>(dp, vw, kLd, dos, kLd);
+    warp_gemm<kBlockN / 8, D, true>(dp, vw, kLd, dos, kLd);
     __syncwarp();  // every lane is done reading P^T before dS^T replaces it
 #pragma unroll
     for (int j = 0; j < kBlockN / 8; ++j) {
@@ -532,11 +474,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int qi = j * 8 + 2 * t + (e & 1);
         pw[(g + 8 * (e >> 1)) * kLdp + qi] =
-            from_float<T>(p[j][e] * (dp[j][e] - delta_s[qi]));
+            p[j][e] * (dp[j][e] - delta_s[qi]);
       }
     }
     __syncwarp();
-    warp_gemm<T, D / 8, kBlockN, false>(dk_acc, pw, kLdp, qs, kLd);
+    warp_gemm<D / 8, kBlockN, false>(dk_acc, pw, kLdp, qs, kLd);
   }
   store_rows<T, D / 8>(dk + kv_off, row_stride, dk_acc, scale,
                        kv0 + warp * 16, Tkv);
@@ -556,6 +498,9 @@ constexpr int kProducerWarp = kConsumers * 4;  // first warp of the producer
 constexpr int kStages = 2;        // TMA ring depth
 constexpr int kFwdN = 128;        // kv rows of a forward tile
 constexpr int kDkvQ = 64;         // q rows of a dk/dv tile
+// kv rows of a dq tile. At 128, S and dP (64 floats a thread each) beside
+// dq and the dS fragments overflow a consumer's 240 registers even at D 64.
+constexpr int kDqN = 64;
 constexpr int kBoxCols = 64;      // 128 bytes: the swizzle's span
 constexpr int kBoxRowBytes = kBoxCols * 2;
 // setmaxnreg: 128 x 24 + 256 x 240 = 384 x 168, the register file at entry.
@@ -637,6 +582,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Waits for all but the last committed group.
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // Keeps registers that an in-flight wgmma reads or writes in place until
 // the wait before this call: the compiler sees them as read and written
@@ -972,6 +921,203 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dq. Grid (ceil(Tq/128), B*H); q tiles run last to first, so the
+// heaviest causal tiles start first. Replaces _bwd_dq_kernel: the block
+// keeps its Q and dO tile in shared memory and loops over the live kv
+// tiles, dq in registers. Each consumer computes S = Q.K^T and dP = dO.V^T
+// for its 64 q rows, forms dS = P (dP - delta) in the accumulators' layout
+// and rounds it to bf16 into the A fragments of dS.K, which reads the same
+// K tile MN-major. dq is summed in one place per q tile, in a fixed order:
+// no atomics, so two launches give the same bits.
+template <int D>
+struct DqSmem {  // byte offsets from a 1024-aligned base
+  static constexpr uint32_t kQTile = kTileRows * D * 2;
+  static constexpr uint32_t kKvTile = kDqN * D * 2;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDo = kQTile;
+  static constexpr uint32_t kK = 2 * kQTile;              // + stage * kKvTile
+  static constexpr uint32_t kV = kK + kStages * kKvTile;  // + stage * kKvTile
+  static constexpr uint32_t kBars = kV + kStages * kKvTile;
+  static constexpr uint32_t kBytes = kBars + (1 + 2 * kStages) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    fa_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap map_q,
+                           __grid_constant__ const CUtensorMap map_k,
+                           __grid_constant__ const CUtensorMap map_v,
+                           __grid_constant__ const CUtensorMap map_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dq, int H, int Tq, int Tkv,
+                           float scale, int causal) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t smem = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_bar = smem + L::kBars;
+  const uint32_t full_bar = q_bar + 8;                // + 8 * stage
+  const uint32_t empty_bar = full_bar + 8 * kStages;  // + 8 * stage
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTileRows;
+  // Causal: a kv tile is live iff its first row <= the q tile's last row.
+  const int kv_end = causal ? min(Tkv, q0 + kTileRows) : Tkv;
+  const int n_tiles = (kv_end + kDqN - 1) / kDqN;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kConsumers * kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kProducerWarp) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kProducerWarp && lane == 0) {
+      mbar_expect_tx(q_bar, 2 * L::kQTile);
+      for (int c = 0; c < D / kBoxCols; ++c) {
+        const uint32_t off = c * kTileRows * kBoxRowBytes;
+        tma_load(smem + L::kQ + off, &map_q, q_bar, c * kBoxCols, h, q0, b);
+        tma_load(smem + L::kDo + off, &map_do, q_bar, c * kBoxCols, h, q0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        mbar_wait(empty_bar + 8 * st, ((it / kStages) & 1) ^ 1);
+        const uint32_t full = full_bar + 8 * st;
+        const int n0 = it * kDqN;
+        mbar_expect_tx(full, 2 * L::kKvTile);
+        for (int c = 0; c < D / kBoxCols; ++c) {
+          const uint32_t off = st * L::kKvTile + c * kDqN * kBoxRowBytes;
+          tma_load(smem + L::kK + off, &map_k, full, c * kBoxCols, h, n0, b);
+          tma_load(smem + L::kV + off, &map_v, full, c * kBoxCols, h, n0, b);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int t = lane % 4;
+    const int q_first = q0 + wg * kWgRows;  // this warpgroup's first row
+    const int row0 = q_first + (warp % 4) * 16 + lane / 4;  // and row0 + 8
+    const float scale2 = scale * kLog2e;
+    const uint32_t q_tile = smem + L::kQ + wg * kWgRows * kBoxRowBytes;
+    const uint32_t do_tile = smem + L::kDo + wg * kWgRows * kBoxRowBytes;
+    constexpr uint32_t kQBox = kTileRows * kBoxRowBytes;
+    constexpr uint32_t kKvBox = kDqN * kBoxRowBytes;
+
+    // lse (log2 units) and delta of this thread's two rows, 0 past Tq.
+    float lse2[2], delta_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const int64_t i = static_cast<int64_t>(bh) * Tq + row;
+      lse2[r] = row < Tq ? lse[i] * kLog2e : 0.f;
+      delta_r[r] = row < Tq ? delta[i] : 0.f;
+    }
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(q_bar, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      const int n0 = it * kDqN;
+      const uint32_t k_tile = smem + L::kK + st * L::kKvTile;
+      const uint32_t v_tile = smem + L::kV + st * L::kKvTile;
+      const uint32_t empty = empty_bar + 8 * st;
+      // Wait even for a tile this warpgroup skips: its arrival on the empty
+      // barrier must fall in this tile's phase, not the previous one's.
+      mbar_wait(full_bar + 8 * st, (it / kStages) & 1);
+      // Causal: a tile wholly above this warpgroup's rows adds nothing.
+      if (causal && n0 > q_first + kWgRows - 1) {
+        mbar_arrive(empty);
+        continue;
+      }
+
+      float s_acc[kDqN / 2];
+      float dp_acc[kDqN / 2];
+      const uint64_t q_desc = tile_desc(q_tile, kQBox, false);
+      const uint64_t do_desc = tile_desc(do_tile, kQBox, false);
+      const uint64_t k_desc = tile_desc(k_tile, kKvBox, false);
+      const uint64_t v_desc = tile_desc(v_tile, kKvBox, false);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(s_acc, desc_k(q_desc, kk, kQBox), desc_k(k_desc, kk, kKvBox),
+                 kk);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss(dp_acc, desc_k(do_desc, kk, kQBox),
+                 desc_k(v_desc, kk, kKvBox), kk);
+      }
+      wgmma_commit();
+      // S and dP are two commit groups: P's exp2 runs while dP's wgmmas do.
+      wgmma_wait_one();
+      keep(s_acc);
+
+      // P = exp(scale*S - lse) after masking (diagonal and ragged tiles
+      // only).
+      const bool edge =
+          (causal && n0 + kDqN - 1 > q_first) || n0 + kDqN > Tkv;
+#pragma unroll
+      for (int j = 0; j < kDqN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s_acc[4 * j + e] * scale2;
+          if (edge) {
+            const int row = row0 + 8 * (e >> 1);
+            const int col = n0 + 8 * j + 2 * t + (e & 1);
+            if (col >= Tkv || (causal && col > row)) x = kNegInf;
+          }
+          s_acc[4 * j + e] = exp2_approx(x - lse2[e >> 1]);
+        }
+      }
+      wgmma_wait_all();
+      keep(dp_acc);
+      // dS = P (dP - delta) rounded to bf16 into dS.K's A fragments.
+      uint32_t ds_frag[kDqN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kDqN / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int src = frag_src(kk, i);
+          const float d = delta_r[i & 1];
+          ds_frag[kk][i] = bf16x2(s_acc[src] * (dp_acc[src] - d),
+                                  s_acc[src + 1] * (dp_acc[src + 1] - d));
+        }
+      }
+
+      const uint64_t k_mn = tile_desc(k_tile, kKvBox, true);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqN / 16; ++kk) {
+        wgmma_rs(dq_acc, ds_frag[kk], desc_mn(k_mn, kk));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      keep(dq_acc);
+#pragma unroll
+      for (int kk = 0; kk < kDqN / 16; ++kk) keep(ds_frag[kk]);
+      mbar_arrive(empty);
+    }
+
+    const int64_t row_stride = static_cast<int64_t>(H) * D;
+    const float dq_scale[2] = {scale, scale};
+    store_acc<D>(dq + (static_cast<int64_t>(b) * Tq * H + h) * D, row_stride,
+                 dq_acc, dq_scale, row0, t, Tq);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 dk, dv. Grid (ceil(Tkv/128), B*H); the first kv tiles, which meet
 // the most causal q tiles, start first. Replaces _bwd_dkv_kernel: the
 // block keeps its K and V tile in shared memory and loops over the live q
@@ -1231,6 +1377,10 @@ size_t fwd_wgmma_smem() {
   return FwdSmem<D>::kBytes + 1024;  // + the base's alignment to 1024
 }
 template <int D>
+size_t dq_wgmma_smem() {
+  return DqSmem<D>::kBytes + 1024;
+}
+template <int D>
 size_t dkv_wgmma_smem() {
   return DkvSmem<D>::kBytes + 1024;
 }
@@ -1276,18 +1426,37 @@ cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
                           const void* delta, void* dq, int B, int H, int Tq,
                           int Tkv, float scale, int causal,
                           cudaStream_t stream) {
-  const size_t smem =
-      (4 * tile_elems<T, D>() + warp_buf_elems<T>()) * sizeof(T);
-  auto kernel = fa_bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + kBlockM - 1) / kBlockM, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Tq, Tkv, scale, causal);
+  if constexpr (std::is_same<T, bf16>::value) {
+    CUtensorMap mq, mk, mv, mdo;
+    cudaError_t err = make_map(&mq, q, B, Tq, H, D, kTileRows);
+    if (err == cudaSuccess) err = make_map(&mdo, dout, B, Tq, H, D, kTileRows);
+    if (err == cudaSuccess) err = make_map(&mk, k, B, Tkv, H, D, kDqN);
+    if (err == cudaSuccess) err = make_map(&mv, v, B, Tkv, H, D, kDqN);
+    if (err != cudaSuccess) return err;
+    const size_t smem = dq_wgmma_smem<D>();
+    auto kernel = fa_bwd_dq_wgmma_kernel<D>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Tq + kTileRows - 1) / kTileRows, B * H);
+    kernel<<<grid, kSm90Threads, smem, stream>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dq), H, Tq, Tkv,
+        scale, causal);
+  } else {
+    const size_t smem =
+        (4 * tile_elems<T, D>() + warp_buf_elems<T>()) * sizeof(T);
+    auto kernel = fa_bwd_dq_kernel<T, D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Tq + kBlockM - 1) / kBlockM, B * H);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), H, Tq, Tkv, scale, causal);
+  }
   return cudaGetLastError();
 }
 
@@ -1399,12 +1568,14 @@ int rtt_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
 }
 
 // Dynamic shared memory, in bytes, of the bf16 wgmma kernels: kernel 0 is
-// the forward, 1 dk/dv; -1 for any other (kernel, head_dim).
+// the forward, 1 dk/dv, 2 dq; -1 for any other (kernel, head_dim).
 long long rtt_flash_wgmma_smem(int kernel, int head_dim) {
   if (kernel == 0 && head_dim == 64) return fwd_wgmma_smem<64>();
   if (kernel == 0 && head_dim == 128) return fwd_wgmma_smem<128>();
   if (kernel == 1 && head_dim == 64) return dkv_wgmma_smem<64>();
   if (kernel == 1 && head_dim == 128) return dkv_wgmma_smem<128>();
+  if (kernel == 2 && head_dim == 64) return dq_wgmma_smem<64>();
+  if (kernel == 2 && head_dim == 128) return dq_wgmma_smem<128>();
   return -1;
 }
 

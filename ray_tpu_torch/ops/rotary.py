@@ -10,7 +10,7 @@ import torch
 
 
 def rope_frequencies(head_dim: int, *, theta: float = 10000.0,
-                     device: torch.device | str = "cpu"):
+                     device: torch.device | str = "cuda"):
     """Inverse frequencies, shape (head_dim // 2,), fp32."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
     return 1.0 / (theta ** (exps / head_dim))

@@ -35,6 +35,12 @@ SHAPE = (8, 2048, 16, 64)  # B, T, H, D of bench-350m
 SEEDS = 4
 SOURCE = os.path.join(_cuda.CSRC_DIR, "flash_attention.cu")
 
+# dq's dP products, after the scores' commit.
+_DQ_DP = ("      wgmma_commit();\n#pragma unroll\n"
+          "      for (int kk = 0; kk < D / 16; ++kk) {\n"
+          "        wgmma_ss(dp_acc, desc_k(do_desc, kk, kQBox),\n"
+          "                 desc_k(v_desc, kk, kKvBox), kk);\n      }\n")
+
 # (name, text of the source, its replacement, caught: True, or None for a
 # reading). Each text occurs once in the source.
 FAULTS = [
@@ -43,11 +49,21 @@ FAULTS = [
     ("wgmma: K-major operands' k16 slice 3 read from slice 2",
      "(kk & 3) * 32", "((kk & 3) == 3 ? 2 : (kk & 3)) * 32", True),
     ("dq: last live kv tile skipped",
-     "n0 += kBlockN) {\n    __syncthreads();\n",
-     "n0 += kBlockN) {\n    if (n0 + kBlockN >= kv_end) break;\n"
-     "    __syncthreads();\n", True),
+     "(kv_end + kDqN - 1) / kDqN", "(kv_end - 1) / kDqN", True),
+    ("dq: delta not subtracted from dP",
+     "const float d = delta_r[i & 1];", "const float d = 0.f;", True),
     ("dkv: last q tile skipped",
      "(Tq - q_begin + kDkvQ - 1) / kDkvQ", "(Tq - q_begin - 1) / kDkvQ", True),
+    # dq's S and dP as one commit group, as the forward commits its scores:
+    # P's exp2 then waits for dP's wgmmas instead of running beside them.
+    ("dq: S and dP in one commit group (a reading)",
+     _DQ_DP + "      wgmma_commit();\n      // S and dP are two commit groups: P's"
+     " exp2 runs while dP's wgmmas do.\n      wgmma_wait_one();",
+     _DQ_DP[len("      wgmma_commit();\n"):] + "      wgmma_commit();\n"
+     "      wgmma_wait_all();", None),
+    # kv tiles of 128 rows: ptxas spills and serialises the wgmmas at D 64.
+    ("dq: kv tiles of 128 rows (a reading)",
+     "constexpr int kDqN = 64;", "constexpr int kDqN = 128;", None),
     # P rounded to bf16 before P.V, as the backward kernels round it: a
     # loss of precision against `_fa_kernel`, whose distance from the
     # fp32-P plain forward is a reading.

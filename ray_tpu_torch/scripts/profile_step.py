@@ -38,9 +38,16 @@ def kernel_group(name: str) -> str:
     return "elementwise and reductions"
 
 
+def attention_kernel_name(name: str) -> str:
+    """`fa_bwd_dq_wgmma_kernel<64>` from a demangled attention kernel name."""
+    m = re.search(r"fa_\w+_kernel<[^>]*>", name)
+    return m.group(0) if m else name
+
+
 def profile_step(step_fn, state, tokens, *, detail: bool = False) -> dict:
     """One train step under torch.profiler: device ms by kernel group and
-    the device's idle share of the step's wall time; with `detail`, also
+    the device's idle share of the step's wall time, and the launches of
+    each attention kernel by name; with `detail`, also
     the top 15 kernels and aten ops by device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -59,17 +66,20 @@ def profile_step(step_fn, state, tokens, *, detail: bool = False) -> dict:
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         raise AssertionError("profiler recorded no device kernels")
-    groups, by_name = {}, {}
+    groups, by_name, attention = {}, {}, {}
     for e in kernels:
         ms = e["dur"] / 1e3
         group = kernel_group(e["name"])
         groups[group] = groups.get(group, 0.0) + ms
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + ms
+        if group in ATTENTION_KERNELS:
+            label = attention_kernel_name(e["name"])
+            attention[label] = attention.get(label, 0) + 1
     busy_ms = sum(groups.values())
     # wall_ms includes the profiler's own host cost; kernel times do not.
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-           "kernels": len(kernels),
+           "kernels": len(kernels), "attention_launches": attention,
            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
     if detail:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]

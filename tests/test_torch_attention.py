@@ -207,9 +207,24 @@ def test_ptxas_report_reads_each_kernel():
      "fa_fwd_wgmma_kernel<64>"),
     ("_ZN1a13fa_fwd_kernelIfLi128EEEvPKT_", "fa_fwd_kernel<float, 128>"),
     ("_ZN1a16fa_bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_", "fa_bwd_dq_kernel<bf16, 64>"),
+    ("_ZN1a22fa_bwd_dq_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16iiifi",
+     "fa_bwd_dq_wgmma_kernel<64>"),
 ])
 def test_kernel_labels(mangled, label):
     assert _cuda.kernel_label(mangled) == label
+
+
+def test_build_report_covers_every_wgmma_kernel():
+    """chip_smoke.py's build report checks each wgmma kernel the source
+    defines, so a new one cannot slip out of it."""
+    import re
+
+    import chip_smoke
+
+    src = open(os.path.join(_cuda.CSRC_DIR, "flash_attention.cu")).read()
+    defined = set(re.findall(r"\b(\w+_wgmma_kernel)\(", src))
+    assert defined == set(chip_smoke.WGMMA_KERNELS)
+    assert len(set(chip_smoke.WGMMA_KERNELS.values())) == len(defined)
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -272,6 +287,8 @@ def test_chip_smoke_bound_counts_kept_pairs(tq, tkv, causal, pairs):
     ("void (anonymous namespace)::fa_fwd_wgmma_kernel<64>(CUtensorMap_st, ...)", "fa_fwd"),
     ("void (anonymous namespace)::fa_bwd_dkv_wgmma_kernel<64>(...)", "fa_bwd_dkv"),
     ("void (anonymous namespace)::fa_bwd_dq_kernel<__nv_bfloat16, 64>(...)", "fa_bwd_dq"),
+    ("void (anonymous namespace)::fa_bwd_dq_wgmma_kernel<64>(CUtensorMap_st, ...)",
+     "fa_bwd_dq"),
     ("void (anonymous namespace)::fa_fwd_kernel<float, 64>(...)", "fa_fwd"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTT", "matmul (cuBLAS)"),
 ])
@@ -279,3 +296,15 @@ def test_profile_groups_attention_kernels(name, group):
     from ray_tpu_torch.scripts.profile_step import kernel_group
 
     assert kernel_group(name) == group
+
+
+@pytest.mark.parametrize("name,label", [
+    ("void (anonymous namespace)::fa_bwd_dq_wgmma_kernel<64>(CUtensorMap_st, ...)",
+     "fa_bwd_dq_wgmma_kernel<64>"),
+    ("void (anonymous namespace)::fa_fwd_kernel<float, 128>(float const*, ...)",
+     "fa_fwd_kernel<float, 128>"),
+])
+def test_profile_labels_attention_kernels(name, label):
+    from ray_tpu_torch.scripts.profile_step import attention_kernel_name
+
+    assert attention_kernel_name(name) == label

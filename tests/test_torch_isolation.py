@@ -54,24 +54,24 @@ def test_package_imports_no_jax_and_no_ray_tpu():
 
 
 def test_sources_import_no_jax():
-    """No import statement in the package names the JAX stack or ray_tpu,
-    including imports inside functions, which the subprocess would miss."""
-    root = os.path.join(REPO, "ray_tpu_torch")
-    for dirpath, dirnames, files in os.walk(root):
+    """No import statement in the package or in chip_smoke.py names the JAX
+    stack or ray_tpu, including imports inside functions, which the
+    subprocess would miss."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, dirnames, files in os.walk(os.path.join(REPO, "ray_tpu_torch")):
         dirnames[:] = [d for d in dirnames if d != "_build"]  # build output
-        for f in files:
-            if not f.endswith(".py"):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
                 continue
-            tree = ast.parse(open(os.path.join(dirpath, f)).read())
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom):
-                    names = [node.module or ""]
-                else:
-                    continue
-                for name in names:
-                    assert name.split(".")[0] not in FORBIDDEN, (f, name)
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
 def test_entry_points_raise_without_cuda():
