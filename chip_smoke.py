@@ -26,7 +26,24 @@ Run from a checkout of the repository on a machine with a Hopper card
    step runs under torch.profiler, after the launch counts are read, for
    the device time by kernel group and the idle share; its attention
    launches must all be the wgmma kernels, 2L / L / L of them
-   (`ray_tpu_torch/scripts/profile_step.py` gives the full tables).
+   (`ray_tpu_torch/scripts/profile_step.py` gives the full tables);
+5. serving reference: a 2-layer fp32 model with llama3-8b's head layout
+   (32 query heads, 8 kv heads of 128) served by the port's
+   `PagedLLMEngine` on the card and on the CPU (block 16, chunk 128, one
+   prompt longer than a chunk): equal greedy tokens, and the prefill and
+   decode logits of the engine's device calls within `SERVE_REF_TOL`;
+6. serving main path: llama3-8b (full width and depth, random weights from
+   the seed) served by `PagedLLMEngine` with 8 slots, max_len 2048 and the
+   knob defaults. Eight requests from threads (prompts of 128 to 1900
+   tokens and a pair sharing a 512-token prefix, six greedy, two at
+   temperature 0.8) must all finish without error, launch no attention
+   kernel, and reuse the shared prefix; greedy tokens must be `forward`'s
+   argmax teacher-forced over prompt + output wherever its top-2 gap
+   exceeds `SERVE_MARGIN`. Then a decode round (eight short prompts at
+   width 8: burst ms, host enqueue ms, tokens/s, the step against its
+   least time), a second one under torch.profiler (device busy time, idle
+   share) and a prefill round (one 1900-token prompt alone). Every
+   serving line carries the card's name and power limit.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line, and
@@ -70,6 +87,23 @@ FP32_SHAPES = [("fp32-d64", 1, 300, 300, 4, 64),
 WGMMA_KERNELS = {"fa_fwd_wgmma_kernel": 0, "fa_bwd_dkv_wgmma_kernel": 1,
                  "fa_bwd_dq_wgmma_kernel": 2}
 WGMMA_ENTRY_REGISTERS = 168
+# Phase 5: fp32 logits card vs CPU (atol, rtol); the sums run in another
+# order on the card, and TF32 is off.
+SERVE_REF_TOL = (1e-4, 1e-4)
+# Phase 6: a greedy token may differ from the teacher-forced forward's
+# argmax only where forward's top-2 logit gap is at most this. Both run in
+# bf16, by different attention arithmetic (fp32 softmax over bf16 KV
+# against the flash kernel), and round each layer's output to bf16.
+SERVE_MARGIN = 0.125
+# Phase 6: the engine's first-token logits (stored for prefix hits), and
+# the logits of the first decode steps of one greedy request, against
+# forward's at the same positions, max |diff|. The logits have unit
+# spread; bf16 noise put the first-token ones 0.086 apart at most over 6
+# prompts x 128256 logits, so a fault of the prefill or the decode step (a
+# wrong position, block or head) shows as a difference of order one.
+SERVE_LOGITS_TOL = 0.25
+# Phase 6: the first decode steps whose logits are held to SERVE_LOGITS_TOL.
+SERVE_DECODE_STEPS_CHECKED = 4
 
 
 def log(msg: str) -> None:
@@ -363,6 +397,410 @@ def main_path(torch, models, attention, steps: int, seed: int) -> dict:
             "profiled_step": profile}
 
 
+def _tree_to(params: dict, device: str) -> dict:
+    return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in params.items()}
+
+
+def check_serving_reference(torch, models, card: str) -> dict:
+    """Phase 5: a 2-layer fp32 model with llama3-8b's head layout served by
+    the port's PagedLLMEngine on the card and on the CPU: the same greedy
+    tokens, and the prefill and decode logits of the functions the engine
+    calls within SERVE_REF_TOL."""
+    import dataclasses
+    import numpy as np
+
+    from ray_tpu_torch.models import decoding
+    from ray_tpu_torch.serve import PagedLLMEngine
+
+    cfg = dataclasses.replace(
+        models.configs.LLAMA3_8B, name="serve-ref-2l", n_layers=2, d_ff=1024,
+        vocab_size=1000, max_seq_len=512, remat=False,
+        compute_dtype=torch.float32)
+    params = models.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    rng = np.random.default_rng(2)
+    # 200 tokens: a chunk of 128, then a ragged one of 72.
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (200, 37, 128)]
+    tokens, chunks = {}, {}
+    for device in ("cpu", "cuda"):
+        eng = PagedLLMEngine(cfg, params, num_slots=4, max_len=512, block_size=16,
+                             prefill_chunk=128, device=device)
+        try:
+            tokens[device] = [eng.generate(p, max_tokens=24, timeout=600)
+                              for p in prompts]
+            chunks[device] = eng.stats["prefill_chunks"]
+        finally:
+            eng.shutdown()
+    if tokens["cuda"] != tokens["cpu"]:
+        raise AssertionError(f"serving reference: card tokens {tokens['cuda']} "
+                             f"!= cpu {tokens['cpu']}")
+    if chunks["cuda"] != chunks["cpu"] or chunks["cuda"] < 4:
+        raise AssertionError(f"serving reference: prefill chunks {chunks}")
+    # The engine's device calls, step by step: prefill the 200-token prompt
+    # in its two chunks, then decode its first four generated tokens.
+    logits = {}
+    for device in ("cpu", "cuda"):
+        p = _tree_to(params, device)
+        cache = decoding.init_paged_cache(cfg, 40, 16, device=device)
+        table = torch.arange(1, 33, dtype=torch.int32, device=device)
+        rows = []
+        with torch.no_grad():
+            for start in (0, 128):
+                nv = min(128, 200 - start)
+                toks = torch.zeros(128, dtype=torch.int32)
+                toks[:nv] = torch.tensor(prompts[0][start:start + nv])
+                cache, last = decoding.paged_prefill_chunk(
+                    p, cache, toks.to(device), table, start, nv, cfg)
+                rows.append(last)
+            for i, tok in enumerate(tokens["cpu"][0][:4]):
+                cache, step = decoding.paged_decode_step(
+                    p, cache, torch.tensor([tok], dtype=torch.int32, device=device),
+                    table[None], torch.tensor([200 + i], dtype=torch.int32, device=device),
+                    torch.tensor([True], device=device), cfg)
+                rows.append(step[0])
+        logits[device] = torch.stack(rows).cpu()
+    err, share = max_err(logits["cuda"], logits["cpu"], SERVE_REF_TOL)
+    log(f"serving reference [{card}]: tokens card == cpu over {len(prompts)} "
+        f"prompts (200, 37, 128 tokens; {chunks['cuda']} prefill chunks); "
+        f"prefill + decode logits max |diff| {err:.3g} ({share:.3f} of tolerance)")
+    return {"prompts": [len(x) for x in prompts], "prefill_chunks": chunks["cuda"],
+            "logits_max_abs_err": err, "tolerance": SERVE_REF_TOL,
+            "tolerance_share": share}
+
+
+def decode_burst_profile(torch, models, engine, cfg, card: str,
+                         live: int = 48, bursts: int = 5) -> dict:
+    """Decode bursts alone, outside the engine's loop (which must be idle):
+    the engine's burst function at width 8, every lane at `live` KV
+    tokens, timed on the host clock and then profiled (device busy ms and
+    kernels per burst, nothing else in the window). Then the same burst
+    on a model of the same depth and heads at narrow widths, whose kernels
+    are too short to hold the host back: its enqueue time is the host's
+    cost of a burst's launches, if its device busy time stays below it.
+    The lanes' tables point at the null block, so the bursts write only
+    garbage no request reads; the gather and the products do the same
+    work whatever the table holds."""
+    import dataclasses
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import decoding
+    from ray_tpu_torch.scripts.profile_step import trace_summary
+    from ray_tpu_torch.serve.llm import _to_compute
+
+    width, n_steps, b_max = engine.num_slots, engine.max_burst, engine._b_max
+    args = [torch.from_numpy(a).to("cuda") for a in (
+        np.arange(width, dtype=np.int32), np.zeros((width, b_max), np.int32),
+        np.full((width,), live, np.int32), np.ones((width,), bool),
+        np.zeros((width,), np.float32))]
+
+    def measure(params, cache, fn):
+        def one():
+            t0 = time.perf_counter()
+            _, toks = fn(params, cache, *args, engine._gen, n_steps=n_steps)
+            t_enq = time.perf_counter()
+            toks.cpu()
+            return (t_enq - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+        one()
+        timed = [one() for _ in range(bursts)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(bursts):
+                one()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        trace = trace_summary(prof, wall_ms)
+        return {"enqueue_ms": statistics.median(t[0] for t in timed),
+                "burst_ms": statistics.median(t[1] for t in timed),
+                "device_busy_ms": trace["device_busy_ms"] / bursts,
+                "kernels_per_step": trace["kernels"] / bursts / n_steps,
+                "groups_ms": {k: v / bursts for k, v in trace["groups_ms"].items()}}
+
+    with torch.no_grad():
+        full = measure(engine.params, engine.cache, engine._decode)
+        narrow_cfg = dataclasses.replace(cfg, d_model=512, d_ff=1024, vocab_size=1024)
+        narrow_params = models.init_params(
+            narrow_cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        narrow_params = _to_compute(narrow_params, narrow_cfg.compute_dtype,
+                                    torch.device("cuda"))
+        narrow_cache = decoding.init_paged_cache(narrow_cfg, engine.num_blocks,
+                                                 engine.block_size, device="cuda")
+        _, narrow_decode, _ = decoding.make_paged_engine_fns(narrow_cfg)
+        narrow = measure(narrow_params, narrow_cache, narrow_decode)
+        del narrow_params, narrow_cache
+    full["idle_share"] = max(0.0, 1.0 - full["device_busy_ms"] / full["burst_ms"])
+    log(f"serve [{card}]: decode bursts alone, width {width} x {n_steps} steps at "
+        f"{live} live tokens a lane: burst {full['burst_ms']:.2f} ms (host enqueue "
+        f"{full['enqueue_ms']:.2f}), device busy {full['device_busy_ms']:.2f} ms, idle "
+        f"share {full['idle_share']:.3f}, {full['kernels_per_step']:.0f} kernels a "
+        f"step; groups ms a burst {json.dumps(full['groups_ms'])}")
+    log(f"serve [{card}]: same burst at narrow widths (d_model 512, d_ff 1024, "
+        f"vocab 1024; 32 layers, 32/8 heads): host enqueue {narrow['enqueue_ms']:.2f} "
+        f"ms, burst {narrow['burst_ms']:.2f} ms, device busy "
+        f"{narrow['device_busy_ms']:.2f} ms, {narrow['kernels_per_step']:.0f} kernels "
+        f"a step")
+    return {"live_tokens": live, "llama3_8b": full, "narrow": narrow}
+
+
+def serve_main_path(torch, models, attention, seed: int, card: str) -> dict:
+    """Phase 6: llama3-8b served by PagedLLMEngine with the knob defaults.
+
+    Eight requests from threads: prompts of 128 ... 1900 tokens and a pair
+    sharing a 512-token prefix, the second of which arrives once the first
+    has its first token (so it finds the prefix registered). Every request
+    must finish without error; the greedy ones must agree with `forward`
+    teacher-forced over prompt + output (argmax, wherever the top-2 gap
+    exceeds SERVE_MARGIN), and one request's first-token and first decode
+    logits must be within SERVE_LOGITS_TOL of forward's. Then eight short
+    prompts decoding together (decode tokens/s, burst ms, the step against
+    its least time), decode bursts alone (`decode_burst_profile`) and one
+    long prompt alone (prefill tokens/s)."""
+    import dataclasses
+    import threading
+    import numpy as np
+
+    from ray_tpu_torch.models import decoding
+    from ray_tpu_torch.serve import PagedLLMEngine
+
+    cfg = models.configs.LLAMA3_8B
+    num_slots, max_len, new_tokens = 8, 2048, 64
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                                device="cuda")
+    engine = PagedLLMEngine(cfg, params, num_slots=num_slots, max_len=max_len,
+                            seed=seed)
+    del params  # the engine holds its bf16 copy
+    torch.cuda.empty_cache()
+    try:
+        engine.warmup()
+        build_s = time.perf_counter() - t0
+        weights_gib = sum(w.numel() * w.element_size() for w in
+                          models.training.tree_leaves(engine.params)) / 2**30
+        pool_gib = 2 * engine.cache.k.numel() * engine.cache.k.element_size() / 2**30
+        log(f"serve [{card}]: llama3-8b engine built in {build_s:.1f} s; weights "
+            f"{weights_gib:.2f} GiB, KV pool {engine.num_blocks} blocks of "
+            f"{engine.block_size} = {pool_gib:.2f} GiB, prefill_chunk "
+            f"{engine.prefill_chunk}, max_burst {engine.max_burst}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attention.reset_launches()
+
+        rng = np.random.default_rng(seed)
+        shared = rng.integers(0, cfg.vocab_size, 512).tolist()
+        lengths = (128, 256, 512, 1000, 1500, 1900)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+        prompts += [shared + rng.integers(0, cfg.vocab_size, n).tolist()
+                    for n in (88, 200)]
+        temps = [0.0, 0.8, 0.0, 0.8, 0.0, 0.0, 0.0, 0.0]
+        results = [None] * len(prompts)
+        pair_first = threading.Event()
+
+        def run(i):
+            if i == len(prompts) - 1 and not pair_first.wait(600):
+                results[i] = TimeoutError("the pair's first request never answered")
+                return
+            t_sub = time.perf_counter()
+            out, t_first = [], None
+            try:
+                for tok in engine.generate_stream(prompts[i], max_tokens=new_tokens,
+                                                  temperature=temps[i], timeout=600):
+                    if t_first is None:
+                        t_first = time.perf_counter()
+                        if i == len(prompts) - 2:
+                            pair_first.set()
+                    out.append(tok)
+                results[i] = (out, (t_first - t_sub) * 1e3, t_sub)
+            except BaseException as e:  # noqa: BLE001 - reported below
+                results[i] = e
+                pair_first.set()
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+        t_run = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        run_s = time.perf_counter() - t_run
+        failed = {i: repr(r) for i, r in enumerate(results) if not isinstance(r, tuple)}
+        if failed or any(t.is_alive() for t in threads):
+            raise AssertionError(f"serve: requests failed {failed}")
+        if any(len(r[0]) != new_tokens for r in results):
+            raise AssertionError(f"serve: lengths {[len(r[0]) for r in results]}")
+        mixed_stats = engine.engine_stats()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        kernel_launches = dict(attention.launches)
+        if any(kernel_launches.values()):
+            raise AssertionError(f"serve: the serving path launched {kernel_launches}")
+        if not (mixed_stats["prefix_hits"] >= 1 and mixed_stats["reuse_hits"] > 0
+                and mixed_stats["cow_copies"] > 0):
+            raise AssertionError(f"serve: the shared prefix was not reused: {mixed_stats}")
+        ttft = [round(r[1], 3) for r in results]
+        log(f"serve [{card}]: 8 requests (prompts {[len(p) for p in prompts]}, "
+            f"temps {temps}) done in {run_s:.2f} s; TTFT ms {ttft}; prefix_hits "
+            f"{mixed_stats['prefix_hits']} reuse_hits {mixed_stats['reuse_hits']} "
+            f"cow_copies {mixed_stats['cow_copies']}; attention kernel launches "
+            f"{kernel_launches}")
+
+        # Greedy outputs against forward, teacher-forced at bf16.
+        fwd_cfg = dataclasses.replace(cfg, remat=False)
+        checks = []
+        steps = SERVE_DECODE_STEPS_CHECKED
+        with torch.no_grad():
+            for i, (p, temp) in enumerate(zip(prompts, temps)):
+                if temp > 0:
+                    continue
+                out = results[i][0]
+                seq = torch.tensor(p + out[:-1], dtype=torch.long, device="cuda")
+                logits = models.forward(engine.params, seq[None], fwd_cfg)[0]
+                top = logits[len(p) - 1:].float().topk(2, dim=-1)
+                gap = (top.values[:, 0] - top.values[:, 1]).cpu()
+                agree = (top.indices[:, 0].cpu() == torch.tensor(out))
+                # The engine's own first-token logits, kept for prefix hits
+                # (read-only; the pool is large enough that none was evicted).
+                stored = engine.allocator._meta[tuple(p)].float()
+                first = logits[len(p) - 1].float()
+                checks.append((len(p), gap, agree,
+                               float((stored - first).abs().max()), float(first.std())))
+                if i == 0:   # forward's logits for the first decode steps
+                    fwd_steps = logits[len(p):len(p) + steps].float().clone()
+                del logits
+            # The engine's decode step on the first request, replayed on a
+            # pool of its own: prefill its prompt, then feed its first
+            # tokens; each step's logits against forward's.
+            p, out = prompts[0], results[0][0]
+            bs = engine.block_size
+            n_blocks = math.ceil((len(p) + steps) / bs)
+            replay = decoding.init_paged_cache(cfg, n_blocks + 1, bs, device="cuda")
+            table = torch.arange(1, n_blocks + 1, dtype=torch.int32, device="cuda")
+            one = torch.ones(1, dtype=torch.bool, device="cuda")
+            replay, _ = decoding.paged_prefill_chunk(
+                engine.params, replay, torch.tensor(p, dtype=torch.int32, device="cuda"),
+                table, 0, len(p), cfg)
+            rows = []
+            for k in range(steps):
+                replay, row = decoding.paged_decode_step(
+                    engine.params, replay,
+                    torch.tensor([out[k]], dtype=torch.int32, device="cuda"), table[None],
+                    torch.tensor([len(p) + k], dtype=torch.int32, device="cuda"), one, cfg)
+                rows.append(row[0].float())
+            decode_diff = float((torch.stack(rows) - fwd_steps).abs().max())
+            del replay, rows, fwd_steps
+        positions = sum(len(c[1]) for c in checks)
+        excused = sum(int((c[1] <= SERVE_MARGIN).sum()) for c in checks)
+        bad = [(n, int(j), float(g[j])) for n, g, a, *_ in checks
+               for j in torch.nonzero(~a & (g > SERVE_MARGIN)).flatten()]
+        mismatches = sum(int((~c[2]).sum()) for c in checks)
+        # How close the mismatches the margin excuses come to it.
+        sound_gap = max((float(g[j]) for _, g, a, *_ in checks
+                         for j in torch.nonzero(~a & (g <= SERVE_MARGIN)).flatten()),
+                        default=0.0)
+        first_diff = max(c[3] for c in checks)
+        log(f"serve [{card}]: greedy vs teacher-forced forward: {positions} "
+            f"positions, {mismatches} argmax mismatches, margin {SERVE_MARGIN} "
+            f"excused {excused} ({excused / positions:.3f}), largest gap of an "
+            f"excused mismatch {sound_gap:.4f}; mismatches beyond it {bad}; "
+            f"logits engine vs forward max |diff|: first token {first_diff:.4f}, "
+            f"first {steps} decode steps of the {len(prompts[0])}-token request "
+            f"{decode_diff:.4f} (bound {SERVE_LOGITS_TOL}; logit std "
+            f"{min(c[4] for c in checks):.3f}-{max(c[4] for c in checks):.3f})")
+        if bad:
+            raise AssertionError(f"serve: tokens disagree with forward beyond the "
+                                 f"margin at (prompt length, index, gap) {bad}")
+        if max(first_diff, decode_diff) > SERVE_LOGITS_TOL:
+            raise AssertionError(f"serve: logits differ from forward's by "
+                                 f"{max(first_diff, decode_diff)} > {SERVE_LOGITS_TOL}")
+
+        torch.cuda.reset_peak_memory_stats()  # the check above is not serving
+        # Decode round: eight short prompts prefill in one tick, then decode
+        # together at width 8 with no prefill pending.
+        def decode_round():
+            short = [rng.integers(0, cfg.vocab_size, 16).tolist()
+                     for _ in range(num_slots)]
+            out = [None] * num_slots
+
+            def run_short(i):
+                out[i] = engine.generate(short[i], max_tokens=new_tokens, timeout=600)
+
+            threads = [threading.Thread(target=run_short, args=(i,))
+                       for i in range(num_slots)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            if any(o is None or len(o) != new_tokens for o in out):
+                raise AssertionError("serve: a decode round did not finish")
+
+        n_log = len(engine.burst_log)
+        decode_round()
+        bursts = [b for b in list(engine.burst_log)[n_log:] if b[3] == num_slots]
+        burst_ms = [(b[2] - b[0]) * 1e3 for b in bursts]
+        enqueue_ms = [(b[1] - b[0]) * 1e3 for b in bursts]
+        emitted = sum(b[4] for b in bursts)
+        decode_tok_s = emitted / (sum(burst_ms) / 1e3)
+        burst = engine.max_burst
+        step_ms = statistics.median(burst_ms) / burst
+        # Least time of a width-8 decode step: every weight but the
+        # embedding read once, plus the live KV each lane reads (its
+        # positions 0..pos, growing by one a step) at the card's memory
+        # rate. The design's own traffic is larger: each lane gathers its
+        # whole table (b_max blocks) whatever its length.
+        n_weights = cfg.num_params - cfg.vocab_size * cfg.d_model
+        kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+        live_tokens = [burst * b[6] + b[5] * burst * (burst + 1) // 2 for b in bursts]
+        bound_ms = [(burst * n_weights * 2 + n * kv_token) / PEAK_HBM_BYTES * 1e3 / burst
+                    for n in live_tokens]
+        bound_step_ms = statistics.median(bound_ms)
+        distance = statistics.median(b_ms / burst / bd for b_ms, bd in zip(burst_ms, bound_ms))
+        window = engine._b_max * engine.block_size
+        gathered_ms = (n_weights * 2 + num_slots * window * kv_token) / PEAK_HBM_BYTES * 1e3
+        log(f"serve [{card}]: decode round, {len(bursts)} width-8 bursts of "
+            f"{burst}: burst ms median {statistics.median(burst_ms):.2f} "
+            f"(host enqueue {statistics.median(enqueue_ms):.2f}); decode "
+            f"{decode_tok_s:.1f} tokens/s; step {step_ms:.3f} ms vs least "
+            f"{bound_step_ms:.3f} ms ({distance:.1f}x; weights {n_weights * 2 / 1e9:.2f} "
+            f"GB + live KV {statistics.median(live_tokens) / burst * kv_token / 1e9:.3f} GB "
+            f"a step at 3.35 TB/s); with the gathered window "
+            f"({num_slots * window * kv_token / 1e9:.2f} GB a step) {gathered_ms:.3f} ms")
+        profiled = decode_burst_profile(torch, models, engine, cfg, card)
+
+        # Prefill round: one fresh 1900-token prompt alone.
+        long_prompt = rng.integers(0, cfg.vocab_size, 1900).tolist()
+        torch.cuda.synchronize()
+        t_sub = time.perf_counter()
+        engine.generate(long_prompt, max_tokens=1, timeout=600)
+        prefill_ms = (time.perf_counter() - t_sub) * 1e3
+        prefill_tok_s = len(long_prompt) / (prefill_ms / 1e3)
+        peak_gib = max(peak_gib, torch.cuda.max_memory_allocated() / 2**30)
+        snapshot = engine.allocator.snapshot()
+        log(f"serve [{card}]: prefill round, 1900 tokens alone: TTFT "
+            f"{prefill_ms:.1f} ms, {prefill_tok_s:.0f} tokens/s; peak memory "
+            f"{peak_gib:.2f} GiB; allocator {json.dumps(snapshot)}")
+    finally:
+        engine.shutdown()
+    return {"config": cfg.name, "num_slots": num_slots, "max_len": max_len,
+            "block_size": engine.block_size, "prefill_chunk": engine.prefill_chunk,
+            "max_burst": engine.max_burst, "num_blocks": engine.num_blocks,
+            "weights_gib": weights_gib, "kv_pool_gib": pool_gib, "build_s": build_s,
+            "prompts": [len(p) for p in prompts], "temperatures": temps,
+            "ttft_ms": ttft, "mixed_run_s": run_s, "mixed_stats": mixed_stats,
+            "teacher_forced": {"positions": positions, "mismatches": mismatches,
+                               "margin": SERVE_MARGIN, "excused": excused,
+                               "largest_excused_gap": sound_gap,
+                               "first_token_logits_max_abs_diff": first_diff,
+                               "decode_logits_max_abs_diff": decode_diff,
+                               "logits_tolerance": SERVE_LOGITS_TOL},
+            "decode_bursts": len(bursts), "burst_ms": burst_ms,
+            "burst_enqueue_ms": enqueue_ms, "decode_tokens_per_s": decode_tok_s,
+            "decode_live_kv_tokens": live_tokens, "decode_step_ms": step_ms,
+            "decode_step_bound_ms": bound_step_ms, "decode_step_distance": distance,
+            "decode_step_gathered_window_ms": gathered_ms,
+            "decode_bursts_alone": profiled,
+            "prefill_1900_ms": prefill_ms, "prefill_tokens_per_s": prefill_tok_s,
+            "peak_mem_gib": peak_gib, "allocator": snapshot}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -399,6 +837,10 @@ def main() -> int:
     check_reference(torch, models)
     run = main_path(torch, models, attention, args.steps, args.seed)
     log("main path: " + json.dumps(run))
+    serve_ref = check_serving_reference(torch, models, card)
+    log("serving reference: " + json.dumps(serve_ref))
+    serve_run = serve_main_path(torch, models, attention, args.seed, card)
+    log("serving main path: " + json.dumps(serve_run))
 
     kernels = []
     for name, replaces in KERNELS.items():

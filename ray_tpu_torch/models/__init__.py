@@ -2,7 +2,8 @@
 
 Plain functions on a nested dict of tensors with the JAX package's
 parameter tree, plus a thin `nn.Module`; `training` holds the
-single-device train step and `jax_bridge` carries weights across.
+single-device train step, `decoding` the paged serving steps, and
+`jax_bridge` carries weights across.
 """
 from ray_tpu_torch.models.transformer import (
     Transformer,
@@ -11,7 +12,7 @@ from ray_tpu_torch.models.transformer import (
     init_params,
     loss_fn,
 )
-from ray_tpu_torch.models import configs, jax_bridge, training
+from ray_tpu_torch.models import configs, decoding, jax_bridge, training
 
 __all__ = [
     "Transformer",
@@ -20,6 +21,7 @@ __all__ = [
     "forward",
     "loss_fn",
     "configs",
+    "decoding",
     "jax_bridge",
     "training",
 ]

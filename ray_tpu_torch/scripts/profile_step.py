@@ -45,10 +45,8 @@ def attention_kernel_name(name: str) -> str:
 
 
 def profile_step(step_fn, state, tokens, *, detail: bool = False) -> dict:
-    """One train step under torch.profiler: device ms by kernel group and
-    the device's idle share of the step's wall time, and the launches of
-    each attention kernel by name; with `detail`, also
-    the top 15 kernels and aten ops by device time."""
+    """One train step under torch.profiler: `trace_summary` of it, and
+    with `detail` also the aten ops by self device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -58,6 +56,19 @@ def profile_step(step_fn, state, tokens, *, detail: bool = False) -> dict:
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    out = trace_summary(prof, wall_ms)
+    if detail:
+        ops = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.key.startswith("aten::") and e.self_device_time_total > 0}
+        out["top_aten_ops_self_device_ms"] = dict(
+            sorted(ops.items(), key=lambda kv: -kv[1])[:15])
+    return out
+
+
+def trace_summary(prof, wall_ms: float) -> dict:
+    """From a finished torch.profiler run over `wall_ms` of host time:
+    device ms by kernel group, the device's busy ms and idle share, the
+    launches of each attention kernel by name and the top 15 kernels."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -71,7 +82,8 @@ def profile_step(step_fn, state, tokens, *, detail: bool = False) -> dict:
         ms = e["dur"] / 1e3
         group = kernel_group(e["name"])
         groups[group] = groups.get(group, 0.0) + ms
-        by_name[e["name"]] = by_name.get(e["name"], 0.0) + ms
+        # Summed under the first 80 characters of the name, the key shown.
+        by_name[e["name"][:80]] = by_name.get(e["name"][:80], 0.0) + ms
         if group in ATTENTION_KERNELS:
             label = attention_kernel_name(e["name"])
             attention[label] = attention.get(label, 0) + 1
@@ -81,13 +93,8 @@ def profile_step(step_fn, state, tokens, *, detail: bool = False) -> dict:
            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "kernels": len(kernels), "attention_launches": attention,
            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
-    if detail:
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-        ops = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-               if e.key.startswith("aten::") and e.self_device_time_total > 0}
-        out["top_kernels_ms"] = {n[:80]: ms for n, ms in top}
-        out["top_aten_ops_self_device_ms"] = dict(
-            sorted(ops.items(), key=lambda kv: -kv[1])[:15])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    out["top_kernels_ms"] = dict(top)
     return out
 
 

@@ -1,0 +1,682 @@
+"""The paged continuous-batching LLM engine (counterpart of
+`ray_tpu/serve/llm.py::PagedLLMEngine` and the `_EngineBase` surface it
+shares).
+
+KV lives in a flat pool of fixed-size blocks (`models/decoding.py`
+`PagedKVCache`); each request holds a block table, blocks are allocated on
+demand (`serve/kv_cache.py` `KVBlockAllocator`), shared between requests
+with a common prompt prefix (refcounted copy-on-write), and long prompts
+prefill in chunks interleaved with decode bursts so active streams'
+inter-token latency stays bounded during prefill storms.
+
+Not ported yet, each raising NotImplementedError where a caller could ask
+for it (ROADMAP queue A, item 1 unless named): speculative decoding
+(`speculation_k >= 2`), the object-store arena (`store=`, item 8), the
+disaggregated import/export surface, serving observability (spans and
+histograms, item 8), the fixed-cache `LLMEngine` and `LLMDeployment`.
+"""
+from __future__ import annotations
+
+import math
+import queue
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.core.config import get_config
+from ray_tpu_torch.models.decoding import (
+    init_paged_cache, make_paged_engine_fns, sample_one)
+from ray_tpu_torch.models.transformer import TransformerConfig, resolve_device
+from ray_tpu_torch.serve.kv_cache import KVBlockAllocator
+
+
+class StreamQueueFullError(Exception):
+    """A streaming consumer fell ``serve_stream_queue_max`` tokens behind
+    and its stream was dropped (backpressure instead of unbounded memory
+    growth)."""
+
+    def __init__(self, message: str = "", queue_max: int = 0):
+        super().__init__(message)
+        self.queue_max = queue_max
+
+
+class _Request:
+    __slots__ = ("prompt", "max_tokens", "temperature", "out_tokens",
+                 "done", "error", "slot", "submitted_at", "first_token_at",
+                 "token_q", "dropped", "blocks", "pos", "prefilling",
+                 "no_register")
+
+    def __init__(self, prompt, max_tokens, temperature, stream=False):
+        self.prompt = prompt
+        self.max_tokens = max_tokens
+        self.temperature = temperature
+        self.out_tokens: List[int] = []
+        self.done = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.slot = -1
+        self.submitted_at = time.perf_counter()
+        self.first_token_at: Optional[float] = None
+        # Streaming consumers read tokens as the engine emits them.
+        # BOUNDED: at the bound the stream drops with an explicit error
+        # (the engine frees the slot and blocks).
+        self.token_q: Optional["queue.Queue"] = (
+            queue.Queue(maxsize=max(1, get_config().serve_stream_queue_max))
+            if stream else None)
+        self.dropped = False
+        self.blocks: List[int] = []   # owned pool blocks
+        self.pos = 0                  # tokens prefilled
+        self.prefilling = True        # not yet decoding
+        # Resumed contexts embed generated tokens in `prompt`: never
+        # publish them as a reusable prompt prefix.
+        self.no_register = False
+
+    def emit(self, tok: int) -> None:
+        self.out_tokens.append(tok)
+        if self.token_q is not None and not self.dropped:
+            try:
+                self.token_q.put_nowait(tok)
+            except queue.Full:
+                self.dropped = True
+                self.error = StreamQueueFullError(
+                    f"stream consumer fell {self.token_q.maxsize} tokens "
+                    f"behind; stream dropped "
+                    f"(RAY_TPU_SERVE_STREAM_QUEUE_MAX)",
+                    queue_max=self.token_q.maxsize)
+
+
+class _EngineBase:
+    """Request-facing surface. Subclasses provide `max_len`, `stats`,
+    `_pending_put(req)`, and a background loop that completes requests."""
+
+    @staticmethod
+    def _resume_ctx(prompt_tokens, max_tokens, resume_tokens):
+        """Fold an interrupted stream's already-emitted tokens into the
+        admission context: the resumed request prefills `prompt + resume`
+        and generates only the REMAINING `max_tokens - len(resume)`
+        tokens, so a caller that kept the emitted prefix sees each token
+        exactly once."""
+        if not resume_tokens:
+            return list(prompt_tokens), max_tokens, False
+        ctx = list(prompt_tokens) + list(resume_tokens)
+        return ctx, max(0, max_tokens - len(resume_tokens)), True
+
+    def generate(self, prompt_tokens: List[int], *, max_tokens: int = 64,
+                 temperature: float = 0.0,
+                 timeout: Optional[float] = 300,
+                 resume_tokens: Optional[List[int]] = None) -> List[int]:
+        ctx, remaining, resumed = self._resume_ctx(
+            prompt_tokens, max_tokens, resume_tokens)
+        if len(ctx) >= self.max_len:
+            raise ValueError(f"prompt ({len(ctx)}) >= max_len")
+        if resumed and remaining == 0:
+            return []
+        req = _Request(ctx, remaining, temperature)
+        req.no_register = resumed
+        self.stats["requests"] += 1
+        self._pending_put(req)
+        if not req.done.wait(timeout):
+            raise TimeoutError("generation timed out")
+        if req.error is not None:
+            raise req.error
+        return req.out_tokens
+
+    def generate_stream(self, prompt_tokens: List[int], *,
+                        max_tokens: int = 64, temperature: float = 0.0,
+                        timeout: Optional[float] = 300,
+                        resume_tokens: Optional[List[int]] = None):
+        """Yield tokens as the engine produces them (TTFT = first yield;
+        the loop keeps decoding other slots while the consumer reads).
+        `resume_tokens` re-admits an interrupted stream: the engine
+        recomputes KV for prompt+resume and yields only the
+        continuation."""
+        ctx, remaining, resumed = self._resume_ctx(
+            prompt_tokens, max_tokens, resume_tokens)
+        if len(ctx) >= self.max_len:
+            raise ValueError(f"prompt ({len(ctx)}) >= max_len")
+        if resumed and remaining == 0:
+            return
+        req = _Request(ctx, remaining, temperature, stream=True)
+        req.no_register = resumed
+        self.stats["requests"] += 1
+        self._pending_put(req)
+        deadline = time.monotonic() + (timeout or 300)
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError("generation timed out")
+            try:
+                tok = req.token_q.get(timeout=min(remaining, 0.25))
+            except queue.Empty:
+                # A dropped stream may not fit its end sentinel into the
+                # full queue: the done event is the fallback signal.
+                if req.done.is_set() and req.token_q.empty():
+                    if req.error is not None:
+                        raise req.error
+                    return
+                continue
+            if tok is None:
+                if req.error is not None:
+                    raise req.error
+                return
+            yield tok
+
+    def engine_stats(self) -> Dict[str, Any]:
+        s = dict(self.stats)
+        s["p_ttft_mean"] = (s["ttft_sum"] / s["completed"]
+                            if s["completed"] else None)
+        return s
+
+    def shutdown(self):
+        self._stop = True
+        self._work.set()
+
+    def _finish_request(self, req: "_Request") -> None:
+        """Complete one request: stats + stream sentinel + done event."""
+        self.stats["completed"] += 1
+        if req.first_token_at is not None:
+            self.stats["ttft_sum"] += (req.first_token_at
+                                       - req.submitted_at)
+        if req.token_q is not None:
+            try:
+                req.token_q.put_nowait(None)  # stream sentinel
+            except queue.Full:
+                pass  # dropped stream: done event carries the signal
+        req.done.set()
+
+
+class PagedLLMEngine(_EngineBase):
+    """Paged/block KV-cache engine.
+
+    Engine tick: [admit waiting requests] -> [one decode burst over every
+    DECODING slot] -> [prefill chunks for the oldest PREFILLING slots,
+    up to `prefill_chunk` tokens]. Decode never waits for a whole prompt:
+    a max-length prompt occupies at most `prefill_chunk` tokens of device
+    time per tick, bounding the inter-token latency of active streams.
+
+    Admission: a request needs pool blocks covering its (non-shared)
+    prompt remainder. When the pool can't cover it, the request WAITS at
+    the head of the queue (no error) until completions free blocks.
+
+    Runs on `device` ("cuda" by default; "cpu" runs the same code on CPU
+    tensors). Tokens come back to the host once per burst.
+    """
+
+    def __init__(self, cfg: TransformerConfig, params, *,
+                 num_slots: int = 32, max_len: int = 1024,
+                 block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 max_burst: int = 8, prefix_sharing: Optional[bool] = None,
+                 speculation_k: Optional[int] = None,
+                 store=None, device: torch.device | str = "cuda"):
+        knobs = get_config()
+        if speculation_k is None:
+            speculation_k = knobs.serve_speculation_k
+        if speculation_k >= 2:
+            raise NotImplementedError(
+                "speculative decoding (speculation_k >= 2) is not ported "
+                "yet: ROADMAP queue A, item 1")
+        if store is not None:
+            raise NotImplementedError(
+                "the object-store arena (store=) is not ported yet: "
+                "ROADMAP queue A, item 8")
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "MoE (n_experts > 0) is not ported yet: ROADMAP queue A, MoE")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        # The JAX step casts the fp32 masters to the compute dtype inside
+        # every call; the copy made once here holds the same values, and
+        # casting ~32 GB of masters per step would set llama3-8b's
+        # decode time.
+        with torch.no_grad():
+            self.params = _to_compute(params, cfg.compute_dtype, self.device)
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.block_size = block_size or knobs.kv_block_size
+        # Default pool budget == a fixed-slot reservation for the same
+        # (num_slots, max_len). +1 for the null block.
+        self.num_blocks = (num_blocks or knobs.kv_block_count
+                           or (num_slots * max_len) // self.block_size + 1)
+        self.prefill_chunk = prefill_chunk or knobs.serve_prefill_chunk
+        # Shape tiers (powers of two) keep device work proportional to
+        # LOAD, not capacity: a burst over 3 active streams runs at width
+        # 4, not num_slots; a 16-token chunk runs at width 32, not
+        # prefill_chunk.
+        self._width_tiers = self._tiers(4, num_slots)
+        self._chunk_tiers = self._tiers(32, self.prefill_chunk)
+        self.eos_id = eos_id
+        self.max_burst = max(1, max_burst if eos_id is None else
+                             min(max_burst, 4))
+        self._b_max = math.ceil(max_len / self.block_size)
+        prefix_sharing = (knobs.kv_block_prefix_sharing
+                          if prefix_sharing is None else prefix_sharing)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.cache = init_paged_cache(cfg, self.num_blocks, self.block_size,
+                                      device=self.device)
+        self._prefill_chunk_fn, self._decode, self._copy_block = \
+            make_paged_engine_fns(cfg)
+        self.allocator = KVBlockAllocator(self.num_blocks, self.block_size,
+                                          prefix_sharing=prefix_sharing)
+        # Host-side engine state: per-slot block tables + lengths (the
+        # device step only ever sees fixed (S, B_max) arrays).
+        self._tables = np.zeros((num_slots, self._b_max), np.int32)
+        self._lengths = np.zeros((num_slots,), np.int32)
+        self._last_tokens = np.zeros((num_slots,), np.int32)
+        self._slots: List[Optional[_Request]] = [None] * num_slots
+        self._prefillq: deque = deque()   # slots awaiting prefill chunks
+        self._pending: deque = deque()
+        self._pending_lock = threading.Lock()
+        self._work = threading.Event()
+        self._stop = False
+        self.stats = {"requests": 0, "tokens_generated": 0,
+                      "ttft_sum": 0.0, "completed": 0,
+                      "prefix_hits": 0, "prefix_misses": 0,
+                      "prefill_chunks": 0, "queue_waits": 0,
+                      "preemptions": 0}
+        # Host clock per decode burst (perf_counter s): start, enqueued
+        # (the burst function returned), tokens on the host; the lane
+        # width, the tokens emitted, the active lanes and the KV tokens
+        # they held at the burst's start. Bounded.
+        self.burst_log: deque = deque(maxlen=4096)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="paged-llm-engine")
+        self._thread.start()
+
+    def _pending_put(self, req: "_Request") -> None:
+        with self._pending_lock:
+            self._pending.append(req)
+        self._work.set()
+
+    def shutdown(self, timeout: float = 30.0):
+        """Stop the loop and join its thread for up to `timeout` s (a tick
+        in flight on the device finishes first)."""
+        super().shutdown()
+        self._thread.join(timeout=timeout)
+
+    def engine_stats(self) -> Dict[str, Any]:
+        s = super().engine_stats()
+        s.update(self.allocator.snapshot())
+        s["queue_depth"] = len(self._pending)
+        s["active"] = sum(1 for r in self._slots if r is not None)
+        return s
+
+    def warmup(self) -> None:
+        """Run every width and chunk tier once (first launches, library
+        handles). Inactive-lane calls scatter into the null block:
+        garbage no request reads."""
+        with torch.no_grad():
+            for w in self._width_tiers:
+                z = self._dev(np.zeros((w,), np.int32))
+                self.cache, _ = self._decode(
+                    self.params, self.cache, z,
+                    self._dev(np.zeros((w, self._b_max), np.int32)), z,
+                    self._dev(np.zeros((w,), bool)),
+                    self._dev(np.zeros((w,), np.float32)), self._gen,
+                    n_steps=self.max_burst)
+            for c in self._chunk_tiers:
+                self.cache, _ = self._prefill_chunk_fn(
+                    self.params, self.cache,
+                    self._dev(np.zeros((c,), np.int32)),
+                    self._dev(np.zeros((self._b_max,), np.int32)), 0, 1)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def gauges(self) -> Dict[str, float]:
+        """Cheap autoscaling signals."""
+        snap = self.allocator.snapshot()
+        return {"queue_depth": float(len(self._pending)),
+                "active": float(sum(1 for r in self._slots
+                                    if r is not None)),
+                "occupancy": snap["occupancy"]}
+
+    # -- engine loop ----------------------------------------------------
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. A copy, so later edits of
+        the host state cannot reach a queued step; pinned on CUDA, so the
+        copy does not wait for the work already queued."""
+        t = torch.from_numpy(np.array(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    @staticmethod
+    def _tiers(lo: int, hi: int) -> List[int]:
+        out = []
+        w = lo
+        while w < hi:
+            out.append(w)
+            w *= 2
+        out.append(hi)
+        return out
+
+    def _tier_for(self, tiers: List[int], n: int) -> int:
+        for t in tiers:
+            if n <= t:
+                return t
+        return tiers[-1]
+
+    def _free_slot(self) -> int:
+        for i, r in enumerate(self._slots):
+            if r is None:
+                return i
+        return -1
+
+    def _table_row(self, slot: int, blocks: List[int]) -> None:
+        self._tables[slot, :] = 0
+        self._tables[slot, :len(blocks)] = blocks
+
+    def _sample_first(self, logits: torch.Tensor, temperature: float) -> int:
+        temp = torch.tensor(temperature, dtype=torch.float32,
+                            device=self.device)
+        return int(sample_one(logits, temp, self._gen))
+
+    def _admit_one(self) -> bool:
+        slot = self._free_slot()
+        if slot < 0:
+            return False
+        with self._pending_lock:
+            req = self._pending[0] if self._pending else None
+        if req is None:
+            return False
+        bs = self.block_size
+        n = len(req.prompt)
+        shared, covered, meta = self.allocator.lookup_prefix(req.prompt)
+        if covered == n and meta is None and shared:
+            # Whole-prompt chain without stored logits (evicted): fall
+            # back to re-prefilling the tail chunk.
+            self.allocator.free(shared[-1:])
+            shared = shared[:-1]
+            covered = len(shared) * bs
+        need = math.ceil(n / bs) - len(shared)
+        # Admission wants one burst of decode growth on top of the
+        # prompt: cuts (but can't eliminate; preemption is the backstop)
+        # admit-then-deadlock on growth blocks.
+        headroom = need + math.ceil(self.max_burst / bs)
+        alloc = ((self.allocator.alloc(need)
+                  if self.allocator.can_alloc(headroom) else None)
+                 if need > 0 else [])
+        if alloc is None:
+            # Pool exhausted: the request WAITS at the queue head (no
+            # error); completions free blocks and wake the loop.
+            self.allocator.free(shared)
+            self.stats["queue_waits"] += 1
+            return False
+        with self._pending_lock:
+            self._pending.popleft()
+        blocks = shared + alloc
+        req.blocks = blocks
+        req.slot = slot
+        req.pos = covered
+        self._slots[slot] = req
+        self._table_row(slot, blocks)
+        self._lengths[slot] = 0
+        if covered > 0:
+            self.stats["prefix_hits"] += 1
+        if covered == n:
+            # Whole-prompt hit: sample the first token from the stored
+            # last-logits under THIS request's temperature, no prompt
+            # forward at all. COW the (shared) partial tail before decode
+            # appends into it.
+            try:
+                self._cow_tail(req)
+                self._begin_decode(req, self._sample_first(
+                    meta, req.temperature))
+            except BaseException as e:  # noqa: BLE001
+                self._fail_request(req, e)
+            return True
+        if covered == 0:
+            self.stats["prefix_misses"] += 1
+        self._prefillq.append(slot)
+        return True
+
+    def _cow_tail(self, req: "_Request", n_ctx: Optional[int] = None
+                  ) -> None:
+        """Give `req` an exclusively owned, writable tail block (device
+        copy when the tail is shared or registered)."""
+        n = len(req.prompt) if n_ctx is None else n_ctx
+        if n % self.block_size == 0 or not req.blocks:
+            return  # aligned: first append allocates a fresh block
+        tail = req.blocks[-1]
+        new, copied = self.allocator.cow(tail)
+        if copied:
+            self.cache = self._copy_block(self.cache, new, tail)
+            req.blocks[-1] = new
+            self._table_row(req.slot, req.blocks)
+
+    def _begin_decode(self, req: "_Request", first_tok: int) -> None:
+        # KV written so far = the prefilled context (a preempted request
+        # re-enters here with out_tokens already emitted).
+        n_ctx = len(req.prompt) + len(req.out_tokens)
+        if req.first_token_at is None:
+            req.first_token_at = time.perf_counter()
+        req.prefilling = False
+        req.emit(first_tok)
+        self._last_tokens[req.slot] = first_tok
+        self._lengths[req.slot] = n_ctx
+        self._maybe_finish(req.slot)
+
+    def _fail_request(self, req: "_Request", e: BaseException) -> None:
+        req.error = e
+        slot = req.slot
+        if 0 <= slot < self.num_slots and self._slots[slot] is req:
+            self._slots[slot] = None
+            self._tables[slot, :] = 0
+        if slot in self._prefillq:
+            self._prefillq.remove(slot)
+        self.allocator.free(req.blocks)
+        req.blocks = []
+        if req.token_q is not None:
+            try:
+                req.token_q.put_nowait(None)
+            except queue.Full:
+                pass
+        req.done.set()
+        self._work.set()   # the freed slot may admit the queue head
+
+    def _prefill_tick(self) -> bool:
+        """Prefill chunks in FIFO order under a TOKEN budget of
+        `prefill_chunk` per engine tick: a max-length prompt consumes the
+        whole budget in one wide chunk (then yields the device back to
+        decode: the ITL bound), while a tickful of short prompts batches
+        several narrow chunks into the same budget."""
+        budget = self.prefill_chunk
+        progressed = False
+        while self._prefillq and budget > 0:
+            slot = self._prefillq[0]
+            req = self._slots[slot]
+            if req is None:
+                self._prefillq.popleft()
+                continue
+            try:
+                # Preempted requests re-prefill their WHOLE context:
+                # prompt plus the tokens already emitted (the stream keeps
+                # every token; only the KV is recomputed).
+                ctx = req.prompt + req.out_tokens
+                n = len(ctx)
+                if not req.blocks:   # preemption freed them: re-alloc
+                    # Resume only with one burst of growth headroom on top
+                    # of the context, or the resumed request re-stalls on
+                    # the blocks it just freed and ping-pongs.
+                    bs = self.block_size
+                    headroom = math.ceil((n + self.max_burst) / bs)
+                    alloc = (self.allocator.alloc(math.ceil(n / bs))
+                             if self.allocator.can_alloc(headroom)
+                             else None)
+                    if alloc is None:
+                        self.stats["queue_waits"] += 1
+                        break        # wait for completions to free blocks
+                    req.blocks = alloc
+                    self._table_row(slot, req.blocks)
+                nv = min(budget, n - req.pos)
+                c = self._tier_for(self._chunk_tiers, nv)
+                nv = min(nv, c)
+                toks = np.zeros((c,), np.int32)
+                toks[:nv] = ctx[req.pos:req.pos + nv]
+                self.cache, last_logits = self._prefill_chunk_fn(
+                    self.params, self.cache, self._dev(toks),
+                    self._dev(self._tables[slot]), req.pos, nv)
+                req.pos += nv
+                budget -= nv
+                progressed = True
+                self.stats["prefill_chunks"] += 1
+                if req.pos >= n:
+                    self._prefillq.popleft()
+                    if not req.out_tokens and not req.no_register:
+                        # Publish the prompt's blocks for prefix reuse
+                        # BEFORE our own appends diverge the tail (COW
+                        # keeps the registered copy pristine).
+                        self.allocator.register_prefix(
+                            req.prompt, req.blocks, meta=last_logits)
+                    self._cow_tail(req, n)
+                    self._begin_decode(req, self._sample_first(
+                        last_logits, req.temperature))
+            except BaseException as e:  # noqa: BLE001
+                if self._prefillq and self._prefillq[0] == slot:
+                    self._prefillq.popleft()
+                self._fail_request(req, e)
+        return progressed
+
+    def _ensure_blocks(self, req: "_Request", upto: int) -> bool:
+        """Extend `req`'s table to cover positions [0, upto), allocating
+        on demand. False = pool exhausted; the slot sits out this burst
+        (it resumes when completions free blocks)."""
+        need = math.ceil(upto / self.block_size) - len(req.blocks)
+        if need <= 0:
+            return True
+        alloc = self.allocator.alloc(need)
+        if alloc is None:
+            return False
+        req.blocks.extend(alloc)
+        self._table_row(req.slot, req.blocks)
+        return True
+
+    def _decode_tick(self) -> bool:
+        burst = self.max_burst
+        idx: List[int] = []
+        stalled: List[int] = []
+        for i, req in enumerate(self._slots):
+            if req is None or req.prefilling:
+                continue
+            if self._ensure_blocks(req, int(self._lengths[i]) + burst):
+                idx.append(i)
+            else:
+                stalled.append(i)
+        if not idx:
+            if len(stalled) >= 2:
+                # Deadlock: every decoder needs growth blocks and the
+                # pool is exhausted by the decoders themselves. Preempt
+                # the youngest (recompute preemption): its blocks free
+                # the others; it re-prefills prompt+emitted later.
+                self._preempt(max(stalled,
+                                  key=lambda i:
+                                  self._slots[i].submitted_at))
+                return True   # the freed blocks let the next tick run
+            return False
+        # Compact the active slots into the smallest width tier: device
+        # work tracks the number of LIVE streams, not the configured
+        # capacity. All per-slot state is host-side, so lane mapping is
+        # just row selection.
+        w = self._tier_for(self._width_tiers, len(idx))
+        tokens = np.zeros((w,), np.int32)
+        tables = np.zeros((w, self._b_max), np.int32)
+        lengths = np.zeros((w,), np.int32)
+        active = np.zeros((w,), bool)
+        temps = np.zeros((w,), np.float32)
+        for j, i in enumerate(idx):
+            tokens[j] = self._last_tokens[i]
+            tables[j] = self._tables[i]
+            lengths[j] = self._lengths[i]
+            active[j] = True
+            temps[j] = self._slots[i].temperature
+        try:
+            t0 = time.perf_counter()
+            self.cache, tok_mat = self._decode(
+                self.params, self.cache, self._dev(tokens),
+                self._dev(tables), self._dev(lengths), self._dev(active),
+                self._dev(temps), self._gen, n_steps=burst)
+            t_enq = time.perf_counter()
+            tok_mat = tok_mat.cpu().numpy()          # (burst, w)
+            t1 = time.perf_counter()
+            emitted = 0
+            for j, i in enumerate(idx):
+                req = self._slots[i]
+                self._lengths[i] += burst   # KV written for every step
+                for step in range(burst):
+                    tok = int(tok_mat[step, j])
+                    if len(req.out_tokens) >= req.max_tokens:
+                        break  # over-generated tail: trim
+                    req.emit(tok)
+                    self._last_tokens[i] = tok
+                    self.stats["tokens_generated"] += 1
+                    emitted += 1
+                    if self.eos_id is not None and tok == self.eos_id:
+                        break
+                self._maybe_finish(i)
+            self.burst_log.append((t0, t_enq, t1, w, emitted, len(idx),
+                                   int(lengths.sum())))
+        except BaseException as e:  # noqa: BLE001
+            for req in self._slots:
+                if req is not None:
+                    self._fail_request(req, e)
+        return True
+
+    def _preempt(self, slot: int) -> None:
+        """Evict a stalled decoder: free its blocks (unblocking the
+        others) and queue it for full-context re-prefill. The stream
+        keeps every emitted token; only KV is recomputed."""
+        req = self._slots[slot]
+        self.allocator.free(req.blocks)
+        req.blocks = []
+        self._tables[slot, :] = 0
+        self._lengths[slot] = 0
+        req.pos = 0
+        req.prefilling = True
+        self._prefillq.append(slot)
+        self.stats["preemptions"] += 1
+
+    def _maybe_finish(self, slot: int) -> None:
+        req = self._slots[slot]
+        if req is None:
+            return
+        tok = req.out_tokens[-1] if req.out_tokens else None
+        hit_eos = self.eos_id is not None and tok == self.eos_id
+        full = (len(req.prompt) + len(req.out_tokens)
+                >= self.max_len - 1 - self.max_burst)
+        if hit_eos or full or len(req.out_tokens) >= req.max_tokens \
+                or req.dropped:
+            self._slots[slot] = None
+            self._tables[slot, :] = 0
+            self.allocator.free(req.blocks)
+            req.blocks = []
+            self._finish_request(req)
+            self._work.set()   # freed blocks may unblock the queue head
+
+    def _loop(self):
+        # Clear before the tick, wait after it: a request put while the
+        # tick runs sets the event again, so no wake-up is lost, and an
+        # idle engine blocks in wait() instead of polling.
+        with torch.no_grad():
+            while not self._stop:
+                self._work.clear()
+                progressed = False
+                while self._admit_one():
+                    progressed = True
+                progressed |= self._decode_tick()
+                progressed |= self._prefill_tick()
+                if not progressed:
+                    self._work.wait()
+
+
+def _to_compute(params, dtype: torch.dtype, device: torch.device):
+    """The parameter tree on `device`, with the weights the model casts at
+    use (all but the norms, which it reads in fp32) in the compute dtype."""
+    return {name: (_to_compute(w, dtype, device) if isinstance(w, dict)
+                   else w.detach().to(device=device) if name.endswith("norm")
+                   else w.detach().to(device=device, dtype=dtype))
+            for name, w in params.items()}

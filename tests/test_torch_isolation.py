@@ -85,3 +85,8 @@ def test_entry_points_raise_without_cuda():
         training.make_eval_step(configs.TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(configs.TINY)
+    from ray_tpu_torch.serve import PagedLLMEngine
+
+    params = init_params(configs.TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedLLMEngine(configs.TINY, params)
