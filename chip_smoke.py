@@ -43,7 +43,29 @@ Run from a checkout of the repository on a machine with a Hopper card
    width 8: burst ms, host enqueue ms, tokens/s, the step against its
    least time), a second one under torch.profiler (device busy time, idle
    share) and a prefill round (one 1900-token prompt alone). Every
-   serving line carries the card's name and power limit.
+   serving line carries the card's name and power limit;
+7. serving reference for the rest of the engine, on phase 5's model, each
+   part on the card and on the CPU: (a) `PagedLLMEngine` with
+   speculation_k 4 on prompts that repeat a segment (tokens and accepted
+   drafts card == CPU, accepted > 0, and on the card the tokens of the
+   same engine without speculation); (b) `LLMEngine` with a prefix cache
+   of 4 and speculation_k 0 and 4, one prompt sent twice (a prefix-cache
+   hit; tokens card == CPU and k 4 == k 0); (c) migration: a greedy stream
+   cut after its first burst, its `export_streams` ticket imported into a
+   second engine by `import_prefix`, and the stream resumed there must
+   give the uninterrupted tokens;
+8. this slice's main path at llama3-8b on phase 6's weights: (a)
+   `PagedLLMEngine` (8 slots, max_len 2048, knob defaults) with
+   speculation_k 4 and, in turns, without: 8 concurrent greedy requests
+   whose prompts repeat a random 64-token segment 2-8 times, 64 new tokens
+   each; every request without error, verify calls made, greedy tokens
+   against the teacher-forced `forward` as in phase 6; acceptance rate,
+   decode tokens/s, verify and burst ms by lane width, a verify call's
+   least time at width 8; (b) the fixed-slot
+   `LLMEngine` (8 slots, max_len 2048, buckets 64-512): 8 requests of
+   64-512 prompt tokens, one prompt sent twice (a prefix-cache hit), the
+   same checks, TTFT per prompt, then a decode round at width 8 (tokens/s)
+   and peak memory.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line, and
@@ -402,22 +424,31 @@ def _tree_to(params: dict, device: str) -> dict:
             for k, v in params.items()}
 
 
-def check_serving_reference(torch, models, card: str) -> dict:
-    """Phase 5: a 2-layer fp32 model with llama3-8b's head layout served by
-    the port's PagedLLMEngine on the card and on the CPU: the same greedy
-    tokens, and the prefill and decode logits of the functions the engine
-    calls within SERVE_REF_TOL."""
+def serve_ref_model(torch, models):
+    """Phases 5 and 7: 2 layers at fp32 with llama3-8b's width and heads (32
+    query heads over 8 kv heads of 128), d_ff 1024 and a vocab of 1000;
+    weights from seed 2, on the CPU."""
     import dataclasses
-    import numpy as np
-
-    from ray_tpu_torch.models import decoding
-    from ray_tpu_torch.serve import PagedLLMEngine
 
     cfg = dataclasses.replace(
         models.configs.LLAMA3_8B, name="serve-ref-2l", n_layers=2, d_ff=1024,
         vocab_size=1000, max_seq_len=512, remat=False,
         compute_dtype=torch.float32)
-    params = models.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    return cfg, models.init_params(cfg, torch.Generator().manual_seed(2),
+                                   device="cpu")
+
+
+def check_serving_reference(torch, models, card: str) -> dict:
+    """Phase 5: a 2-layer fp32 model with llama3-8b's head layout served by
+    the port's PagedLLMEngine on the card and on the CPU: the same greedy
+    tokens, and the prefill and decode logits of the functions the engine
+    calls within SERVE_REF_TOL."""
+    import numpy as np
+
+    from ray_tpu_torch.models import decoding
+    from ray_tpu_torch.serve import PagedLLMEngine
+
+    cfg, params = serve_ref_model(torch, models)
     rng = np.random.default_rng(2)
     # 200 tokens: a chunk of 128, then a ragged one of 72.
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (200, 37, 128)]
@@ -466,6 +497,48 @@ def check_serving_reference(torch, models, card: str) -> dict:
     return {"prompts": [len(x) for x in prompts], "prefill_chunks": chunks["cuda"],
             "logits_max_abs_err": err, "tolerance": SERVE_REF_TOL,
             "tolerance_share": share}
+
+
+def forward_agreement(torch, models, params, cfg, prompts, outs, card: str,
+                      on_logits=None) -> dict:
+    """Greedy outputs against `forward` teacher-forced at the compute dtype
+    over prompt + output: at each generated position the output must be
+    forward's argmax wherever forward's top-2 gap exceeds SERVE_MARGIN.
+    `on_logits(i, prompt, logits)` sees each request's logits. Logs and
+    returns the counts; raises on a mismatch beyond the margin."""
+    import dataclasses
+
+    fwd_cfg = dataclasses.replace(cfg, remat=False)
+    checks = []
+    with torch.no_grad():
+        for i, (p, out) in enumerate(zip(prompts, outs)):
+            seq = torch.tensor(p + out[:-1], dtype=torch.long, device="cuda")
+            logits = models.forward(params, seq[None], fwd_cfg)[0]
+            top = logits[len(p) - 1:].float().topk(2, dim=-1)
+            gap = (top.values[:, 0] - top.values[:, 1]).cpu()
+            checks.append((len(p), gap, top.indices[:, 0].cpu() == torch.tensor(out)))
+            if on_logits is not None:
+                on_logits(i, p, logits)
+            del logits
+    positions = sum(len(g) for _, g, _ in checks)
+    excused = sum(int((g <= SERVE_MARGIN).sum()) for _, g, _ in checks)
+    bad = [(n, int(j), float(g[j])) for n, g, a in checks
+           for j in torch.nonzero(~a & (g > SERVE_MARGIN)).flatten()]
+    mismatches = sum(int((~a).sum()) for *_, a in checks)
+    # How close the mismatches the margin excuses come to it.
+    sound_gap = max((float(g[j]) for _, g, a in checks
+                     for j in torch.nonzero(~a & (g <= SERVE_MARGIN)).flatten()),
+                    default=0.0)
+    log(f"serve [{card}]: greedy vs teacher-forced forward: {positions} "
+        f"positions, {mismatches} argmax mismatches, margin {SERVE_MARGIN} "
+        f"excused {excused} ({excused / positions:.3f}), largest gap of an "
+        f"excused mismatch {sound_gap:.4f}; mismatches beyond it {bad}")
+    if bad:
+        raise AssertionError(f"serve: tokens disagree with forward beyond the "
+                             f"margin at (prompt length, index, gap) {bad}")
+    return {"positions": positions, "mismatches": mismatches,
+            "margin": SERVE_MARGIN, "excused": excused,
+            "largest_excused_gap": sound_gap}
 
 
 def decode_burst_profile(torch, models, engine, cfg, card: str,
@@ -543,7 +616,53 @@ def decode_burst_profile(torch, models, engine, cfg, card: str,
     return {"live_tokens": live, "llama3_8b": full, "narrow": narrow}
 
 
-def serve_main_path(torch, models, attention, seed: int, card: str) -> dict:
+def run_streams(engine, prompts, new_tokens: int, temps=None, waits=None):
+    """Stream every prompt from a thread of its own, `new_tokens` each, at
+    `temps` (greedy by default). Request i of `waits` {i: j} is sent once
+    request j has its first token. Returns ([(tokens, TTFT ms)], wall s);
+    raises if a request failed, ended short or did not end."""
+    import threading
+
+    temps = temps or [0.0] * len(prompts)
+    waits = waits or {}
+    results = [None] * len(prompts)
+    first = [threading.Event() for _ in prompts]
+
+    def run(i):
+        if i in waits and not first[waits[i]].wait(600):
+            results[i] = TimeoutError(f"request {waits[i]} never answered")
+            first[i].set()
+            return
+        t_sub = time.perf_counter()
+        out, t_first = [], None
+        try:
+            for tok in engine.generate_stream(prompts[i], max_tokens=new_tokens,
+                                              temperature=temps[i], timeout=600):
+                if t_first is None:
+                    t_first = time.perf_counter()
+                    first[i].set()
+                out.append(tok)
+            results[i] = (out, (t_first - t_sub) * 1e3)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            results[i] = e
+        first[i].set()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    t_run = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    run_s = time.perf_counter() - t_run
+    failed = {i: repr(r) for i, r in enumerate(results) if not isinstance(r, tuple)}
+    if failed or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve: requests failed {failed}")
+    if any(len(r[0]) != new_tokens for r in results):
+        raise AssertionError(f"serve: lengths {[len(r[0]) for r in results]}")
+    return results, run_s
+
+
+def serve_main_path(torch, models, attention, seed: int, card: str):
     """Phase 6: llama3-8b served by PagedLLMEngine with the knob defaults.
 
     Eight requests from threads: prompts of 128 ... 1900 tokens and a pair
@@ -555,9 +674,8 @@ def serve_main_path(torch, models, attention, seed: int, card: str) -> dict:
     logits must be within SERVE_LOGITS_TOL of forward's. Then eight short
     prompts decoding together (decode tokens/s, burst ms, the step against
     its least time), decode bursts alone (`decode_burst_profile`) and one
-    long prompt alone (prefill tokens/s)."""
-    import dataclasses
-    import threading
+    long prompt alone (prefill tokens/s). Returns the results and the
+    engine's bf16 weights, which phase 8 serves again."""
     import numpy as np
 
     from ray_tpu_torch.models import decoding
@@ -594,40 +712,10 @@ def serve_main_path(torch, models, attention, seed: int, card: str) -> dict:
         prompts += [shared + rng.integers(0, cfg.vocab_size, n).tolist()
                     for n in (88, 200)]
         temps = [0.0, 0.8, 0.0, 0.8, 0.0, 0.0, 0.0, 0.0]
-        results = [None] * len(prompts)
-        pair_first = threading.Event()
-
-        def run(i):
-            if i == len(prompts) - 1 and not pair_first.wait(600):
-                results[i] = TimeoutError("the pair's first request never answered")
-                return
-            t_sub = time.perf_counter()
-            out, t_first = [], None
-            try:
-                for tok in engine.generate_stream(prompts[i], max_tokens=new_tokens,
-                                                  temperature=temps[i], timeout=600):
-                    if t_first is None:
-                        t_first = time.perf_counter()
-                        if i == len(prompts) - 2:
-                            pair_first.set()
-                    out.append(tok)
-                results[i] = (out, (t_first - t_sub) * 1e3, t_sub)
-            except BaseException as e:  # noqa: BLE001 - reported below
-                results[i] = e
-                pair_first.set()
-
-        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
-        t_run = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        run_s = time.perf_counter() - t_run
-        failed = {i: repr(r) for i, r in enumerate(results) if not isinstance(r, tuple)}
-        if failed or any(t.is_alive() for t in threads):
-            raise AssertionError(f"serve: requests failed {failed}")
-        if any(len(r[0]) != new_tokens for r in results):
-            raise AssertionError(f"serve: lengths {[len(r[0]) for r in results]}")
+        # The pair's second request arrives once the first has its first
+        # token, so it finds the prefix registered.
+        results, run_s = run_streams(engine, prompts, new_tokens, temps=temps,
+                                     waits={len(prompts) - 1: len(prompts) - 2})
         mixed_stats = engine.engine_stats()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         kernel_launches = dict(attention.launches)
@@ -644,28 +732,23 @@ def serve_main_path(torch, models, attention, seed: int, card: str) -> dict:
             f"{kernel_launches}")
 
         # Greedy outputs against forward, teacher-forced at bf16.
-        fwd_cfg = dataclasses.replace(cfg, remat=False)
-        checks = []
         steps = SERVE_DECODE_STEPS_CHECKED
+        firsts, fwd_steps = [], []
+
+        def logits_checks(i, p, logits):
+            # The engine's own first-token logits, kept for prefix hits
+            # (read-only; the pool is large enough that none was evicted).
+            stored = engine.allocator._meta[tuple(p)].float()
+            first = logits[len(p) - 1].float()
+            firsts.append((float((stored - first).abs().max()), float(first.std())))
+            if i == 0:   # forward's logits for the first decode steps
+                fwd_steps.append(logits[len(p):len(p) + steps].float().clone())
+
+        greedy = [i for i, temp in enumerate(temps) if temp == 0]
+        agreement = forward_agreement(
+            torch, models, engine.params, cfg, [prompts[i] for i in greedy],
+            [results[i][0] for i in greedy], card, on_logits=logits_checks)
         with torch.no_grad():
-            for i, (p, temp) in enumerate(zip(prompts, temps)):
-                if temp > 0:
-                    continue
-                out = results[i][0]
-                seq = torch.tensor(p + out[:-1], dtype=torch.long, device="cuda")
-                logits = models.forward(engine.params, seq[None], fwd_cfg)[0]
-                top = logits[len(p) - 1:].float().topk(2, dim=-1)
-                gap = (top.values[:, 0] - top.values[:, 1]).cpu()
-                agree = (top.indices[:, 0].cpu() == torch.tensor(out))
-                # The engine's own first-token logits, kept for prefix hits
-                # (read-only; the pool is large enough that none was evicted).
-                stored = engine.allocator._meta[tuple(p)].float()
-                first = logits[len(p) - 1].float()
-                checks.append((len(p), gap, agree,
-                               float((stored - first).abs().max()), float(first.std())))
-                if i == 0:   # forward's logits for the first decode steps
-                    fwd_steps = logits[len(p):len(p) + steps].float().clone()
-                del logits
             # The engine's decode step on the first request, replayed on a
             # pool of its own: prefill its prompt, then feed its first
             # tokens; each step's logits against forward's.
@@ -685,29 +768,14 @@ def serve_main_path(torch, models, attention, seed: int, card: str) -> dict:
                     torch.tensor([out[k]], dtype=torch.int32, device="cuda"), table[None],
                     torch.tensor([len(p) + k], dtype=torch.int32, device="cuda"), one, cfg)
                 rows.append(row[0].float())
-            decode_diff = float((torch.stack(rows) - fwd_steps).abs().max())
+            decode_diff = float((torch.stack(rows) - fwd_steps[0]).abs().max())
             del replay, rows, fwd_steps
-        positions = sum(len(c[1]) for c in checks)
-        excused = sum(int((c[1] <= SERVE_MARGIN).sum()) for c in checks)
-        bad = [(n, int(j), float(g[j])) for n, g, a, *_ in checks
-               for j in torch.nonzero(~a & (g > SERVE_MARGIN)).flatten()]
-        mismatches = sum(int((~c[2]).sum()) for c in checks)
-        # How close the mismatches the margin excuses come to it.
-        sound_gap = max((float(g[j]) for _, g, a, *_ in checks
-                         for j in torch.nonzero(~a & (g <= SERVE_MARGIN)).flatten()),
-                        default=0.0)
-        first_diff = max(c[3] for c in checks)
-        log(f"serve [{card}]: greedy vs teacher-forced forward: {positions} "
-            f"positions, {mismatches} argmax mismatches, margin {SERVE_MARGIN} "
-            f"excused {excused} ({excused / positions:.3f}), largest gap of an "
-            f"excused mismatch {sound_gap:.4f}; mismatches beyond it {bad}; "
-            f"logits engine vs forward max |diff|: first token {first_diff:.4f}, "
-            f"first {steps} decode steps of the {len(prompts[0])}-token request "
-            f"{decode_diff:.4f} (bound {SERVE_LOGITS_TOL}; logit std "
-            f"{min(c[4] for c in checks):.3f}-{max(c[4] for c in checks):.3f})")
-        if bad:
-            raise AssertionError(f"serve: tokens disagree with forward beyond the "
-                                 f"margin at (prompt length, index, gap) {bad}")
+        first_diff = max(f[0] for f in firsts)
+        log(f"serve [{card}]: logits engine vs forward max |diff|: first token "
+            f"{first_diff:.4f}, first {steps} decode steps of the "
+            f"{len(prompts[0])}-token request {decode_diff:.4f} (bound "
+            f"{SERVE_LOGITS_TOL}; logit std {min(f[1] for f in firsts):.3f}-"
+            f"{max(f[1] for f in firsts):.3f})")
         if max(first_diff, decode_diff) > SERVE_LOGITS_TOL:
             raise AssertionError(f"serve: logits differ from forward's by "
                                  f"{max(first_diff, decode_diff)} > {SERVE_LOGITS_TOL}")
@@ -715,25 +783,9 @@ def serve_main_path(torch, models, attention, seed: int, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()  # the check above is not serving
         # Decode round: eight short prompts prefill in one tick, then decode
         # together at width 8 with no prefill pending.
-        def decode_round():
-            short = [rng.integers(0, cfg.vocab_size, 16).tolist()
-                     for _ in range(num_slots)]
-            out = [None] * num_slots
-
-            def run_short(i):
-                out[i] = engine.generate(short[i], max_tokens=new_tokens, timeout=600)
-
-            threads = [threading.Thread(target=run_short, args=(i,))
-                       for i in range(num_slots)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            if any(o is None or len(o) != new_tokens for o in out):
-                raise AssertionError("serve: a decode round did not finish")
-
         n_log = len(engine.burst_log)
-        decode_round()
+        run_streams(engine, [rng.integers(0, cfg.vocab_size, 16).tolist()
+                             for _ in range(num_slots)], new_tokens)
         bursts = [b for b in list(engine.burst_log)[n_log:] if b[3] == num_slots]
         burst_ms = [(b[2] - b[0]) * 1e3 for b in bursts]
         enqueue_ms = [(b[1] - b[0]) * 1e3 for b in bursts]
@@ -779,15 +831,14 @@ def serve_main_path(torch, models, attention, seed: int, card: str) -> dict:
             f"{peak_gib:.2f} GiB; allocator {json.dumps(snapshot)}")
     finally:
         engine.shutdown()
-    return {"config": cfg.name, "num_slots": num_slots, "max_len": max_len,
+    return engine.params, {
+            "config": cfg.name, "num_slots": num_slots, "max_len": max_len,
             "block_size": engine.block_size, "prefill_chunk": engine.prefill_chunk,
             "max_burst": engine.max_burst, "num_blocks": engine.num_blocks,
             "weights_gib": weights_gib, "kv_pool_gib": pool_gib, "build_s": build_s,
             "prompts": [len(p) for p in prompts], "temperatures": temps,
             "ttft_ms": ttft, "mixed_run_s": run_s, "mixed_stats": mixed_stats,
-            "teacher_forced": {"positions": positions, "mismatches": mismatches,
-                               "margin": SERVE_MARGIN, "excused": excused,
-                               "largest_excused_gap": sound_gap,
+            "teacher_forced": {**agreement,
                                "first_token_logits_max_abs_diff": first_diff,
                                "decode_logits_max_abs_diff": decode_diff,
                                "logits_tolerance": SERVE_LOGITS_TOL},
@@ -799,6 +850,268 @@ def serve_main_path(torch, models, attention, seed: int, card: str) -> dict:
             "decode_bursts_alone": profiled,
             "prefill_1900_ms": prefill_ms, "prefill_tokens_per_s": prefill_tok_s,
             "peak_mem_gib": peak_gib, "allocator": snapshot}
+
+
+def migrate_stream(cfg, params, device: str, kw: dict, prompt, new_tokens: int) -> dict:
+    """Phase 7c on one device: engine A streams a greedy request and its loop
+    ends after the first decode burst (the cut; no clock decides where it
+    falls); A's `export_streams` ticket goes into engine B by
+    `import_prefix`, and B resumes the stream from the tokens the client
+    saw. Returns the uninterrupted tokens (from a third engine), the tokens
+    seen and continued, and B's counts."""
+    from ray_tpu_torch.serve import PagedLLMEngine
+
+    ref = PagedLLMEngine(cfg, params, device=device, prefix_sharing=False, **kw)
+    a, b = (PagedLLMEngine(cfg, params, device=device, **kw) for _ in range(2))
+    real_burst = a._decode
+
+    def last_burst(*args, **kwargs):
+        a._stop = True              # A's loop ends after this tick
+        return real_burst(*args, **kwargs)
+
+    try:
+        full = ref.generate(prompt, max_tokens=new_tokens, timeout=600)
+        a._decode = last_burst
+        stream = a.generate_stream(prompt, max_tokens=new_tokens, timeout=600)
+        seen = [next(stream) for _ in range(5)]
+        a._thread.join(timeout=600)
+        tickets = a.export_streams()
+        stream.close()
+        if len(tickets) != 1:
+            raise AssertionError(f"migration: {len(tickets)} tickets, not 1")
+        t = tickets[0]
+        imported = b.import_prefix(t["tokens"], t["kv"], t["block_size"])
+        cont = list(b.generate_stream(prompt, max_tokens=new_tokens,
+                                      resume_tokens=seen, timeout=600))
+    finally:
+        a._decode = real_burst      # no cycle through the closure keeps A
+        for eng in (ref, a, b):
+            eng.shutdown()
+    return {"full": full, "seen": seen, "continued": cont,
+            "ticket_tokens": len(t["tokens"]), "imported_blocks": imported,
+            "prefix_hits": b.stats["prefix_hits"],
+            "prefill_chunks": b.stats["prefill_chunks"]}
+
+
+def check_serving_slice(torch, models, card: str, devices=("cpu", "cuda")) -> dict:
+    """Phase 7: speculative decoding on both engines, the fixed-slot engine's
+    prefix cache and stream migration, on phase 5's model, each part on the
+    CPU and on the card (the last of `devices`): tokens and counts equal
+    across devices, speculation exact, the migrated stream uninterrupted."""
+    import numpy as np
+
+    from ray_tpu_torch.serve import LLMEngine, PagedLLMEngine
+
+    cfg, params = serve_ref_model(torch, models)
+    rng = np.random.default_rng(3)
+    # Prompts that repeat a segment; the random model's greedy
+    # continuations also fall into loops, which the drafter mines.
+    spec_prompts = [rng.integers(0, cfg.vocab_size, n).tolist() * reps
+                    for reps, n in ((4, 12), (3, 16), (6, 8))]
+    # The first prompt again last: a whole-prompt prefix-cache hit.
+    fixed_prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 90)]
+    fixed_prompts.append(fixed_prompts[0])
+    mig_prompt = rng.integers(0, cfg.vocab_size, 40).tolist()
+    paged_kw = dict(num_slots=4, max_len=512, block_size=16, prefill_chunk=128)
+    got = {}
+    for device in devices:
+        res = got[device] = {}
+        # Without speculation only on the card: its tokens must be the same.
+        for k in ((4, 0) if device == devices[-1] else (4,)):
+            eng = PagedLLMEngine(cfg, params, speculation_k=k, device=device, **paged_kw)
+            try:
+                res[f"paged_k{k}"] = [eng.generate(p, max_tokens=48, timeout=600)
+                                      for p in spec_prompts]
+                res[f"paged_k{k}_stats"] = {n: eng.stats[n] for n in
+                                            ("spec_proposed", "spec_accepted")}
+            finally:
+                eng.shutdown()
+        for k in (0, 4):
+            eng = LLMEngine(cfg, params, num_slots=4, max_len=512, prefix_cache_size=4,
+                            speculation_k=k, device=device)
+            try:
+                res[f"fixed_k{k}"] = [eng.generate(p, max_tokens=40, timeout=600)
+                                      for p in fixed_prompts]
+                res[f"fixed_k{k}_stats"] = {n: eng.stats[n] for n in (
+                    "prefix_hits", "prefix_misses", "spec_proposed", "spec_accepted")}
+            finally:
+                eng.shutdown()
+        res["migration"] = migrate_stream(cfg, params, device, paged_kw, mig_prompt, 24)
+    ref, dev = got[devices[0]], got[devices[-1]]
+    checks = {
+        "7a paged k4 tokens and drafts card == cpu":
+            dev["paged_k4"] == ref["paged_k4"]
+            and dev["paged_k4_stats"] == ref["paged_k4_stats"],
+        "7a drafts accepted": dev["paged_k4_stats"]["spec_accepted"] > 0,
+        "7a paged k4 == k0 on the card": dev["paged_k4"] == dev["paged_k0"],
+        "7b fixed tokens card == cpu": all(dev[f"fixed_k{k}"] == ref[f"fixed_k{k}"]
+                                          for k in (0, 4)),
+        "7b fixed k4 == k0, prefix-cache hit gives the miss's tokens": all(
+            r["fixed_k4"] == r["fixed_k0"] and r["fixed_k0"][2] == r["fixed_k0"][0]
+            for r in got.values()),
+        "7b prefix-cache hits": all(r[f"fixed_k{k}_stats"]["prefix_hits"] >= 1
+                                    for r in got.values() for k in (0, 4)),
+        "7c migrated stream == uninterrupted": all(
+            m["seen"] + m["continued"] == m["full"] and m["imported_blocks"] > 0
+            and m["prefix_hits"] >= 1 for m in (r["migration"] for r in got.values())),
+        "7c card == cpu": dev["migration"]["full"] == ref["migration"]["full"],
+    }
+    mig = dev["migration"]
+    log(f"serving slice reference [{card}]: 7a paged speculation_k 4 on "
+        f"{[len(p) for p in spec_prompts]}-token prompts, 48 new each: drafts "
+        f"{dev['paged_k4_stats']}; 7b LLMEngine {dev['fixed_k0_stats']} (k 0), "
+        f"{dev['fixed_k4_stats']} (k 4); 7c migration: ticket of "
+        f"{mig['ticket_tokens']} tokens, {mig['imported_blocks']} blocks imported, "
+        f"{mig['prefix_hits']} prefix hit, {mig['prefill_chunks']} prefill chunk; "
+        f"checks {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"serving slice reference failed: {checks}; {got}")
+    return {"devices": list(devices), "checks": checks,
+            **{k: v for k, v in dev.items() if k.endswith("_stats")},
+            "migration": {k: mig[k] for k in ("ticket_tokens", "imported_blocks",
+                                              "prefix_hits", "prefill_chunks")}}
+
+
+def _work_rate(entries) -> float:
+    """Tokens a second over burst_log / verify_log entries."""
+    entries = list(entries)
+    busy = sum(e[2] - e[0] for e in entries)
+    return sum(e[4] for e in entries) / busy if busy else 0.0
+
+
+def _ms_by_width(entries) -> dict:
+    """Median ms of burst_log / verify_log entries, by lane width."""
+    by = {}
+    for e in entries:
+        by.setdefault(e[3], []).append((e[2] - e[0]) * 1e3)
+    return {w: statistics.median(ms) for w, ms in sorted(by.items())}
+
+
+def _verify_least_ms(cfg, entries, k: int) -> list:
+    """Least time of each verify_log entry's call on an H100: every weight
+    but the embedding read once, and each live lane's KV up to its window's
+    last position read once, at the card's memory rate (bytes bound it:
+    the products are 2 FLOPs a weight for K tokens a lane)."""
+    n_weights = cfg.num_params - cfg.vocab_size * cfg.d_model
+    kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    return [(n_weights * 2 + (e[6] + e[5] * k) * kv_token) / PEAK_HBM_BYTES * 1e3
+            for e in entries]
+
+
+def serve_slice_main_path(torch, models, attention, params, seed: int, card: str) -> dict:
+    """Phase 8: this slice's main path at llama3-8b on phase 6's bf16 weights
+    (see the module docstring)."""
+    import numpy as np
+
+    from ray_tpu_torch.serve import LLMEngine, PagedLLMEngine
+
+    cfg = models.configs.LLAMA3_8B
+    num_slots, max_len, new_tokens = 8, 2048, 64
+    torch.cuda.empty_cache()
+    log(f"serve [{card}]: phase 8 starts with "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (the weights)")
+    rng = np.random.default_rng(seed + 8)
+    # 8a: prompt lookup's traffic, prompts that repeat a 64-token segment.
+    spec_prompts = [rng.integers(0, cfg.vocab_size, 64).tolist() * reps
+                    for reps in (2, 3, 4, 5, 6, 7, 8, 8)]
+    runs = []
+    for k in (0, 4, 4, 0):           # in turns
+        engine = PagedLLMEngine(cfg, params, num_slots=num_slots, max_len=max_len,
+                                seed=seed, speculation_k=k)
+        try:
+            engine.warmup()
+            attention.reset_launches()
+            results, run_s = run_streams(engine, spec_prompts, new_tokens)
+            launches = dict(attention.launches)
+            if any(launches.values()):
+                raise AssertionError(f"serve: the serving path launched {launches}")
+            stats = engine.engine_stats()
+            if k and not stats["spec_proposed"] > 0:
+                raise AssertionError(f"serve: no verify call ran: {stats}")
+            run = {"speculation_k": k, "run_s": run_s,
+                   "ttft_ms": [r[1] for r in results],
+                   "spec_proposed": stats["spec_proposed"],
+                   "spec_accepted": stats["spec_accepted"],
+                   "acceptance": (stats["spec_accepted"] / stats["spec_proposed"]
+                                  if stats["spec_proposed"] else None),
+                   "decode_tokens_per_s": _work_rate(
+                       list(engine.burst_log) + list(engine.verify_log)),
+                   "bursts": len(engine.burst_log), "verify_calls": len(engine.verify_log),
+                   "burst_ms_by_width": _ms_by_width(engine.burst_log),
+                   "verify_ms_by_width": _ms_by_width(engine.verify_log)}
+            wide = [e for e in engine.verify_log if e[3] == num_slots]
+            run["verify_least_ms_width8"] = (
+                statistics.median(_verify_least_ms(cfg, wide, k)) if wide else None)
+            if len(runs) < 2:         # each kind's first run against forward
+                run["teacher_forced"] = forward_agreement(
+                    torch, models, engine.params, cfg, spec_prompts,
+                    [r[0] for r in results], card)
+            runs.append(run)
+            log(f"serve [{card}]: 8a PagedLLMEngine speculation_k {k}, 8 greedy "
+                f"requests of {[len(p) for p in spec_prompts]} tokens, {new_tokens} "
+                f"new each: {run_s:.2f} s; drafts accepted {stats['spec_accepted']} of "
+                f"{stats['spec_proposed']} proposed ({run['acceptance']}); decode "
+                f"{run['decode_tokens_per_s']:.1f} tokens/s over {run['bursts']} "
+                f"bursts and {run['verify_calls']} verify calls; median ms by lane "
+                f"width: a burst of {engine.max_burst} steps "
+                f"{run['burst_ms_by_width']}, a verify call "
+                f"{run['verify_ms_by_width']} (least at width 8: "
+                f"{run['verify_least_ms_width8']} ms); TTFT ms "
+                f"{[round(t, 3) for t in run['ttft_ms']]}")
+        finally:
+            engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+
+    # 8b: the fixed-slot engine. The 512-token prompt is sent again once it
+    # has its first token (a prefix-cache hit), the rest once that has.
+    lengths = (512, 64, 100, 128, 200, 256, 300)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    prompts.insert(1, prompts[0])
+    waits = {1: 0, **{i: 1 for i in range(2, len(prompts))}}
+    engine = LLMEngine(cfg, params, num_slots=num_slots, max_len=max_len,
+                       prefill_buckets=(64, 128, 256, 512), seed=seed)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attention.reset_launches()
+        results, run_s = run_streams(engine, prompts, new_tokens, waits=waits)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(attention.launches)
+        if any(launches.values()):
+            raise AssertionError(f"serve: the serving path launched {launches}")
+        stats = engine.engine_stats()
+        if stats["prefix_hits"] != 1:
+            raise AssertionError(f"serve: the repeated prompt did not hit: {stats}")
+        agreement = forward_agreement(torch, models, engine.params, cfg, prompts,
+                                      [r[0] for r in results], card)
+        ttft = [r[1] for r in results]
+        log(f"serve [{card}]: 8b LLMEngine, 8 requests of {[len(p) for p in prompts]} "
+            f"tokens (the second a prefix-cache hit), {new_tokens} new each: "
+            f"{run_s:.2f} s; TTFT ms {[round(t, 3) for t in ttft]}; the hit's "
+            f"tokens == the miss's: {results[1][0] == results[0][0]}; {stats}")
+        # Decode round: eight 64-token prompts, 128 new tokens each; the
+        # bursts with all 8 slots live.
+        torch.cuda.reset_peak_memory_stats()
+        n_log = len(engine.burst_log)
+        run_streams(engine, [rng.integers(0, cfg.vocab_size, 64).tolist()
+                             for _ in range(num_slots)], 2 * new_tokens)
+        full = [b for b in list(engine.burst_log)[n_log:] if b[5] == num_slots]
+        decode_tok_s = _work_rate(full)
+        burst_ms = _ms_by_width(full).get(num_slots)
+        peak_gib = max(peak_gib, torch.cuda.max_memory_allocated() / 2**30)
+        kv_gib = 2 * engine.cache.k.numel() * engine.cache.k.element_size() / 2**30
+        log(f"serve [{card}]: 8b decode round, {len(full)} bursts with 8 live slots: "
+            f"{decode_tok_s:.1f} tokens/s, burst of {engine.max_burst} {burst_ms} ms; "
+            f"KV cache {kv_gib:.2f} GiB; peak memory {peak_gib:.2f} GiB")
+    finally:
+        engine.shutdown()
+    return {"config": cfg.name, "paged_speculation": runs,
+            "fixed": {"prompts": [len(p) for p in prompts], "ttft_ms": ttft,
+                      "run_s": run_s, "stats": stats, "teacher_forced": agreement,
+                      "decode_bursts": len(full), "decode_tokens_per_s": decode_tok_s,
+                      "burst_ms": burst_ms, "kv_cache_gib": kv_gib,
+                      "peak_mem_gib": peak_gib}}
 
 
 def main() -> int:
@@ -839,8 +1152,13 @@ def main() -> int:
     log("main path: " + json.dumps(run))
     serve_ref = check_serving_reference(torch, models, card)
     log("serving reference: " + json.dumps(serve_ref))
-    serve_run = serve_main_path(torch, models, attention, args.seed, card)
+    params, serve_run = serve_main_path(torch, models, attention, args.seed, card)
     log("serving main path: " + json.dumps(serve_run))
+    slice_ref = check_serving_slice(torch, models, card)
+    log("serving slice reference: " + json.dumps(slice_ref))
+    slice_run = serve_slice_main_path(torch, models, attention, params, args.seed, card)
+    log("serving slice main path: " + json.dumps(slice_run))
+    del params
 
     kernels = []
     for name, replaces in KERNELS.items():

@@ -3,7 +3,7 @@
 
 Same names, defaults and environment variables as the JAX package: each
 knob can be overridden with `RAY_TPU_<NAME>`, parsed to the declared type.
-Only the knobs the paged serving engine reads are here.
+Only the knobs the serving engines read are here.
 """
 from __future__ import annotations
 
@@ -43,9 +43,14 @@ class Config:
     # Per-request streaming token queue bound: a consumer that falls this
     # many tokens behind has its stream dropped with an explicit error.
     serve_stream_queue_max: int = 1024
-    # Prompt-lookup speculative decoding: 0/1 disables (the port has no
-    # speculative path yet; >= 2 raises in the engine).
+    # Prompt-lookup speculative decoding on the paged engine: the default
+    # draft window K for engines that don't pass speculation_k. 0/1
+    # disables; >= 2 verifies K candidates (1 carried token + K-1 n-gram
+    # proposals) per tick in one width-K call. Exact under greedy decoding.
     serve_speculation_k: int = 0
+    # Trailing n-gram length the drafter matches against each slot's own
+    # context (prompt + generated tokens) to find proposals.
+    serve_speculation_ngram: int = 2
 
     def __post_init__(self):
         for f in dataclasses.fields(self):

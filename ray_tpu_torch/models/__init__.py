@@ -2,7 +2,7 @@
 
 Plain functions on a nested dict of tensors with the JAX package's
 parameter tree, plus a thin `nn.Module`; `training` holds the
-single-device train step, `decoding` the paged serving steps, and
+single-device train step, `decoding` the serving steps, and
 `jax_bridge` carries weights across.
 """
 from ray_tpu_torch.models.transformer import (

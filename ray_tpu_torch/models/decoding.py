@@ -1,27 +1,31 @@
-"""Paged decoding: the block-pool KV cache, chunked prefill and fused
-decode bursts (counterpart of the paged half of
+"""Decoding: the contiguous slot cache and the paged block pool, with their
+prefill, decode, burst and speculative-verify steps (counterpart of
 `ray_tpu/models/decoding.py`).
 
-KV lives in a flat pool of fixed-size blocks, (L, N_blocks, block_size,
-Hkv, D), and each request holds an int32 block table mapping its sequence
-positions to pool blocks. The host-side allocator (`serve/kv_cache.py`)
-decides which blocks a request owns; these functions only gather and
-scatter through the tables.
+Contiguous cache: k/v (L, S, T_max, Hkv, D) with S = slots and per-slot
+lengths (S,) driving the attention mask; `prefill` fills one slot from a
+bucket-padded prompt and `decode_step` advances every slot one token. The
+fixed-slot `LLMEngine` runs on it.
 
-Pool block 0 is the NULL block: the allocator never hands it out,
-unallocated table entries and inactive slots point at it, so every gather
-and scatter is in bounds. Writes routed to block 0 are garbage that no
-attention mask reads.
+Paged pool: KV lives in a flat pool of fixed-size blocks, (L, N_blocks,
+block_size, Hkv, D), and each request holds an int32 block table mapping
+its sequence positions to pool blocks. The host-side allocator
+(`serve/kv_cache.py`) decides which blocks a request owns; these functions
+only gather and scatter through the tables. Pool block 0 is the NULL block:
+the allocator never hands it out, unallocated table entries and inactive
+slots point at it, so every gather and scatter is in bounds. Writes routed
+to block 0 are garbage that no attention mask reads.
 
-The JAX package donates the cache to each jitted call; here the pool is
+The JAX package donates the cache to each jitted call; here both caches are
 updated in place (`index_put_` on the layer's view), which is what the
-donation buys. A functional copy of the pool per layer does not fit at
-llama3-8b. Attention is a gather plus an fp32 product in plain PyTorch, as
-it is plain XLA in the JAX package: there is no kernel on this path.
+donation buys. A functional copy of the cache per layer does not fit at
+llama3-8b. So a slice of the cache is a view that the next write changes:
+`extract_prefix` returns copies. Attention is an fp32 product in plain
+PyTorch, as it is plain XLA in the JAX package: there is no kernel on these
+paths.
 
-Not ported yet (ROADMAP queue A, item 1): speculative verification
-(`paged_verify_step`), the contiguous-cache engine's functions, and MoE
-layers (`n_experts > 0` raises).
+Not ported yet: `cache_shardings` (tensor-parallel serving, ROADMAP queue
+A, item 5) and MoE layers (`n_experts > 0` raises; item 6).
 """
 from __future__ import annotations
 
@@ -53,7 +57,7 @@ def _qkv(bp, x, cfg: TransformerConfig, positions):
 def _mlp(bp, x, cfg: TransformerConfig):
     if cfg.n_experts > 0:
         raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported yet: ROADMAP queue A, MoE")
+            "MoE (n_experts > 0) is not ported yet: ROADMAP queue A, item 6")
     cd = cfg.compute_dtype
     h = rms_norm(x, bp["mlp_norm"], eps=cfg.norm_eps)
     gate = h @ bp["w_gate"].to(cd)
@@ -68,6 +72,18 @@ def _gqa(kh, vh, cfg: TransformerConfig):
         kh = torch.repeat_interleave(kh, rep, dim=2)
         vh = torch.repeat_interleave(vh, rep, dim=2)
     return kh, vh
+
+
+def _attend(q, kh, vh, mask, cfg: TransformerConfig):
+    """Queries (S, K, H, D) over keys/values (S, T, Hkv, D) where `mask`
+    (S, K, T) holds: scores, softmax and P·V in fp32, the mask applied
+    after the scale. Returns (S, K, H*D) in the compute dtype."""
+    kh, vh = _gqa(kh, vh, cfg)
+    s = torch.einsum("sqhd,sthd->sqht", q.float(), kh.float())
+    s = torch.where(mask[:, :, None, :], s * cfg.head_dim ** -0.5, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    attn = torch.einsum("sqht,sthd->sqhd", p, vh.float())
+    return attn.reshape(*q.shape[:2], -1).to(cfg.compute_dtype)
 
 
 def _final_logits(params, x, cfg: TransformerConfig):
@@ -103,14 +119,243 @@ def sample_per_slot(logits: torch.Tensor, generator: torch.Generator,
     return torch.where(temps <= 0.0, greedy, sampled.to(torch.int32))
 
 
+def sample_logits(logits: torch.Tensor, generator: torch.Generator, *,
+                  temperature: float = 1.0, top_k: int = 0) -> torch.Tensor:
+    """(S, vocab) -> (S,) sampled token ids; temperature 0 = greedy."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    temps = torch.full(logits.shape[:1], float(temperature),
+                       device=logits.device)
+    return sample_per_slot(logits, generator, temps, top_k)
+
+
 def sample_one(last_logits: torch.Tensor, temp: torch.Tensor,
                generator: torch.Generator) -> torch.Tensor:
     """Re-sample a stored last-logits vector (prefix-cache hit path)."""
     return sample_per_slot(last_logits[None], generator, temp.reshape(1))[0]
 
 
+def _accept(logits, cand_tokens, temps, generator):
+    """The verify steps' acceptance rule: proposal i (column i of the
+    candidates) is right iff the greedy token at the previous position
+    equals it, and a slot accepts the run of right proposals. Sampled
+    slots accept nothing; their column 0 is sampled, so the call
+    degrades to an exact decode step. Returns (tok_out (S, K) int32,
+    accepted (S,) int32)."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)       # (S, K)
+    match = cand_tokens[:, 1:] == greedy[:, :-1]
+    acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+    accepted = torch.where(temps > 0.0, 0, acc).to(torch.int32)
+    tok_out = greedy.clone()
+    tok_out[:, 0] = sample_per_slot(logits[:, 0], generator, temps)
+    return tok_out, accepted
+
+
 # ---------------------------------------------------------------------------
-# paged KV cache
+# contiguous KV cache (the fixed-slot LLMEngine)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class KVCache:
+    k: torch.Tensor          # (L, S, T, Hkv, D)
+    v: torch.Tensor
+    lengths: torch.Tensor    # (S,) int32: tokens currently in each slot
+
+
+def init_cache(cfg: TransformerConfig, num_slots: int, max_len: int,
+               dtype: torch.dtype | None = None, *,
+               device: torch.device | str = "cuda") -> KVCache:
+    device = resolve_device(device)
+    dtype = dtype or cfg.compute_dtype
+    shape = (cfg.n_layers, num_slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   lengths=torch.zeros((num_slots,), dtype=torch.int32,
+                                       device=device))
+
+
+def prefill(params, cache: KVCache, tokens: torch.Tensor, slot: int,
+            length: int, cfg: TransformerConfig):
+    """Run a (1, T_pad) prompt through the model, writing its k/v into
+    `slot` at positions 0..T_pad-1; `length` (<= T_pad) is the true prompt
+    length. Returns (cache, logits of token length-1 (vocab,)).
+
+    The JAX function writes the whole slot row, zeros past T_pad; here
+    positions from T_pad on keep what they held. Every mask stops at the
+    slot's length, so neither is ever read. Only the last real row goes
+    through the final norm and head: the returned logits are a tensor of
+    their own, which the engine's prefix cache keeps."""
+    cd = cfg.compute_dtype
+    t = tokens.shape[1]
+    positions = torch.arange(t, device=tokens.device)
+    x = params["embed"].to(cd)[tokens.long()]                 # (1, T, d)
+    mask = ((positions[:, None] >= positions[None, :])
+            & (positions[None, :] < length))[None]            # (1, T, T)
+    for i in range(cfg.n_layers):
+        bp = _layer(params, i)
+        q, k, v = _qkv(bp, x, cfg, positions)                 # (1,T,H,D)
+        cache.k[i, slot, :t] = k[0].to(cache.k.dtype)
+        cache.v[i, slot, :t] = v[0].to(cache.v.dtype)
+        x = x + _attend(q, k, v, mask, cfg) @ bp["wo"].to(cd)
+        x = x + _mlp(bp, x, cfg)
+    cache.lengths[slot] = length
+    last = _final_logits(params, x[:, length - 1:length], cfg)
+    return cache, last[0, 0]
+
+
+def _wide_decode(params, cache: KVCache, tokens: torch.Tensor,
+                 active: torch.Tensor, cfg: TransformerConfig):
+    """Width-K core of `decode_step` and `verify_step`: tokens (S, K) at
+    positions lengths[s]..lengths[s]+K-1, their KV written into each
+    ACTIVE slot, attending to cache[:len] plus the in-window causal
+    prefix. Returns logits (S, K, vocab); callers advance `lengths`.
+
+    The JAX function writes every slot by `dynamic_update_slice`, whose
+    start is clamped to T-K, then keeps the new cache only where active.
+    The in-place write here takes the same clamped positions and writes an
+    inactive slot's old values back, so it stays in bounds whatever stale
+    length an idle slot holds. Inactive lanes attend to their old KV, so
+    their logits may differ from JAX's; no caller reads them."""
+    cd = cfg.compute_dtype
+    s_count, k_w = tokens.shape
+    t_cache = cache.k.shape[2]
+    dev = tokens.device
+    start = cache.lengths.long()
+    window = torch.arange(k_w, device=dev)
+    positions = start[:, None] + window                        # (S, K)
+    wpos = torch.clamp(start, max=t_cache - k_w)[:, None] + window
+    rows = torch.arange(s_count, device=dev)[:, None].expand(-1, k_w)
+    keep = active[:, None, None, None]
+    x = params["embed"].to(cd)[tokens.long()]                  # (S, K, d)
+    mask = (torch.arange(t_cache, device=dev)[None, None, :]
+            <= positions[:, :, None])                          # (S, K, T)
+    for i in range(cfg.n_layers):
+        bp = _layer(params, i)
+        k_cache, v_cache = cache.k[i], cache.v[i]              # (S,T,Hkv,D)
+        q, k, v = _qkv(bp, x, cfg, positions)                  # (S,K,H,D)
+        k_cache[rows, wpos] = torch.where(keep, k.to(k_cache.dtype),
+                                          k_cache[rows, wpos])
+        v_cache[rows, wpos] = torch.where(keep, v.to(v_cache.dtype),
+                                          v_cache[rows, wpos])
+        x = x + _attend(q, k_cache, v_cache, mask, cfg) @ bp["wo"].to(cd)
+        x = x + _mlp(bp, x, cfg)
+    return _final_logits(params, x, cfg)                       # (S,K,vocab)
+
+
+def decode_step(params, cache: KVCache, tokens: torch.Tensor,
+                active: torch.Tensor, cfg: TransformerConfig):
+    """One token for every slot: tokens (S,) int32 (each slot's last
+    sampled token), active (S,) bool. Returns (cache, logits (S, vocab)).
+    Inactive slots flow through the products (fixed shapes); their cache
+    and lengths are left as they were."""
+    logits = _wide_decode(params, cache, tokens[:, None], active, cfg)
+    cache.lengths = torch.where(active, cache.lengths + 1, cache.lengths)
+    return cache, logits[:, 0]
+
+
+def verify_step(params, cache: KVCache, cand_tokens: torch.Tensor,
+                active: torch.Tensor, temps: torch.Tensor,
+                generator: torch.Generator, cfg: TransformerConfig):
+    """Speculative verification: K candidate tokens per slot in one call
+    (prompt-lookup decoding: the drafts are n-gram matches in the slot's
+    own context, no draft model).
+
+    cand_tokens (S, K): column 0 is each slot's last sampled token (whose
+    KV is not written yet), columns 1..K-1 the proposals. Returns (cache,
+    tok_out (S, K), accepted (S,)): tok_out[s, i] is the model's token at
+    position len+i+1, and the engine emits tok_out[s, :a+1] for a =
+    accepted[s]. KV is written for all K candidates and lengths advance by
+    a+1: the stale tail past the new length is masked, so rejecting a
+    draft needs no rollback."""
+    start = cache.lengths
+    logits = _wide_decode(params, cache, cand_tokens, active, cfg)
+    tok_out, accepted = _accept(logits, cand_tokens, temps, generator)
+    cache.lengths = torch.where(active, start + 1 + accepted, start)
+    return cache, tok_out, accepted
+
+
+def decode_and_sample(params, cache: KVCache, tokens, active, temps,
+                      generator: torch.Generator, cfg: TransformerConfig):
+    """Decode + per-slot sampling: (cache, next_tokens (S,))."""
+    cache, logits = decode_step(params, cache, tokens, active, cfg)
+    return cache, sample_per_slot(logits, generator, temps)
+
+
+def prefill_and_sample(params, cache: KVCache, tokens, slot: int,
+                       length: int, temp: float,
+                       generator: torch.Generator, cfg: TransformerConfig):
+    """Returns (cache, first_token, last_logits): the logits come back so
+    the engine's prefix cache can re-sample them under another
+    temperature on a later hit."""
+    cache, last_logits = prefill(params, cache, tokens, slot, length, cfg)
+    temp = torch.tensor(temp, dtype=torch.float32, device=last_logits.device)
+    return cache, sample_one(last_logits, temp, generator), last_logits
+
+
+def extract_prefix(cache: KVCache, slot: int, t: int):
+    """Copies of the first `t` positions of one slot's KV, (L, t, Hkv, D)
+    each: `t` is the prompt's prefill bucket, so an entry costs t/max_len
+    of a slot. The cache is written in place, so a view would change with
+    the slot's next request: the snapshot is a copy."""
+    return cache.k[:, slot, :t].clone(), cache.v[:, slot, :t].clone()
+
+
+def insert_prefix(cache: KVCache, k_slice, v_slice, slot: int,
+                  length: int) -> KVCache:
+    """Write a snapshotted prefix back into `slot` (a prefix-cache hit:
+    one device copy instead of the prompt's forward). Only the snapshot's
+    positions are written; older KV past `length` is masked, as prefill
+    padding is."""
+    t = k_slice.shape[1]
+    cache.k[:, slot, :t] = k_slice
+    cache.v[:, slot, :t] = v_slice
+    cache.lengths[slot] = length
+    return cache
+
+
+def decode_burst(params, cache: KVCache, tokens, active, temps,
+                 generator: torch.Generator, cfg: TransformerConfig,
+                 n_steps: int):
+    """`n_steps` decode+sample steps, all enqueued on the device before the
+    caller reads anything back. Returns (cache, token matrix (n_steps, S))."""
+    out = []
+    for _ in range(n_steps):
+        cache, tokens = decode_and_sample(params, cache, tokens, active,
+                                          temps, generator, cfg)
+        out.append(tokens)
+    return cache, torch.stack(out)
+
+
+def make_engine_fns(cfg: TransformerConfig):
+    """(prefill_and_sample, decode_burst) bound to `cfg`: the fixed-slot
+    engine's two device calls."""
+    return (functools.partial(prefill_and_sample, cfg=cfg),
+            functools.partial(decode_burst, cfg=cfg))
+
+
+def ngram_propose(context, k_minus_1: int, ngram: int = 2):
+    """Host-side draft: match the trailing `ngram` tokens against the
+    earlier context; propose the tokens that followed the most recent
+    match. Returns a list of <= k_minus_1 proposals (possibly empty)."""
+    n = len(context)
+    if n < ngram + 1:
+        return []
+    tail = tuple(context[n - ngram:])
+    # scan backwards for the most recent earlier occurrence
+    for i in range(n - ngram - 1, -1, -1):
+        if tuple(context[i:i + ngram]) == tail:
+            j = i + ngram
+            return list(context[j:j + k_minus_1])
+    return []
+
+
+def make_spec_fns(cfg: TransformerConfig):
+    """The speculative verifier bound to `cfg` (K rides in the candidate
+    shape)."""
+    return functools.partial(verify_step, cfg=cfg)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache (the PagedLLMEngine)
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class PagedKVCache:
@@ -140,48 +385,52 @@ def _write_block(block_tables: torch.Tensor, positions: torch.Tensor,
     return torch.gather(block_tables, 1, col)
 
 
+def _paged_window(params, cache: PagedKVCache, tokens: torch.Tensor,
+                  block_tables: torch.Tensor, lengths: torch.Tensor,
+                  active: torch.Tensor, cfg: TransformerConfig):
+    """Width-K core of `paged_decode_step` and `paged_verify_step`: tokens
+    (S, K) at positions lengths[s]..lengths[s]+K-1 through the block pool.
+    Returns logits (S, K, vocab).
+
+    Scatter-then-gather: each window's new KV is written to
+    table[pos // bs] at offset pos % bs FIRST, so the gathered window
+    already holds it and the mask is simply kv_pos <= pos. Inactive slots
+    write the null block and read garbage that the engine drops."""
+    cd = cfg.compute_dtype
+    s_count, k_w = tokens.shape
+    bs = cache.k.shape[2]
+    tables = block_tables.long()
+    t_w = tables.shape[1] * bs
+    positions = (lengths.long()[:, None]
+                 + torch.arange(k_w, device=tokens.device))    # (S, K)
+    x = params["embed"].to(cd)[tokens.long()]                  # (S, K, d)
+    keep = active[:, None]
+    wb = torch.where(keep, _write_block(tables, positions, bs), 0)
+    off = torch.where(keep, positions % bs, 0)
+    kv_pos = torch.arange(t_w, device=tokens.device)
+    mask = kv_pos[None, None, :] <= positions[:, :, None]      # (S, K, T_w)
+    for i in range(cfg.n_layers):
+        bp = _layer(params, i)
+        k_cache, v_cache = cache.k[i], cache.v[i]              # (N,bs,Hkv,D)
+        q, k, v = _qkv(bp, x, cfg, positions)                  # (S,K,H,D)
+        k_cache[wb, off] = k.to(k_cache.dtype)
+        v_cache[wb, off] = v.to(v_cache.dtype)
+        kh = k_cache[tables].reshape(s_count, t_w, *k_cache.shape[2:])
+        vh = v_cache[tables].reshape(s_count, t_w, *v_cache.shape[2:])
+        x = x + _attend(q, kh, vh, mask, cfg) @ bp["wo"].to(cd)
+        x = x + _mlp(bp, x, cfg)
+    return _final_logits(params, x, cfg)                       # (S,K,vocab)
+
+
 def paged_decode_step(params, cache: PagedKVCache, tokens: torch.Tensor,
                       block_tables: torch.Tensor, lengths: torch.Tensor,
                       active: torch.Tensor, cfg: TransformerConfig):
     """One token for every slot through the block pool: tokens (S,),
     block_tables (S, B_max), lengths (S,), active (S,) bool. Updates the
-    pool in place; returns (cache, logits (S, vocab)).
-
-    Scatter-then-gather: each slot's new KV is written to
-    table[len // bs] at offset len % bs FIRST, so the gathered window
-    already holds it and the mask is simply kv_pos <= len. Inactive slots
-    write the null block and read garbage that the engine drops.
-    """
-    cd = cfg.compute_dtype
-    s_count = tokens.shape[0]
-    bs = cache.k.shape[2]
-    tables = block_tables.long()
-    t_w = tables.shape[1] * bs
-    pos = lengths.long()
-    positions = pos[:, None]                                 # (S, 1)
-    x = params["embed"].to(cd)[tokens.long()[:, None]]       # (S, 1, d)
-    wb = torch.where(active, _write_block(tables, positions, bs)[:, 0], 0)
-    off = torch.where(active, pos % bs, 0)
-    kv_pos = torch.arange(t_w, device=pos.device)
-    attn_mask = kv_pos[None, None, :] <= positions[:, :, None]  # (S,1,T_w)
-    scale = cfg.head_dim ** -0.5
-    for i in range(cfg.n_layers):
-        bp = _layer(params, i)
-        k_cache, v_cache = cache.k[i], cache.v[i]            # (N,bs,Hkv,D)
-        q, k, v = _qkv(bp, x, cfg, positions)                # (S,1,H,D)
-        k_cache[wb, off] = k[:, 0].to(k_cache.dtype)
-        v_cache[wb, off] = v[:, 0].to(v_cache.dtype)
-        kh = k_cache[tables].reshape(s_count, t_w, *k_cache.shape[2:])
-        vh = v_cache[tables].reshape(s_count, t_w, *v_cache.shape[2:])
-        kh, vh = _gqa(kh, vh, cfg)
-        s = torch.einsum("sqhd,sthd->sqht", q.float(), kh.float()) * scale
-        s = torch.where(attn_mask[:, :, None, :], s, _NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        attn = torch.einsum("sqht,sthd->sqhd", p, vh.float())
-        attn = attn.reshape(s_count, 1, cfg.n_heads * cfg.head_dim)
-        x = x + attn.to(cd) @ bp["wo"].to(cd)
-        x = x + _mlp(bp, x, cfg)
-    return cache, _final_logits(params, x, cfg)[:, 0]        # (S, vocab)
+    pool in place; returns (cache, logits (S, vocab))."""
+    logits = _paged_window(params, cache, tokens[:, None], block_tables,
+                           lengths, active, cfg)
+    return cache, logits[:, 0]
 
 
 def paged_decode_and_sample(params, cache: PagedKVCache, tokens,
@@ -236,8 +485,7 @@ def paged_prefill_chunk(params, cache: PagedKVCache, tokens: torch.Tensor,
     wb = _write_block(tables, positions, bs)
     off = positions % bs
     kv_pos = torch.arange(t_w, device=tokens.device)
-    attn_mask = kv_pos[None, :] <= positions[:, None]           # (C, T_w)
-    scale = cfg.head_dim ** -0.5
+    mask = (kv_pos[None, :] <= positions[:, None])[None]        # (1, C, T_w)
     for i in range(cfg.n_layers):
         bp = _layer(params, i)
         k_cache, v_cache = cache.k[i], cache.v[i]
@@ -246,16 +494,40 @@ def paged_prefill_chunk(params, cache: PagedKVCache, tokens: torch.Tensor,
         v_cache[wb, off] = v[0].to(v_cache.dtype)
         kh = k_cache[tables].reshape(t_w, *k_cache.shape[2:])[None]
         vh = v_cache[tables].reshape(t_w, *v_cache.shape[2:])[None]
-        kh, vh = _gqa(kh, vh, cfg)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kh.float()) * scale
-        s = torch.where(attn_mask[None, None], s, _NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        attn = torch.einsum("bhqk,bkhd->bqhd", p, vh.float())
-        attn = attn.reshape(1, c, cfg.n_heads * cfg.head_dim)
-        x = x + attn.to(cd) @ bp["wo"].to(cd)
+        x = x + _attend(q, kh, vh, mask, cfg) @ bp["wo"].to(cd)
         x = x + _mlp(bp, x, cfg)
     last = _final_logits(params, x[:, n_valid - 1:n_valid], cfg)
     return cache, last[0, 0]
+
+
+def paged_verify_step(params, cache: PagedKVCache,
+                      cand_tokens: torch.Tensor, block_tables: torch.Tensor,
+                      lengths: torch.Tensor, active: torch.Tensor,
+                      temps: torch.Tensor, generator: torch.Generator,
+                      cfg: TransformerConfig):
+    """Speculative verification through the block pool: the paged
+    counterpart of `verify_step`, with the same drafts and the same
+    acceptance rule.
+
+    cand_tokens (S, K): column 0 is each slot's last sampled token, columns
+    1..K-1 the proposals; block_tables (S, B_max) / lengths (S,) are the
+    engine's paged state, and each table must already cover positions up
+    to lengths+K. KV for all K candidates scatters into the slot's own
+    blocks at lengths..lengths+K-1; the engine advances lengths by
+    accepted+1 and every mask treats the stale tail as garbage until the
+    next step overwrites it, so a rejected draft needs no rollback. The
+    blocks are the slot's alone (copy-on-write at decode start, fresh
+    growth blocks), so a stale write never reaches a shared prefix.
+    Returns (cache, tok_out (S, K), accepted (S,))."""
+    logits = _paged_window(params, cache, cand_tokens, block_tables, lengths,
+                           active, cfg)
+    tok_out, accepted = _accept(logits, cand_tokens, temps, generator)
+    return cache, tok_out, accepted
+
+
+def make_paged_spec_fns(cfg: TransformerConfig):
+    """The paged speculative verifier bound to `cfg`."""
+    return functools.partial(paged_verify_step, cfg=cfg)
 
 
 def copy_block(cache: PagedKVCache, dst: int, src: int) -> PagedKVCache:
@@ -292,3 +564,10 @@ def make_paged_engine_fns(cfg: TransformerConfig):
     return (functools.partial(paged_prefill_chunk, cfg=cfg),
             functools.partial(paged_decode_burst, cfg=cfg),
             copy_block)
+
+
+def make_prefix_cache_fns():
+    """(extract, insert, sample) for the fixed-slot engine's prefix cache.
+    `extract_prefix` copies, so its snapshot outlives later writes to the
+    slot."""
+    return extract_prefix, insert_prefix, sample_one

@@ -77,15 +77,15 @@ def resolve_device(device: torch.device | str) -> torch.device:
 def _check_supported(cfg: TransformerConfig, seq_shards: int = 1) -> None:
     if cfg.n_experts > 0:
         raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported yet: ROADMAP queue A, MoE")
+            "MoE (n_experts > 0) is not ported yet: ROADMAP queue A, item 6")
     if seq_shards > 1:
         raise NotImplementedError(
             f"seq_shards={seq_shards} ({cfg.sp_attention} attention) is not "
-            "ported yet: ROADMAP queue A, ring/ulysses/pipeline")
+            "ported yet: ROADMAP queue A, item 7")
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported yet: ROADMAP "
-            "queue A, remat 'dots'/'ff'")
+            "queue A, item 4")
 
 
 def param_shapes(cfg: TransformerConfig) -> dict:

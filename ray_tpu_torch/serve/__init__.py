@@ -1,8 +1,9 @@
 """Serving of the PyTorch/CUDA port (counterpart of `ray_tpu.serve`): the
-paged continuous-batching engine and its block allocator. The serve
-control plane (controller, handles, proxy) is not ported yet."""
+fixed-slot and paged continuous-batching engines and the block allocator.
+The serve control plane (controller, handles, proxy) is not ported yet."""
 from ray_tpu_torch.serve.kv_cache import KVBlockAllocator, prefix_digest
-from ray_tpu_torch.serve.llm import PagedLLMEngine, StreamQueueFullError
+from ray_tpu_torch.serve.llm import (
+    LLMEngine, PagedLLMEngine, StreamQueueFullError)
 
-__all__ = ["KVBlockAllocator", "PagedLLMEngine", "StreamQueueFullError",
-           "prefix_digest"]
+__all__ = ["KVBlockAllocator", "LLMEngine", "PagedLLMEngine",
+           "StreamQueueFullError", "prefix_digest"]

@@ -14,8 +14,7 @@ entry points at it, so the gather/scatter is always in bounds.
 
 Pure Python, the same behaviour as the JAX package's allocator. Not ported
 yet: the object-store arena (`store=`), which needs the port's own object
-store (ROADMAP queue A, item 8), and the adopt path of disaggregated
-serving.
+store (ROADMAP queue A, item 10).
 """
 from __future__ import annotations
 
@@ -52,7 +51,7 @@ class KVBlockAllocator:
         if store is not None:
             raise NotImplementedError(
                 "the object-store arena (store=) is not ported yet: "
-                "ROADMAP queue A, item 8")
+                "ROADMAP queue A, item 10")
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null block)")
         self.num_blocks = num_blocks
@@ -228,6 +227,25 @@ class KVBlockAllocator:
         self._key_of[blk] = key
         self._digest_of[key] = prefix_digest(key)
 
+    def adopt(self, tokens: List[int], meta: Any = None
+              ) -> Optional[List[int]]:
+        """Adopt path for KV frames computed elsewhere (disaggregated
+        prefill, live migration): allocate blocks covering ``tokens``,
+        register them as a reusable prefix and return the block ids, still
+        referenced. The engine scatters the frame into them, then ``free``s
+        them to park cached-free (contents intact, LRU-evictable), so the
+        next lookup of the prompt takes the ordinary prefix-hit path. None
+        when sharing is off or the pool cannot cover the frame (the caller
+        recomputes)."""
+        if not self.prefix_sharing or not tokens:
+            return None
+        need = -(-len(tokens) // self.block_size)
+        blocks = self.alloc(need)
+        if blocks is None:
+            return None
+        self.register_prefix(tokens, blocks, meta=meta)
+        return blocks
+
     def prefix_digests(self, limit: int = 0) -> List[str]:
         """Digests of the block-ALIGNED registered prefixes, most recently
         registered last; ``limit`` > 0 keeps the newest that many."""
@@ -237,6 +255,17 @@ class KVBlockAllocator:
         if limit > 0 and len(out) > limit:
             out = out[-limit:]
         return out
+
+    def unregister_block(self, blk: int) -> None:
+        """Drop a block's prefix key (its content is about to diverge from
+        the key: the sole-owner in-place append)."""
+        with self._lock:
+            key = self._key_of.pop(blk, None)
+            if key is not None:
+                self._by_key.pop(key, None)
+                self._meta.pop(key, None)
+                self._digest_of.pop(key, None)
+            self._cached.pop(blk, None)
 
     def cow(self, blk: int) -> Tuple[int, bool]:
         """Prepare ``blk`` for in-place writes by its caller (who holds

@@ -208,3 +208,242 @@ def test_sample_per_slot_frequencies_follow_the_softmax(top_k):
     np.testing.assert_allclose(freq, want, atol=0.01)
     if top_k:
         assert freq[want == 0].sum() == 0
+
+
+# ---------------------------------------------------------------------------
+# speculative verification through the block pool
+# ---------------------------------------------------------------------------
+def test_paged_verify_step_on_a_partly_right_draft_matches_jax(model):
+    """Lane 0 (greedy) drafts two right proposals and a wrong one after a
+    prefilled prompt, lane 1 samples the same draft, lane 2 is inactive.
+    Tokens and `accepted` equal JAX's, the scattered KV is within the
+    tolerance, and each window column's logits equal JAX's decode step
+    fed the same candidates one at a time."""
+    jcfg, jp, tcfg, tp = model
+    prompt = np.array([5, 6, 7, 8, 9, 10], np.int32)
+    n, k = len(prompt), 4
+    table = np.array([3, 9, 14, 2], np.int32)          # 16 positions
+    jc, tc = _caches(tcfg)
+    toks = np.zeros(8, np.int32)
+    toks[:n] = prompt
+    jc, jlast = jdec.paged_prefill_chunk(
+        jp, jc, jnp.asarray(toks), jnp.asarray(table), jnp.int32(0),
+        jnp.int32(n), jcfg)
+    tc, _ = tdec.paged_prefill_chunk(tp, tc, torch.from_numpy(toks),
+                                     torch.from_numpy(table), 0, n, tcfg)
+    # The reference: JAX's sequential greedy decode on a copy of the pool
+    # gives the continuation, and, fed the draft one token at a time, the
+    # logits of each window column.
+    ref, ref_logits = [int(np.argmax(np.asarray(jlast)))], []
+    jref = jdec.PagedKVCache(k=jnp.array(jc.k), v=jnp.array(jc.v))
+    for i in range(k):
+        fed = ref[-1] if i < k - 1 else (ref[3] + 1) % tcfg.vocab_size
+        jref, logits = jdec.paged_decode_step(
+            jp, jref, jnp.asarray([fed], jnp.int32),
+            jnp.asarray(table[None]), jnp.asarray([n + i], jnp.int32),
+            jnp.asarray([True]), jcfg)
+        ref_logits.append(np.asarray(logits)[0])
+        ref.append(int(np.argmax(ref_logits[-1])))
+    draft = [ref[0], ref[1], ref[2], (ref[3] + 1) % tcfg.vocab_size]
+    cand = np.array([draft, draft, [0] * k], np.int32)
+    tables = np.stack([table, table, np.zeros_like(table)])
+    lengths = np.array([n, n, 0], np.int32)
+    active = np.array([True, True, False])
+    temps = np.array([0.0, 0.7, 0.0], np.float32)
+    # Lane 1 samples and would write the same positions as lane 0: give it
+    # blocks of its own so the two writes do not collide.
+    tables[1] = [4, 5, 6, 7]
+    jc, jtok, jacc, _ = jdec.paged_verify_step(
+        jp, jc, jnp.asarray(cand), jnp.asarray(tables), jnp.asarray(lengths),
+        jnp.asarray(active), jnp.asarray(temps), jax.random.key(0), jcfg)
+    args = [torch.from_numpy(a) for a in (cand, tables, lengths, active)]
+    logits = tdec._paged_window(tp, tdec.PagedKVCache(
+        k=tc.k.clone(), v=tc.v.clone()), *args, tcfg)
+    np.testing.assert_allclose(logits[0].numpy(), np.stack(ref_logits),
+                               **TOL)
+    tc, ttok, tacc = tdec.paged_verify_step(
+        tp, tc, *args[:3], args[3], torch.from_numpy(temps),
+        torch.Generator().manual_seed(0), tcfg)
+    assert ttok.dtype == tacc.dtype == torch.int32
+    np.testing.assert_array_equal(tacc.numpy()[:2], np.asarray(jacc)[:2])
+    assert tacc.tolist()[:2] == [2, 0]
+    np.testing.assert_array_equal(ttok.numpy()[0], np.asarray(jtok)[0])
+    assert ttok.numpy()[0, :3].tolist() == ref[1:4]
+    # The sampled lane's column 0 is a draw; the rest are greedy.
+    np.testing.assert_array_equal(ttok.numpy()[1, 1:], np.asarray(jtok)[1, 1:])
+    _assert_pools_close(jc, tc)
+
+
+@pytest.mark.parametrize("size,ngram", [(0, 2), (2, 2), (3, 2), (12, 1),
+                                        (40, 2), (40, 3), (200, 2)])
+def test_ngram_propose_matches_jax(size, ngram):
+    """Seeded contexts over a small alphabet (so n-grams recur), with the
+    empty and too-short cases, and proposal budgets past the context's
+    end."""
+    rng = np.random.default_rng(size * 10 + ngram)
+    for trial in range(20):
+        ctx = rng.integers(0, 4 if trial % 2 else 30, size).tolist()
+        for k_minus_1 in (1, 3, 7):
+            got = tdec.ngram_propose(ctx, k_minus_1, ngram)
+            assert got == jdec.ngram_propose(ctx, k_minus_1, ngram)
+            assert len(got) <= k_minus_1
+    assert tdec.ngram_propose([1, 2, 1, 2], 3, 2) == [1, 2]
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache (the fixed-slot engine's steps)
+# ---------------------------------------------------------------------------
+T_MAX = 32      # contiguous cache positions per slot
+
+
+def _contiguous(cfg, rng=None, lengths=(0, 0, 0)):
+    """The same (L, 3, T_MAX, Hkv, D) cache in both packages."""
+    shape = (cfg.n_layers, len(lengths), T_MAX, cfg.n_kv_heads, cfg.head_dim)
+    k, v = ((rng.standard_normal(shape, dtype=np.float32) if rng is not None
+             else np.zeros(shape, np.float32)) for _ in range(2))
+    lens = np.asarray(lengths, np.int32)
+    jc = jdec.KVCache(k=jnp.asarray(k), v=jnp.asarray(v),
+                      lengths=jnp.asarray(lens))
+    tc = tdec.KVCache(k=torch.from_numpy(k.copy()), v=torch.from_numpy(v.copy()),
+                      lengths=torch.from_numpy(lens.copy()))
+    return jc, tc
+
+
+def _assert_slots_close(jc, tc, slots):
+    """KV on [0, length) of each listed slot, and every slot's length."""
+    np.testing.assert_array_equal(tc.lengths.numpy(), np.asarray(jc.lengths))
+    for s in slots:
+        n = int(tc.lengths[s])
+        for name in ("k", "v"):
+            np.testing.assert_allclose(
+                getattr(tc, name).numpy()[:, s, :n],
+                np.asarray(getattr(jc, name))[:, s, :n], **TOL,
+                err_msg=f"{name} slot {s}")
+
+
+def test_prefill_then_decode_steps_match_jax(model):
+    """A 10-token prompt padded to 16 into slot 1 of a random cache, then
+    decode steps with slot 0 active at its own length and slot 2 idle at a
+    stale length near the end of the cache."""
+    jcfg, jp, tcfg, tp = model
+    rng = np.random.default_rng(6)
+    jc, tc = _contiguous(tcfg, rng, lengths=(5, 0, T_MAX - 1))
+    prompt = rng.integers(1, tcfg.vocab_size, 10).astype(np.int32)
+    padded = np.zeros((1, 16), np.int32)
+    padded[0, :10] = prompt
+    jc, jlast = jdec.prefill(jp, jc, jnp.asarray(padded), jnp.int32(1),
+                             jnp.int32(10), jcfg)
+    tc, tlast = tdec.prefill(tp, tc, torch.from_numpy(padded), 1, 10, tcfg)
+    assert tlast.shape == (tcfg.vocab_size,)
+    np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), **TOL)
+    _assert_slots_close(jc, tc, (0, 1))
+    active = np.array([True, True, False])
+    tok = np.array([7, int(np.argmax(np.asarray(jlast))), 3], np.int32)
+    for _ in range(4):
+        jc, jlog = jdec.decode_step(jp, jc, jnp.asarray(tok),
+                                    jnp.asarray(active), jcfg)
+        tc, tlog = tdec.decode_step(tp, tc, torch.from_numpy(tok),
+                                    torch.from_numpy(active), tcfg)
+        np.testing.assert_allclose(tlog.numpy()[:2], np.asarray(jlog)[:2],
+                                   **TOL)
+        tok = np.array([*np.argmax(np.asarray(jlog)[:2], -1), 3], np.int32)
+    _assert_slots_close(jc, tc, (0, 1))
+    assert tc.lengths.tolist() == [9, 14, T_MAX - 1]
+
+
+def test_verify_step_on_a_partly_right_draft_matches_jax(model):
+    """The contiguous verifier against JAX's: window logits within the
+    tolerance, tokens, `accepted` and the advanced lengths equal, and the
+    KV of the accepted positions within the tolerance. Slot 0 is greedy
+    with two right proposals, slot 1 samples, slot 2 is idle at a stale
+    length past T - K (an unclamped write would leave the cache)."""
+    jcfg, jp, tcfg, tp = model
+    prompt = np.array([[5, 6, 7, 8, 0, 0, 0, 0]], np.int32)
+    jc, tc = _contiguous(tcfg, np.random.default_rng(7),
+                         lengths=(0, 0, T_MAX - 2))
+    for slot in (0, 1):
+        jc, jlast = jdec.prefill(jp, jc, jnp.asarray(prompt), jnp.int32(slot),
+                                 jnp.int32(4), jcfg)
+        tc, _ = tdec.prefill(tp, tc, torch.from_numpy(prompt), slot, 4, tcfg)
+    ref = [int(np.argmax(np.asarray(jlast)))]
+    jref = jdec.KVCache(k=jnp.array(jc.k), v=jnp.array(jc.v),
+                        lengths=jnp.array(jc.lengths))
+    on = jnp.asarray([True, False, False])
+    for _ in range(3):
+        jref, logits = jdec.decode_step(
+            jp, jref, jnp.asarray([ref[-1], 0, 0], jnp.int32), on, jcfg)
+        ref.append(int(np.argmax(np.asarray(logits)[0])))
+    draft = [ref[0], ref[1], ref[2], (ref[3] + 1) % tcfg.vocab_size]
+    cand = np.array([draft, draft, [1, 2, 3, 4]], np.int32)
+    active = np.array([True, True, False])
+    temps = np.array([0.0, 0.9, 0.0], np.float32)
+    jwin, _, _ = jdec._wide_decode(jp, jc, jnp.asarray(cand), jcfg)
+    twin = tdec._wide_decode(tp, tdec.KVCache(
+        k=tc.k.clone(), v=tc.v.clone(), lengths=tc.lengths.clone()),
+        torch.from_numpy(cand), torch.from_numpy(active), tcfg)
+    np.testing.assert_allclose(twin.numpy()[:2], np.asarray(jwin)[:2], **TOL)
+    jc, jtok, jacc, _ = jdec.verify_step(
+        jp, jc, jnp.asarray(cand), jnp.asarray(active), jnp.asarray(temps),
+        jax.random.key(0), jcfg)
+    tc, ttok, tacc = tdec.verify_step(
+        tp, tc, torch.from_numpy(cand), torch.from_numpy(active),
+        torch.from_numpy(temps), torch.Generator().manual_seed(0), tcfg)
+    assert tacc.tolist() == np.asarray(jacc).tolist() == [2, 0, 0]
+    np.testing.assert_array_equal(ttok.numpy()[0], np.asarray(jtok)[0])
+    assert ttok.numpy()[0, :3].tolist() == ref[1:4]
+    np.testing.assert_array_equal(ttok.numpy()[1, 1:], np.asarray(jtok)[1, 1:])
+    _assert_slots_close(jc, tc, (0, 1))
+    assert tc.lengths.tolist() == [7, 5, T_MAX - 2]
+
+
+def test_greedy_decode_burst_matches_jax(model):
+    jcfg, jp, tcfg, tp = model
+    rng = np.random.default_rng(8)
+    jc, tc = _contiguous(tcfg, rng, lengths=(6, 11, 3))
+    tokens = rng.integers(0, tcfg.vocab_size, 3).astype(np.int32)
+    active = np.array([True, False, True])
+    temps = np.zeros(3, np.float32)
+    jc, jtoks, _ = jdec.decode_burst(
+        jp, jc, jnp.asarray(tokens), jnp.asarray(active), jnp.asarray(temps),
+        jax.random.key(0), jcfg, n_steps=5)
+    tc, ttoks = tdec.decode_burst(
+        tp, tc, torch.from_numpy(tokens), torch.from_numpy(active),
+        torch.from_numpy(temps), torch.Generator(), tcfg, n_steps=5)
+    assert ttoks.shape == (5, 3)
+    np.testing.assert_array_equal(ttoks.numpy()[:, active],
+                                  np.asarray(jtoks)[:, active])
+    _assert_slots_close(jc, tc, (0, 1, 2))
+    assert int(tdec.sample_logits(torch.eye(3), None, temperature=0.0)[2]) == 2
+
+
+def test_prefix_snapshot_survives_later_writes_and_matches_jax(model):
+    """extract_prefix copies: after the slot is prefilled with another
+    prompt the snapshot still holds the first one, and inserting it into
+    another slot gives JAX's cache there."""
+    jcfg, jp, tcfg, tp = model
+    jc, tc = _contiguous(tcfg, np.random.default_rng(9))
+    first = np.zeros((1, 16), np.int32)
+    first[0, :9] = np.arange(20, 29)
+    second = np.zeros((1, 16), np.int32)
+    second[0, :12] = np.arange(40, 52)
+    jc, _ = jdec.prefill(jp, jc, jnp.asarray(first), jnp.int32(0),
+                         jnp.int32(9), jcfg)
+    tc, _ = tdec.prefill(tp, tc, torch.from_numpy(first), 0, 9, tcfg)
+    jk, jv = jdec.extract_prefix(jc, jnp.int32(0), t=16)
+    tk, tv = tdec.extract_prefix(tc, 0, 16)
+    held = tk.clone()
+    tc, _ = tdec.prefill(tp, tc, torch.from_numpy(second), 0, 12, tcfg)
+    assert torch.equal(tk, held)            # not a view of slot 0
+    assert not torch.equal(tc.k[:, 0, :16], held)
+    np.testing.assert_allclose(tk.numpy()[:, :9], np.asarray(jk)[:, :9], **TOL)
+    np.testing.assert_allclose(tv.numpy()[:, :9], np.asarray(jv)[:, :9], **TOL)
+    jc = jdec.insert_prefix(jc, jk, jv, jnp.int32(2), jnp.int32(9))
+    tc = tdec.insert_prefix(tc, tk, tv, 2, 9)
+    assert int(tc.lengths[2]) == 9
+    for name in ("k", "v"):
+        np.testing.assert_allclose(getattr(tc, name).numpy()[:, 2, :9],
+                                   np.asarray(getattr(jc, name))[:, 2, :9],
+                                   **TOL)
+    extract, insert, sample = tdec.make_prefix_cache_fns()
+    assert (extract, insert, sample) == (tdec.extract_prefix,
+                                         tdec.insert_prefix, tdec.sample_one)

@@ -85,8 +85,10 @@ def test_entry_points_raise_without_cuda():
         training.make_eval_step(configs.TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(configs.TINY)
-    from ray_tpu_torch.serve import PagedLLMEngine
+    from ray_tpu_torch.serve import LLMEngine, PagedLLMEngine
 
     params = init_params(configs.TINY, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedLLMEngine(configs.TINY, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLMEngine(configs.TINY, params)

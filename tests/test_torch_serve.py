@@ -21,16 +21,20 @@ from ray_tpu.core import config as jax_config
 from ray_tpu.models import configs as jax_configs
 from ray_tpu.models import init_params as jax_init
 from ray_tpu.serve.kv_cache import KVBlockAllocator as JaxAllocator
+from ray_tpu.serve.llm import LLMEngine as JaxLLMEngine
 from ray_tpu.serve.llm import PagedLLMEngine as JaxEngine
 from ray_tpu_torch.core import config as torch_config
 from ray_tpu_torch.models import configs
+from ray_tpu_torch.models import decoding as tdec
 from ray_tpu_torch.models.jax_bridge import params_from_jax
-from ray_tpu_torch.serve import KVBlockAllocator, PagedLLMEngine, prefix_digest
+from ray_tpu_torch.serve import llm as serve_llm
+from ray_tpu_torch.serve import (
+    KVBlockAllocator, LLMEngine, PagedLLMEngine, prefix_digest)
 
 WAIT_S = 120
 KNOBS = ("kv_block_size", "kv_block_count", "kv_block_prefix_sharing",
          "serve_prefill_chunk", "serve_stream_queue_max",
-         "serve_speculation_k")
+         "serve_speculation_k", "serve_speculation_ngram")
 
 
 @pytest.fixture(scope="module")
@@ -44,8 +48,9 @@ def model():
 
 @pytest.fixture
 def engines(model, monkeypatch):
-    """make(kind, **kw) builds a JAX ("jax") or port ("torch") engine on
-    TINY; each is shut down and its thread joined at teardown.
+    """make(kind, fixed=False, **kw) builds a JAX ("jax") or port
+    ("torch") engine on TINY, paged or, with fixed=True, the fixed-slot
+    LLMEngine; each is shut down and its thread joined at teardown.
 
     On the CPU backend `jnp.asarray` returns before it has read a numpy
     argument, and the JAX engine rewrites its block-table row right after
@@ -60,11 +65,17 @@ def engines(model, monkeypatch):
     monkeypatch.setattr(jnp, "asarray", lambda a, *args, **kw: asarray(
         np.array(a) if isinstance(a, np.ndarray) else a, *args, **kw))
 
-    def make(kind, **kw):
-        kw = {"num_slots": 4, "max_len": 64, "block_size": 4,
-              "prefill_chunk": 8, **kw}
-        eng = (JaxEngine(jcfg, jp, **kw) if kind == "jax"
-               else PagedLLMEngine(tcfg, tp, device="cpu", **kw))
+    def make(kind, fixed=False, **kw):
+        if fixed:      # the fixed-slot LLMEngine
+            kw = {"num_slots": 2, "max_len": 64, "prefill_buckets": (16, 32),
+                  **kw}
+            eng = (JaxLLMEngine(jcfg, jp, **kw) if kind == "jax"
+                   else LLMEngine(tcfg, tp, device="cpu", **kw))
+        else:
+            kw = {"num_slots": 4, "max_len": 64, "block_size": 4,
+                  "prefill_chunk": 8, **kw}
+            eng = (JaxEngine(jcfg, jp, **kw) if kind == "jax"
+                   else PagedLLMEngine(tcfg, tp, device="cpu", **kw))
         made.append(eng)
         return eng
 
@@ -183,10 +194,40 @@ def _cached_prefix_evicted_under_pressure(cls):
     return a
 
 
+def _adopt_registers_and_parks(cls):
+    a = cls(9, 4)
+    toks = list(range(1, 11))              # 3 blocks, a partial tail
+    blocks = a.adopt(toks, meta="m")
+    assert len(blocks) == 3 and a.snapshot()["blocks_active"] == 3
+    a.free(blocks)
+    assert a.snapshot()["blocks_cached"] == 3
+    got, covered, meta = a.lookup_prefix(toks)
+    assert got == blocks and covered == 10 and meta == "m"
+    a.free(got)
+    assert a.adopt([]) is None
+    assert a.adopt(list(range(40))) is None          # more than the pool
+    assert cls(9, 4, prefix_sharing=False).adopt(toks) is None
+    return a
+
+
+def _unregister_block_drops_its_key(cls):
+    a = cls(9, 4)
+    toks = list(range(1, 9))
+    blocks = a.alloc(2)
+    a.register_prefix(toks, blocks, meta="m")
+    a.unregister_block(blocks[1])
+    a.free(blocks)                 # blocks[0] parks cached, [1] goes free
+    got, covered, meta = a.lookup_prefix(toks)
+    assert got == blocks[:1] and covered == 4 and meta is None
+    a.free(got)
+    return a
+
+
 @pytest.mark.parametrize("scenario", [
     _alloc_free_roundtrip, _prefix_refcount_and_reuse,
     _cow_shared_block_copies, _cow_sole_owner_unregistered_in_place,
-    _cached_prefix_evicted_under_pressure], ids=lambda f: f.__name__[1:])
+    _cached_prefix_evicted_under_pressure, _adopt_registers_and_parks,
+    _unregister_block_drops_its_key], ids=lambda f: f.__name__[1:])
 def test_allocator_scenario_snapshots_match_jax(scenario):
     port, ref = scenario(KVBlockAllocator), scenario(JaxAllocator)
     assert port.snapshot() == ref.snapshot()
@@ -202,12 +243,12 @@ def test_prefix_digest_matches_jax():
 
 def test_unported_options_raise(model):
     _, _, tcfg, tp = model
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
+    with pytest.raises(NotImplementedError, match="queue A, item 10"):
         KVBlockAllocator(9, 4, store=object())
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
+    with pytest.raises(NotImplementedError, match="queue A, item 10"):
         PagedLLMEngine(tcfg, tp, store=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        PagedLLMEngine(tcfg, tp, speculation_k=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A, item 5"):
+        LLMEngine(tcfg, tp, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         PagedLLMEngine(dataclasses.replace(tcfg, n_experts=4), tp,
                        device="cpu")
@@ -360,3 +401,226 @@ def test_failed_prefill_wakes_the_request_queued_behind_it(engines):
     assert [str(e) for e in errors] == ["planted prefill fault"]
     assert out == [eng.generate(waiting, max_tokens=4, timeout=WAIT_S)]
     assert eng.allocator.snapshot()["blocks_active"] == 0
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding on the paged pool
+# ---------------------------------------------------------------------------
+SPEC_PROMPT = [1, 2, 3, 1, 2, 3, 1, 2]
+
+
+def test_paged_speculation_is_exact_and_matches_jax(engines):
+    """Greedy tokens with prompt-lookup speculation are bit-identical to
+    the same engine without it, and equal the JAX speculative engine's,
+    request for request, with the same drafts proposed and accepted. A
+    sampled request falls back per slot. Small bursts make the drafter
+    check often; the greedy continuation settles into a loop that the
+    n-gram lookup mines (as tests/test_paged_kv.py relies on)."""
+    kw = dict(max_len=256, max_burst=2, prefix_sharing=False)
+    plain = engines("torch", **kw).generate(SPEC_PROMPT, max_tokens=96,
+                                            timeout=WAIT_S)
+    stats = {}
+    for kind in ("jax", "torch"):
+        eng = engines(kind, speculation_k=4, **kw)
+        out = eng.generate(SPEC_PROMPT, max_tokens=96, timeout=WAIT_S)
+        assert out == plain
+        stats[kind] = {k: eng.stats[k]
+                       for k in ("spec_proposed", "spec_accepted")}
+        sampled = eng.generate(SPEC_PROMPT, max_tokens=6, temperature=0.8,
+                               timeout=WAIT_S)
+        assert len(sampled) == 6
+    assert stats["torch"] == stats["jax"]
+    assert 0 < stats["torch"]["spec_accepted"] <= stats["torch"]["spec_proposed"]
+
+
+def test_paged_speculation_window_longer_than_the_burst(engines):
+    """speculation_k 8 over bursts of 2: the tables must grow by the
+    verify window, not the burst, or the window scatters past them."""
+    kw = dict(max_len=128, max_burst=2, prefix_sharing=False)
+    plain = engines("torch", **kw)
+    spec = engines("torch", speculation_k=8, **kw)
+    assert (spec.generate(SPEC_PROMPT, max_tokens=80, timeout=WAIT_S)
+            == plain.generate(SPEC_PROMPT, max_tokens=80, timeout=WAIT_S))
+    assert spec.stats["spec_accepted"] > 0
+    assert spec.allocator.snapshot()["blocks_active"] == 0
+
+
+def test_paged_speculation_rejected_drafts_keep_a_shared_prefix(engines):
+    """Speculation over a registered prefix writes (rejected drafts too)
+    into the copy-on-write copy of its tail only: repeated and divergent
+    prompts all give the unshared, non-speculative tokens."""
+    prompt = [1, 2, 3, 1, 2, 3]            # partial tail block at bs 4
+    divergent = prompt[:4] + [9, 9]
+    kw = dict(max_len=256, max_burst=2)
+    ref = engines("torch", prefix_sharing=False, **kw)
+    want = [ref.generate(prompt, max_tokens=64, timeout=WAIT_S),
+            ref.generate(divergent, max_tokens=8, timeout=WAIT_S)]
+    eng = engines("torch", prefix_sharing=True, speculation_k=4, **kw)
+    first = eng.generate(prompt, max_tokens=64, timeout=WAIT_S)
+    second = eng.generate(prompt, max_tokens=64, timeout=WAIT_S)
+    assert eng.allocator.snapshot()["cow_copies"] >= 1
+    div = eng.generate(divergent, max_tokens=8, timeout=WAIT_S)
+    third = eng.generate(prompt, max_tokens=64, timeout=WAIT_S)
+    assert [first, div] == want and second == third == first
+    assert eng.stats["spec_accepted"] > 0
+
+
+# ---------------------------------------------------------------------------
+# KV import / export (disaggregated prefill, live migration)
+# ---------------------------------------------------------------------------
+def test_import_prefix_rejects_bad_geometry_like_jax(engines):
+    L, H, D = configs.TINY.n_layers, configs.TINY.n_kv_heads, \
+        configs.TINY.head_dim
+    toks = list(range(1, 9))               # 2 blocks of 4
+    frames = [(np.zeros((2, L, 2, 4, H, D), np.float32), 8),  # block size
+              (np.zeros((2, L + 1, 2, 4, H, D), np.float32), 4),
+              (np.zeros((2, L, 1, 4, H, D), np.float32), 4),  # too few
+              (np.zeros((L, 2, 4, H, D), np.float32), 4),     # ndim 5
+              (np.zeros((3, L, 2, 4, H, D), np.float32), 4),  # not k/v
+              (np.zeros((2, L, 2, 4, H, D + 1), np.float32), 4),
+              (np.ones((2, L, 3, 4, H, D), np.float32), 4)]   # imports
+    got = {kind: [engines(kind).import_prefix(toks, kv, bs)
+                  for kv, bs in frames] for kind in ("jax", "torch")}
+    assert got["torch"] == got["jax"] == [0, 0, 0, 0, 0, 0, 2]
+    off = engines("torch", prefix_sharing=False)
+    assert off.import_prefix(toks, frames[-1][0], 4) == 0
+
+
+def test_export_import_resume_continues_a_greedy_stream(engines):
+    """Engine A streams a greedy request and stops after its first burst
+    (its loop ends there: no sleep decides where the cut falls). Its
+    ticket goes into engine B, whose resume of prompt + the tokens the
+    client saw prefix-hits the imported blocks and continues exactly as
+    an uninterrupted engine does."""
+    prompt = list(range(3, 15))            # 12 tokens, 3 blocks of 4
+    full = engines("torch", prefix_sharing=False).generate(
+        prompt, max_tokens=20, timeout=WAIT_S)
+    a, b = engines("torch"), engines("torch")
+    real_burst = a._decode
+
+    def last_burst(*args, **kw):
+        a._stop = True                     # the loop ends after this tick
+        return real_burst(*args, **kw)
+
+    a._decode = last_burst
+    stream = a.generate_stream(prompt, max_tokens=20, timeout=WAIT_S,
+                               trace={"trace_id": "rid-7", "span_id": None})
+    seen = [next(stream) for _ in range(5)]
+    a._thread.join(timeout=WAIT_S)
+    assert not a._thread.is_alive()
+    tickets = a.export_streams()
+    stream.close()
+    assert [t["request_id"] for t in tickets] == ["rid-7"]
+    ticket = tickets[0]
+    # First token from the prefill, 8 from the burst; the last one's KV is
+    # the next step's input, so 20 positions (5 blocks) travel.
+    assert ticket["tokens"] == prompt + full[:8]
+    assert ticket["kv"].shape == (2, configs.TINY.n_layers, 5, 4,
+                                  configs.TINY.n_kv_heads,
+                                  configs.TINY.head_dim)
+    assert b.import_prefix(ticket["tokens"], ticket["kv"],
+                           ticket["block_size"]) == 5
+    blocks, covered, _ = b.allocator.lookup_prefix(ticket["tokens"])
+    assert covered == 20
+    assert np.array_equal(tdec.gather_blocks(b.cache, blocks).numpy(),
+                          ticket["kv"])
+    b.allocator.free(blocks)
+    cont = list(b.generate_stream(prompt, max_tokens=20, resume_tokens=seen,
+                                  timeout=WAIT_S))
+    assert seen + cont == full
+    # 17 context tokens: 16 from the imported chain, one prefilled.
+    assert b.stats["prefix_hits"] == 1 and b.stats["prefill_chunks"] == 1
+
+
+def test_requests_carry_a_trace_context():
+    """A request without a caller context mints its own, as the JAX
+    engine's serve tracing does by default; a given one is kept."""
+    req = serve_llm._Request([1], 1, 0.0)
+    assert set(req.trace) == {"trace_id", "span_id"}
+    assert len(req.trace["trace_id"]) == 32 and req.trace["span_id"] is None
+    assert serve_llm._Request([1], 1, 0.0).trace != req.trace
+    given = {"trace_id": "abc", "span_id": "s1", "app": "x"}
+    assert serve_llm._Request([1], 1, 0.0, trace=given).trace is given
+
+
+# ---------------------------------------------------------------------------
+# the fixed-slot LLMEngine
+# ---------------------------------------------------------------------------
+def test_llm_engine_single_and_concurrent_match_jax(engines):
+    """One request, then five concurrent ones over two slots (continuous
+    batching), on both packages: equal greedy tokens."""
+    jobs = [([i + 1, i + 2], {"max_tokens": 4}) for i in range(5)]
+    out = {}
+    for kind in ("jax", "torch"):
+        eng = engines(kind, fixed=True)
+        out[kind] = ([eng.generate([1, 2, 3], max_tokens=5, timeout=WAIT_S)]
+                     + _concurrently(eng, jobs))
+        stats = eng.engine_stats()
+        assert stats["completed"] == 6 and stats["p_ttft_mean"] > 0
+    assert out["torch"] == out["jax"]
+    assert [len(o) for o in out["torch"]] == [5, 4, 4, 4, 4, 4]
+
+
+def test_llm_engine_prefix_cache_matches_jax(engines):
+    """A repeated prompt hits the whole-prompt cache (no prefill) and
+    gives the same tokens; the LRU holds two entries. Statistics, cache
+    keys and tokens equal the JAX engine's."""
+    out, stats, keys = {}, {}, {}
+    for kind in ("jax", "torch"):
+        eng = engines(kind, fixed=True, prefill_buckets=(16,),
+                      prefix_cache_size=2)
+        first = eng.generate([5, 6, 7, 8], max_tokens=6, timeout=WAIT_S)
+        second = eng.generate([5, 6, 7, 8], max_tokens=6, timeout=WAIT_S)
+        assert second == first and eng.stats["prefix_hits"] == 1
+        other = eng.generate([9, 10], max_tokens=4, timeout=WAIT_S)
+        eng.generate([11, 12, 13], max_tokens=2, timeout=WAIT_S)
+        keys[kind] = list(eng._prefix_cache)
+        again = eng.generate([9, 10], max_tokens=4, timeout=WAIT_S)
+        assert again == other
+        out[kind] = [first, other]
+        stats[kind] = (eng.stats["prefix_hits"], eng.stats["prefix_misses"])
+    assert out["torch"] == out["jax"]
+    assert stats["torch"] == stats["jax"] == (2, 3)
+    assert keys["torch"] == keys["jax"] == [(9, 10), (11, 12, 13)]
+    off = engines("torch", fixed=True, prefix_cache_size=0)
+    assert off.generate([1, 2, 3], max_tokens=4, timeout=WAIT_S) == \
+        off.generate([1, 2, 3], max_tokens=4, timeout=WAIT_S)
+    assert off.stats["prefix_hits"] == 0
+
+
+def test_llm_engine_speculation_is_exact_and_matches_jax(engines):
+    kw = dict(max_len=256, prefill_buckets=(16,), prefix_cache_size=0,
+              max_burst=2)
+    plain = engines("torch", fixed=True, **kw).generate(
+        SPEC_PROMPT, max_tokens=96, timeout=WAIT_S)
+    stats = {}
+    for kind in ("jax", "torch"):
+        eng = engines(kind, fixed=True, speculation_k=4, **kw)
+        assert eng.generate(SPEC_PROMPT, max_tokens=96,
+                            timeout=WAIT_S) == plain
+        stats[kind] = (eng.stats["spec_proposed"], eng.stats["spec_accepted"])
+        sampled = eng.generate(SPEC_PROMPT, max_tokens=6, temperature=0.8,
+                               timeout=WAIT_S)
+        assert len(sampled) == 6
+    assert stats["torch"] == stats["jax"]
+    assert 0 < stats["torch"][1] <= stats["torch"][0]
+
+
+def test_llm_engine_stream_resume_and_failures(engines):
+    """Streaming gives the generated tokens, resume the rest; a device
+    call that raises fails its requests, frees their slots and leaves the
+    engine serving."""
+    eng = engines("torch", fixed=True)
+    full = eng.generate([4, 5, 6, 7], max_tokens=9, timeout=WAIT_S)
+    assert list(eng.generate_stream([4, 5, 6, 7], max_tokens=9,
+                                    timeout=WAIT_S)) == full
+    assert eng.generate([4, 5, 6, 7], max_tokens=9, resume_tokens=full[:3],
+                        timeout=WAIT_S) == full[3:]
+    real = eng._decode
+    eng._decode = lambda *a, **kw: (_ for _ in ()).throw(
+        RuntimeError("planted decode fault"))
+    with pytest.raises(RuntimeError, match="planted decode fault"):
+        eng.generate([4, 5, 6, 7], max_tokens=9, timeout=WAIT_S)
+    eng._decode = real
+    assert eng._slots == [None, None]
+    assert eng.generate([4, 5, 6, 7], max_tokens=9, timeout=WAIT_S) == full
