@@ -65,11 +65,34 @@ Run from a checkout of the repository on a machine with a Hopper card
    `LLMEngine` (8 slots, max_len 2048, buckets 64-512): 8 requests of
    64-512 prompt tokens, one prompt sent twice (a prefix-cache hit), the
    same checks, TTFT per prompt, then a decode round at width 8 (tokens/s)
-   and peak memory.
+   and peak memory;
+9. references for this slice at fp32, card against CPU (loss 1e-5, grads
+   1e-4): (a) phase 3's model under remat "dots" and "ff", whose card
+   grads must also equal "full"'s within REMAT_GRAD_TOL; (b) the same
+   model with 8 experts top-2 under "full" and "dots"; (c) phase 5's
+   serving model with 8 experts top-2 through PagedLLMEngine (tokens card
+   == CPU, logits within SERVE_REF_TOL);
+10. bench-350m's train step (phase 4's batch) under remat "full", "dots"
+   and "ff" in turns (full, dots, ff, ff, dots, full) on one state: median
+   step ms, peak memory and launches (2L / L / L) a step for each;
+11. mixtral-8x7b at full width (8 experts top-2, 32/8 heads of 128, d_ff
+   14336, bf16): (a) training, depth cut to MIXTRAL_TRAIN_LAYERS, batch
+   2 x 2048, AdamW with warmup, "full" and "dots" in turns: this slice's
+   main path, every kernel at D 128 launching 2L / L / L times a step;
+   step ms, tokens/s, active-parameter MFU, peak memory, and a profiled
+   step's device time by group (fp32 dispatch/combine products, bf16
+   expert products, dense products, attention, optimizer, the rest);
+   (b) serving, depth cut to MIXTRAL_SERVE_LAYERS, bf16 weights drawn a
+   layer at a time: phase 6's engine, traffic and measurements, with
+   `forward` replaced as the teacher by a dropless re-prefill of each
+   grown sequence through the contiguous path, and a decode step whose
+   largest tensor must stay below a layer's expert weight (no copy of the
+   stacked weights).
 
 Any failure exits nonzero and prints no result. The last lines are the
-card's name and power limit, the {"kernels": [...]} line, and
-{"ok": true, "device": {...}}.
+card's name and power limit, the {"kernels": [...]} line (launches of
+phase 4's steps, and of phase 11a's as `launches_mixtral_8x7b_train`),
+and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -126,6 +149,37 @@ SERVE_MARGIN = 0.125
 SERVE_LOGITS_TOL = 0.25
 # Phase 6: the first decode steps whose logits are held to SERVE_LOGITS_TOL.
 SERVE_DECODE_STEPS_CHECKED = 4
+# Phase 11b at bf16: the share of the checked positions whose greedy token
+# may differ from the dropless re-prefill's argmax where its top-2 gap
+# exceeds SERVE_MARGIN. Routing is discrete: the engine and the teacher
+# compute the same function, but in other chunks (the engine's token budget
+# splits a prompt where the tick ends), so their bf16 sums part in the last
+# bit, and where a token's 2nd and 3rd experts lie within a bf16 step of
+# each other a layer routes it to another expert. On an H100, a 1,900-token
+# prompt prefilled whole and in 128-token chunks routed up to 146 tokens a
+# layer otherwise (`python3 -m ray_tpu_torch.scripts.moe_routing`), and the
+# engine parted from the re-prefill on 11 of 384 checked positions (2.9%),
+# at gaps up to 0.52. A fault of the paged path (a wrong position, block,
+# head or expert) moves nearly every later position; the fp32 twin below
+# holds the same traffic exactly.
+MOE_BF16_BEYOND_SHARE = 0.10
+# Phase 11b's fp32 twin: mixtral-8x7b at full width and fp32 compute, depth
+# MIXTRAL_FP32_TWIN_LAYERS, on the same traffic: greedy tokens equal the
+# re-prefill's argmax wherever its gap exceeds SERVE_FP32_MARGIN, and every
+# first-token logit within SERVE_FP32_LOGITS_TOL of it (fp32 sums in
+# another order part by ~1e-5; a routing flip needs a near-tie within that).
+MIXTRAL_FP32_TWIN_LAYERS = 4
+SERVE_FP32_MARGIN = 1e-3
+SERVE_FP32_LOGITS_TOL = 1e-3
+# Phase 9: the card's fp32 grads under "dots" or "ff" against "full", the
+# largest |diff| relative to each tensor's max. The policies save or
+# recompute the same values; only the order of a few sums may move.
+REMAT_GRAD_TOL = 1e-6
+# Phase 11: mixtral-8x7b depth on one card. Training keeps fp32 masters,
+# grads and two AdamW moments, 16 bytes a parameter, 1.451 B a layer: 2
+# layers are 50.6 GB. Serving holds bf16 weights: 24 layers are 70.2 GB.
+MIXTRAL_TRAIN_LAYERS = 2
+MIXTRAL_SERVE_LAYERS = 24
 
 
 def log(msg: str) -> None:
@@ -315,40 +369,60 @@ def build_report(_cuda) -> dict:
     return report
 
 
-def check_reference(torch, models) -> None:
-    """Phase 3: fp32 loss and grads through the kernels on the card agree
-    with the same model through the plain versions on the CPU."""
+def reference_model(torch, models, **overrides):
+    """Phases 3 and 9: 2 layers at fp32 (vocab 1000, d_model 256, 4 heads
+    over 2 kv heads, d_ff 512, remat "full"), with `overrides`; weights
+    from seed 1 on the CPU and a (2, 301) token batch from seed 1."""
     import dataclasses
     import numpy as np
 
     cfg = dataclasses.replace(
         models.configs.TINY, name="ref-2l", vocab_size=1000, d_model=256,
         n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512, remat=True,
-        compute_dtype=torch.float32)
+        compute_dtype=torch.float32, **overrides)
     params = models.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 301), dtype=np.int32))
-    out = {}
-    for device in ("cpu", "cuda"):
-        def leaf(w):
-            return w.detach().to(device).clone().requires_grad_()
+    return cfg, params, tokens
 
-        p = {k: ({n: leaf(w) for n, w in v.items()} if isinstance(v, dict)
-                 else leaf(v)) for k, v in params.items()}
-        loss = models.loss_fn(p, {"tokens": tokens.to(device)}, cfg)
-        loss.backward()
-        grads = [g.grad.detach().cpu() for g in models.training.tree_leaves(p)]
-        out[device] = (float(loss.detach()), grads)
-    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+
+def reference_grads(torch, models, cfg, params, tokens, device: str):
+    """(loss, grads on the CPU in tree_leaves order) of one loss_fn on `device`."""
+    def leaf(w):
+        return w.detach().to(device).clone().requires_grad_()
+
+    p = {k: ({n: leaf(w) for n, w in v.items()} if isinstance(v, dict)
+             else leaf(v)) for k, v in params.items()}
+    loss = models.loss_fn(p, {"tokens": tokens.to(device)}, cfg)
+    loss.backward()
+    return float(loss.detach()), [g.grad.detach().cpu()
+                                  for g in models.training.tree_leaves(p)]
+
+
+def worst_grad_diff(got, want) -> float:
+    """The largest |got - want| of any tensor, relative to want's max."""
+    return max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(got, want))
+
+
+def check_reference(torch, models, label: str = "reference", **overrides) -> dict:
+    """Phases 3 and 9: fp32 loss and grads through the kernels on the card
+    agree with the same model through the plain versions on the CPU (loss
+    1e-5, grads 1e-4 of each tensor's max). Returns the numbers and the
+    card's grads."""
+    cfg, params, tokens = reference_model(torch, models, **overrides)
+    l_cpu, g_cpu = reference_grads(torch, models, cfg, params, tokens, "cpu")
+    l_gpu, g_gpu = reference_grads(torch, models, cfg, params, tokens, "cuda")
     # fp32 throughout (TF32 off); sums run in another order on the card.
     if not math.isclose(l_gpu, l_cpu, rel_tol=1e-5):
-        raise AssertionError(f"reference loss: card {l_gpu} vs cpu {l_cpu}")
-    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-                for a, b in zip(g_gpu, g_cpu))
+        raise AssertionError(f"{label} loss: card {l_gpu} vs cpu {l_cpu}")
+    worst = worst_grad_diff(g_gpu, g_cpu)
     if worst > 1e-4:
-        raise AssertionError(f"reference grads differ by {worst:.3g} (relative)")
-    log(f"reference: loss card {l_gpu:.6f} cpu {l_cpu:.6f}; "
+        raise AssertionError(f"{label} grads differ by {worst:.3g} (relative)")
+    log(f"{label}: loss card {l_gpu:.6f} cpu {l_cpu:.6f}; "
         f"worst grad diff {worst:.3g} of its tensor's max")
+    return {"loss_card": l_gpu, "loss_cpu": l_cpu, "worst_grad_diff": worst,
+            "card_grads": g_gpu}
 
 
 def main_path(torch, models, attention, steps: int, seed: int) -> dict:
@@ -424,31 +498,32 @@ def _tree_to(params: dict, device: str) -> dict:
             for k, v in params.items()}
 
 
-def serve_ref_model(torch, models):
-    """Phases 5 and 7: 2 layers at fp32 with llama3-8b's width and heads (32
-    query heads over 8 kv heads of 128), d_ff 1024 and a vocab of 1000;
-    weights from seed 2, on the CPU."""
+def serve_ref_model(torch, models, **overrides):
+    """Phases 5, 7 and 9c: 2 layers at fp32 with llama3-8b's width and heads
+    (32 query heads over 8 kv heads of 128), d_ff 1024 and a vocab of 1000,
+    with `overrides`; weights from seed 2, on the CPU."""
     import dataclasses
 
     cfg = dataclasses.replace(
         models.configs.LLAMA3_8B, name="serve-ref-2l", n_layers=2, d_ff=1024,
         vocab_size=1000, max_seq_len=512, remat=False,
-        compute_dtype=torch.float32)
+        compute_dtype=torch.float32, **overrides)
     return cfg, models.init_params(cfg, torch.Generator().manual_seed(2),
                                    device="cpu")
 
 
-def check_serving_reference(torch, models, card: str) -> dict:
-    """Phase 5: a 2-layer fp32 model with llama3-8b's head layout served by
-    the port's PagedLLMEngine on the card and on the CPU: the same greedy
-    tokens, and the prefill and decode logits of the functions the engine
-    calls within SERVE_REF_TOL."""
+def check_serving_reference(torch, models, card: str, label: str = "serving reference",
+                            **overrides) -> dict:
+    """Phases 5 and 9c: a 2-layer fp32 model with llama3-8b's head layout
+    (and `overrides`) served by the port's PagedLLMEngine on the card and
+    on the CPU: the same greedy tokens, and the prefill and decode logits of
+    the functions the engine calls within SERVE_REF_TOL."""
     import numpy as np
 
     from ray_tpu_torch.models import decoding
     from ray_tpu_torch.serve import PagedLLMEngine
 
-    cfg, params = serve_ref_model(torch, models)
+    cfg, params = serve_ref_model(torch, models, **overrides)
     rng = np.random.default_rng(2)
     # 200 tokens: a chunk of 128, then a ragged one of 72.
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (200, 37, 128)]
@@ -463,10 +538,10 @@ def check_serving_reference(torch, models, card: str) -> dict:
         finally:
             eng.shutdown()
     if tokens["cuda"] != tokens["cpu"]:
-        raise AssertionError(f"serving reference: card tokens {tokens['cuda']} "
+        raise AssertionError(f"{label}: card tokens {tokens['cuda']} "
                              f"!= cpu {tokens['cpu']}")
     if chunks["cuda"] != chunks["cpu"] or chunks["cuda"] < 4:
-        raise AssertionError(f"serving reference: prefill chunks {chunks}")
+        raise AssertionError(f"{label}: prefill chunks {chunks}")
     # The engine's device calls, step by step: prefill the 200-token prompt
     # in its two chunks, then decode its first four generated tokens.
     logits = {}
@@ -491,7 +566,7 @@ def check_serving_reference(torch, models, card: str) -> dict:
                 rows.append(step[0])
         logits[device] = torch.stack(rows).cpu()
     err, share = max_err(logits["cuda"], logits["cpu"], SERVE_REF_TOL)
-    log(f"serving reference [{card}]: tokens card == cpu over {len(prompts)} "
+    log(f"{label} [{card}]: tokens card == cpu over {len(prompts)} "
         f"prompts (200, 37, 128 tokens; {chunks['cuda']} prefill chunks); "
         f"prefill + decode logits max |diff| {err:.3g} ({share:.3f} of tolerance)")
     return {"prompts": [len(x) for x in prompts], "prefill_chunks": chunks["cuda"],
@@ -499,21 +574,40 @@ def check_serving_reference(torch, models, card: str) -> dict:
             "tolerance_share": share}
 
 
-def forward_agreement(torch, models, params, cfg, prompts, outs, card: str,
-                      on_logits=None) -> dict:
-    """Greedy outputs against `forward` teacher-forced at the compute dtype
-    over prompt + output: at each generated position the output must be
-    forward's argmax wherever forward's top-2 gap exceeds SERVE_MARGIN.
-    `on_logits(i, prompt, logits)` sees each request's logits. Logs and
-    returns the counts; raises on a mismatch beyond the margin."""
+def forward_teacher(torch, models, params, seq, cfg):
+    """`forward`'s logits (T, vocab) over one sequence, teacher-forced."""
     import dataclasses
 
-    fwd_cfg = dataclasses.replace(cfg, remat=False)
+    return models.forward(params, seq[None], dataclasses.replace(cfg, remat=False))[0]
+
+
+def reprefill_teacher(torch, models, params, seq, cfg):
+    """The logits (T, vocab) of every position of one sequence, prefilled
+    whole into an empty one-slot contiguous cache by the contiguous
+    path's width-T step: the dropless function the engine serves, by code
+    apart from the paged engine's (`forward` routes with a capacity and
+    drops tokens, so it computes another function for MoE)."""
+    from ray_tpu_torch.models import decoding
+
+    cache = decoding.init_cache(cfg, 1, seq.shape[0], device="cuda")
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    return decoding._wide_decode(params, cache, seq[None].int(), active, cfg)[0]
+
+
+def forward_agreement(torch, models, params, cfg, prompts, outs, card: str,
+                      on_logits=None, teacher=forward_teacher, margin=SERVE_MARGIN,
+                      max_beyond_share=0.0) -> dict:
+    """Greedy outputs against `teacher` (default `forward`) teacher-forced at
+    the compute dtype over prompt + output: at each generated position the
+    output must be the teacher's argmax wherever its top-2 gap exceeds
+    `margin`, but for at most `max_beyond_share` of the positions.
+    `on_logits(i, prompt, logits)` sees each request's logits. Logs and
+    returns the counts; raises past that share."""
     checks = []
     with torch.no_grad():
         for i, (p, out) in enumerate(zip(prompts, outs)):
             seq = torch.tensor(p + out[:-1], dtype=torch.long, device="cuda")
-            logits = models.forward(params, seq[None], fwd_cfg)[0]
+            logits = teacher(torch, models, params, seq, cfg)
             top = logits[len(p) - 1:].float().topk(2, dim=-1)
             gap = (top.values[:, 0] - top.values[:, 1]).cpu()
             checks.append((len(p), gap, top.indices[:, 0].cpu() == torch.tensor(out)))
@@ -521,24 +615,25 @@ def forward_agreement(torch, models, params, cfg, prompts, outs, card: str,
                 on_logits(i, p, logits)
             del logits
     positions = sum(len(g) for _, g, _ in checks)
-    excused = sum(int((g <= SERVE_MARGIN).sum()) for _, g, _ in checks)
+    excused = sum(int((g <= margin).sum()) for _, g, _ in checks)
     bad = [(n, int(j), float(g[j])) for n, g, a in checks
-           for j in torch.nonzero(~a & (g > SERVE_MARGIN)).flatten()]
+           for j in torch.nonzero(~a & (g > margin)).flatten()]
     mismatches = sum(int((~a).sum()) for *_, a in checks)
     # How close the mismatches the margin excuses come to it.
     sound_gap = max((float(g[j]) for _, g, a in checks
-                     for j in torch.nonzero(~a & (g <= SERVE_MARGIN)).flatten()),
+                     for j in torch.nonzero(~a & (g <= margin)).flatten()),
                     default=0.0)
-    log(f"serve [{card}]: greedy vs teacher-forced forward: {positions} "
-        f"positions, {mismatches} argmax mismatches, margin {SERVE_MARGIN} "
+    log(f"serve [{card}]: greedy vs teacher-forced {teacher.__name__}: {positions} "
+        f"positions, {mismatches} argmax mismatches, margin {margin} "
         f"excused {excused} ({excused / positions:.3f}), largest gap of an "
-        f"excused mismatch {sound_gap:.4f}; mismatches beyond it {bad}")
-    if bad:
-        raise AssertionError(f"serve: tokens disagree with forward beyond the "
-                             f"margin at (prompt length, index, gap) {bad}")
-    return {"positions": positions, "mismatches": mismatches,
-            "margin": SERVE_MARGIN, "excused": excused,
-            "largest_excused_gap": sound_gap}
+        f"excused mismatch {sound_gap:.4f}; mismatches beyond it {bad} "
+        f"({len(bad) / positions:.3f} of the positions; at most {max_beyond_share})")
+    if len(bad) > max_beyond_share * positions:
+        raise AssertionError(f"serve: tokens disagree with {teacher.__name__} beyond "
+                             f"the margin at (prompt length, index, gap) {bad}")
+    return {"teacher": teacher.__name__, "positions": positions, "mismatches": mismatches,
+            "margin": margin, "excused": excused, "largest_excused_gap": sound_gap,
+            "beyond_margin": bad, "max_beyond_share": max_beyond_share}
 
 
 def decode_burst_profile(torch, models, engine, cfg, card: str,
@@ -609,11 +704,12 @@ def decode_burst_profile(torch, models, engine, cfg, card: str,
         f"share {full['idle_share']:.3f}, {full['kernels_per_step']:.0f} kernels a "
         f"step; groups ms a burst {json.dumps(full['groups_ms'])}")
     log(f"serve [{card}]: same burst at narrow widths (d_model 512, d_ff 1024, "
-        f"vocab 1024; 32 layers, 32/8 heads): host enqueue {narrow['enqueue_ms']:.2f} "
+        f"vocab 1024; {cfg.n_layers} layers, {cfg.n_heads}/{cfg.n_kv_heads} heads): "
+        f"host enqueue {narrow['enqueue_ms']:.2f} "
         f"ms, burst {narrow['burst_ms']:.2f} ms, device busy "
         f"{narrow['device_busy_ms']:.2f} ms, {narrow['kernels_per_step']:.0f} kernels "
         f"a step")
-    return {"live_tokens": live, "llama3_8b": full, "narrow": narrow}
+    return {"live_tokens": live, "full_width": full, "narrow": narrow}
 
 
 def run_streams(engine, prompts, new_tokens: int, temps=None, waits=None):
@@ -662,8 +758,46 @@ def run_streams(engine, prompts, new_tokens: int, temps=None, waits=None):
     return results, run_s
 
 
-def serve_main_path(torch, models, attention, seed: int, card: str):
-    """Phase 6: llama3-8b served by PagedLLMEngine with the knob defaults.
+def serve_traffic(rng, cfg):
+    """Phase 6's requests: prompts of 128 ... 1900 tokens and a pair sharing
+    a 512-token prefix, whose second request arrives once the first has its
+    first token (so it finds the prefix registered); two sampled at 0.8.
+    Returns (prompts, temperatures, waits for run_streams)."""
+    shared = rng.integers(0, cfg.vocab_size, 512).tolist()
+    lengths = (128, 256, 512, 1000, 1500, 1900)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    prompts += [shared + rng.integers(0, cfg.vocab_size, n).tolist()
+                for n in (88, 200)]
+    temps = [0.0, 0.8, 0.0, 0.8, 0.0, 0.0, 0.0, 0.0]
+    return prompts, temps, {len(prompts) - 1: len(prompts) - 2}
+
+
+def largest_op_output(torch, fn):
+    """(numel, op) of the largest tensor any aten op makes while `fn` runs
+    (views, which make none, are left out), and fn's result."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        top = (0, "")
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(r.alias_info is not None for r in func._schema.returns):
+                return out
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor) and t.numel() > Largest.top[0]:
+                    Largest.top = (t.numel(), str(func))
+            return out
+
+    with Largest():
+        result = fn()
+    return Largest.top, result
+
+
+def serve_main_path(torch, models, attention, seed: int, card: str, cfg=None,
+                    teacher=forward_teacher):
+    """Phase 6: llama3-8b served by PagedLLMEngine with the knob defaults
+    (phase 11b: `cfg` mixtral-8x7b at 24 layers, held to `teacher`).
 
     Eight requests from threads: prompts of 128 ... 1900 tokens and a pair
     sharing a 512-token prefix, the second of which arrives once the first
@@ -681,7 +815,7 @@ def serve_main_path(torch, models, attention, seed: int, card: str):
     from ray_tpu_torch.models import decoding
     from ray_tpu_torch.serve import PagedLLMEngine
 
-    cfg = models.configs.LLAMA3_8B
+    cfg = cfg or models.configs.LLAMA3_8B
     num_slots, max_len, new_tokens = 8, 2048, 64
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -697,7 +831,7 @@ def serve_main_path(torch, models, attention, seed: int, card: str):
         weights_gib = sum(w.numel() * w.element_size() for w in
                           models.training.tree_leaves(engine.params)) / 2**30
         pool_gib = 2 * engine.cache.k.numel() * engine.cache.k.element_size() / 2**30
-        log(f"serve [{card}]: llama3-8b engine built in {build_s:.1f} s; weights "
+        log(f"serve [{card}]: {cfg.name} engine built in {build_s:.1f} s; weights "
             f"{weights_gib:.2f} GiB, KV pool {engine.num_blocks} blocks of "
             f"{engine.block_size} = {pool_gib:.2f} GiB, prefill_chunk "
             f"{engine.prefill_chunk}, max_burst {engine.max_burst}")
@@ -706,16 +840,9 @@ def serve_main_path(torch, models, attention, seed: int, card: str):
         attention.reset_launches()
 
         rng = np.random.default_rng(seed)
-        shared = rng.integers(0, cfg.vocab_size, 512).tolist()
-        lengths = (128, 256, 512, 1000, 1500, 1900)
-        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
-        prompts += [shared + rng.integers(0, cfg.vocab_size, n).tolist()
-                    for n in (88, 200)]
-        temps = [0.0, 0.8, 0.0, 0.8, 0.0, 0.0, 0.0, 0.0]
-        # The pair's second request arrives once the first has its first
-        # token, so it finds the prefix registered.
+        prompts, temps, waits = serve_traffic(rng, cfg)
         results, run_s = run_streams(engine, prompts, new_tokens, temps=temps,
-                                     waits={len(prompts) - 1: len(prompts) - 2})
+                                     waits=waits)
         mixed_stats = engine.engine_stats()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         kernel_launches = dict(attention.launches)
@@ -747,7 +874,9 @@ def serve_main_path(torch, models, attention, seed: int, card: str):
         greedy = [i for i, temp in enumerate(temps) if temp == 0]
         agreement = forward_agreement(
             torch, models, engine.params, cfg, [prompts[i] for i in greedy],
-            [results[i][0] for i in greedy], card, on_logits=logits_checks)
+            [results[i][0] for i in greedy], card, on_logits=logits_checks,
+            teacher=teacher,
+            max_beyond_share=MOE_BF16_BEYOND_SHARE if cfg.n_experts else 0.0)
         with torch.no_grad():
             # The engine's decode step on the first request, replayed on a
             # pool of its own: prefill its prompt, then feed its first
@@ -763,22 +892,39 @@ def serve_main_path(torch, models, attention, seed: int, card: str):
                 table, 0, len(p), cfg)
             rows = []
             for k in range(steps):
-                replay, row = decoding.paged_decode_step(
-                    engine.params, replay,
-                    torch.tensor([out[k]], dtype=torch.int32, device="cuda"), table[None],
-                    torch.tensor([len(p) + k], dtype=torch.int32, device="cuda"), one, cfg)
+                step_args = (torch.tensor([out[k]], dtype=torch.int32, device="cuda"),
+                             table[None], torch.tensor([len(p) + k], dtype=torch.int32,
+                                                       device="cuda"), one)
+                if k == 0:   # the step's largest tensor: no weight copy runs
+                    largest, (replay, row) = largest_op_output(
+                        torch, lambda: decoding.paged_decode_step(
+                            engine.params, replay, *step_args, cfg))
+                else:
+                    replay, row = decoding.paged_decode_step(
+                        engine.params, replay, *step_args, cfg)
                 rows.append(row[0].float())
             decode_diff = float((torch.stack(rows) - fwd_steps[0]).abs().max())
             del replay, rows, fwd_steps
         first_diff = max(f[0] for f in firsts)
-        log(f"serve [{card}]: logits engine vs forward max |diff|: first token "
-            f"{first_diff:.4f}, first {steps} decode steps of the "
+        log(f"serve [{card}]: logits engine vs {teacher.__name__} max |diff|: first "
+            f"token {first_diff:.4f}, first {steps} decode steps of the "
             f"{len(prompts[0])}-token request {decode_diff:.4f} (bound "
             f"{SERVE_LOGITS_TOL}; logit std {min(f[1] for f in firsts):.3f}-"
-            f"{max(f[1] for f in firsts):.3f})")
-        if max(first_diff, decode_diff) > SERVE_LOGITS_TOL:
-            raise AssertionError(f"serve: logits differ from forward's by "
-                                 f"{max(first_diff, decode_diff)} > {SERVE_LOGITS_TOL}")
+            f"{max(f[1] for f in firsts):.3f}); a decode step's largest tensor "
+            f"{largest[0]} elements ({largest[1]})")
+        # With MoE the first-token logits of a prompt prefilled in other
+        # chunks than the teacher's may part at a routing flip (see
+        # MOE_BF16_BEYOND_SHARE): they are reported, the decode steps held.
+        held = decode_diff if cfg.n_experts else max(first_diff, decode_diff)
+        if held > SERVE_LOGITS_TOL:
+            raise AssertionError(f"serve: logits differ from {teacher.__name__}'s by "
+                                 f"{held} > {SERVE_LOGITS_TOL}")
+        # An expert product that copied or permuted its stacked weights
+        # would make a tensor of a layer's (E, d, f) expert weight.
+        expert_weight = cfg.n_experts * cfg.d_model * cfg.d_ff
+        if cfg.n_experts and largest[0] >= expert_weight // 2:
+            raise AssertionError(f"serve: a decode step made a {largest} tensor, "
+                                 f"of the order of an expert weight ({expert_weight})")
 
         torch.cuda.reset_peak_memory_stats()  # the check above is not serving
         # Decode round: eight short prompts prefill in one tick, then decode
@@ -842,6 +988,7 @@ def serve_main_path(torch, models, attention, seed: int, card: str):
                                "first_token_logits_max_abs_diff": first_diff,
                                "decode_logits_max_abs_diff": decode_diff,
                                "logits_tolerance": SERVE_LOGITS_TOL},
+            "decode_step_largest_tensor": largest,
             "decode_bursts": len(bursts), "burst_ms": burst_ms,
             "burst_enqueue_ms": enqueue_ms, "decode_tokens_per_s": decode_tok_s,
             "decode_live_kv_tokens": live_tokens, "decode_step_ms": step_ms,
@@ -1114,6 +1261,284 @@ def serve_slice_main_path(torch, models, attention, params, seed: int, card: str
                       "peak_mem_gib": peak_gib}}
 
 
+def check_remat_and_moe_reference(torch, models, card: str, full_grads) -> dict:
+    """Phase 9, at fp32, card against CPU: (a) phase 3's model under remat
+    "dots" and "ff", whose card grads must also equal phase 3's ("full",
+    `full_grads`) within REMAT_GRAD_TOL; (b) the same model with 8 experts
+    top-2 under "full" and "dots"; (c) phase 5's serving model with 8
+    experts top-2 through PagedLLMEngine."""
+    out = {}
+    for policy in ("dots", "ff"):
+        r = check_reference(torch, models, label=f"9a reference, remat {policy}",
+                            remat_policy=policy)
+        out[f"9a_{policy}"] = r
+    moe = dict(n_experts=8, expert_top_k=2)
+    for policy in ("full", "dots"):
+        out[f"9b_moe_{policy}"] = check_reference(
+            torch, models, label=f"9b reference, 8 experts top-2, remat {policy}",
+            remat_policy=policy, **moe)
+    pairs = {"9a dots vs full": (out["9a_dots"], full_grads),
+             "9a ff vs full": (out["9a_ff"], full_grads),
+             "9b dots vs full": (out["9b_moe_dots"], out["9b_moe_full"]["card_grads"])}
+    same = {label: worst_grad_diff(r["card_grads"], want)
+            for label, (r, want) in pairs.items()}
+    log(f"9a/9b remat policies on the card, worst grad diff against full: {same} "
+        f"(0 is bit for bit; bound {REMAT_GRAD_TOL})")
+    if max(same.values()) > REMAT_GRAD_TOL:
+        raise AssertionError(f"remat policies change the card's grads: {same}")
+    for r in out.values():
+        r.pop("card_grads")
+    out["card_grads_vs_full"] = same
+    out["9c"] = check_serving_reference(
+        torch, models, card, label="9c serving reference, 8 experts top-2", **moe)
+    return out
+
+
+def remat_turns(torch, models, attention, steps: int, seed: int, card: str) -> dict:
+    """Phase 10: the bench-350m train step (phase 4's batch) under remat
+    "full", "dots" and "ff" in turns, on one train state: median step ms
+    and host enqueue ms (steps 2..N of each turn), peak memory and kernel
+    launches a step; then one profiled step under each policy (device busy
+    ms and kernel groups)."""
+    import dataclasses
+    import numpy as np
+
+    from ray_tpu_torch.scripts.profile_step import profile_step
+
+    base = models.configs.BENCH_350M
+    batch, seq = 8, 2048
+    opt = models.training.default_optimizer(3e-4, warmup=10, total_steps=1000)
+    init_fn, _ = models.training.make_train_step(base, device="cuda", optimizer=opt)
+    step_fns = {p: models.training.make_train_step(
+        dataclasses.replace(base, remat_policy=p), device="cuda", optimizer=opt)[1]
+        for p in ("full", "dots", "ff")}
+    state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    host = torch.from_numpy(np.random.default_rng(seed + 10).integers(
+        0, base.vocab_size, (steps, batch, seq + 1), dtype=np.int32)).pin_memory()
+    expected = {"fa_fwd": 2 * base.n_layers, "fa_bwd_dq": base.n_layers,
+                "fa_bwd_dkv": base.n_layers}
+    state, _ = step_fns["full"](state, {"tokens": host[0].to("cuda")})  # moments
+    turns = []
+    for policy in ("full", "dots", "ff", "ff", "dots", "full"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, host_ms, losses = [], [], []
+        for i in range(steps):
+            tokens = host[i].to("cuda", non_blocking=True)
+            attention.reset_launches()
+            t0 = time.perf_counter()
+            state, metrics = step_fns[policy](state, {"tokens": tokens})
+            host_ms.append((time.perf_counter() - t0) * 1e3)  # enqueued, not run
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if dict(attention.launches) != expected or not math.isfinite(losses[-1]):
+                raise AssertionError(f"remat {policy} step {i}: launches "
+                                     f"{dict(attention.launches)}, loss {losses[-1]}")
+        turn = {"policy": policy, "step_ms": step_ms, "host_enqueue_ms": host_ms,
+                "median_ms": statistics.median(step_ms[1:] or step_ms),
+                "median_host_ms": statistics.median(host_ms[1:] or host_ms),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches_per_step": expected, "losses": losses}
+        turns.append(turn)
+        log(f"remat [{card}] {base.name} {policy}: median step {turn['median_ms']:.2f} ms "
+            f"(host enqueue {turn['median_host_ms']:.2f}; steps "
+            f"{[round(x, 1) for x in step_ms]}), peak {turn['peak_gib']:.2f} GiB, "
+            f"launches a step {expected}")
+    profiled = {}
+    for policy in ("full", "dots", "ff"):
+        prof = profile_step(step_fns[policy], state, host[0].to("cuda"))
+        profiled[policy] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                  "idle_share", "groups_ms")}
+        log(f"remat [{card}] {base.name} {policy}, one profiled step: device busy "
+            f"{prof['device_busy_ms']:.1f} ms of {prof['wall_ms']:.1f}, groups "
+            f"{json.dumps(prof['groups_ms'])}")
+    del state
+    torch.cuda.empty_cache()
+    return {"config": base.name, "batch": batch, "seq": seq, "steps": steps,
+            "turns": turns, "profiled_steps": profiled}
+
+
+def moe_groups(profile: dict) -> dict:
+    """The profiled MoE step's device ms by group, from `trace_summary`'s
+    ops (launching aten op and its first input's dtype) and kernel groups."""
+    ops, groups = profile["ops_ms"], profile["groups_ms"]
+
+    def ops_sum(*prefixes):
+        return sum(ms for op, ms in ops.items() if op.startswith(prefixes))
+
+    out = {
+        "dispatch/combine (fp32 bmm)": ops_sum("aten::bmm float"),
+        "expert products (bf16 bmm)": ops_sum("aten::bmm c10::BFloat16"),
+        "dense products (mm: attention projections, router, head)":
+            ops_sum("aten::mm", "aten::addmm"),
+        "attention kernels": sum(groups.get(k, 0.0) for k in KERNELS),
+        "optimizer": groups.get("optimizer", 0.0),
+    }
+    out["elementwise, reductions and the rest"] = \
+        profile["device_busy_ms"] - sum(out.values())
+    return out
+
+
+def moe_train_path(torch, models, attention, steps: int, seed: int, card: str) -> dict:
+    """Phase 11a: mixtral-8x7b training at full width, depth cut to
+    MIXTRAL_TRAIN_LAYERS, batch 2 x 2048, remat "full" and "dots" in turns
+    (full, dots, dots, full) on one train state; every kernel launches 2L /
+    L / L times a step. Then one profiled step under "full"."""
+    import dataclasses
+    import numpy as np
+
+    from ray_tpu_torch.scripts.profile_step import profile_step
+
+    cfg = dataclasses.replace(models.configs.MIXTRAL_8X7B,
+                              n_layers=MIXTRAL_TRAIN_LAYERS, remat=True)
+    batch, seq = 2, 2048
+    opt = models.training.default_optimizer(3e-4, warmup=10, total_steps=1000)
+    init_fn, _ = models.training.make_train_step(cfg, device="cuda", optimizer=opt)
+    step_fns = {p: models.training.make_train_step(
+        dataclasses.replace(cfg, remat_policy=p), device="cuda", optimizer=opt)[1]
+        for p in ("full", "dots")}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = torch.from_numpy(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, (steps + 1, batch, seq + 1), dtype=np.int32)).pin_memory()
+    expected = {"fa_fwd": 2 * cfg.n_layers, "fa_bwd_dq": cfg.n_layers,
+                "fa_bwd_dkv": cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launches()            # this slice's main path starts
+    seen = dict(attention.launches)
+    turns, losses = [], []
+    for policy in ("full", "dots", "dots", "full"):
+        step_ms, host_ms = [], []
+        torch.cuda.synchronize()
+        for i in range(steps):
+            tokens = host[i].to("cuda", non_blocking=True)
+            t_step = time.perf_counter()
+            state, metrics = step_fns[policy](state, {"tokens": tokens})
+            host_ms.append((time.perf_counter() - t_step) * 1e3)
+            loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t_step) * 1e3)
+            counts = {n: attention.launches[n] - seen[n] for n in seen}
+            seen = dict(attention.launches)
+            losses.append(loss)
+            if counts != expected:
+                raise AssertionError(f"mixtral {policy} step {i}: launches {counts} "
+                                     f"!= {expected}")
+            if not (math.isfinite(loss) and math.isfinite(grad_norm)):
+                raise AssertionError(f"mixtral {policy} step {i}: non-finite loss "
+                                     f"or grad norm")
+        median_ms = statistics.median(step_ms[1:] or step_ms)
+        turns.append({"policy": policy, "step_ms": step_ms, "host_enqueue_ms": host_ms,
+                      "median_ms": median_ms,
+                      "tokens_per_s": batch * seq / (median_ms / 1e3)})
+        log(f"mixtral train [{card}] {policy}: median step {median_ms:.2f} ms "
+            f"(steps {[round(x, 1) for x in step_ms]}, host {[round(x, 1) for x in host_ms]}), "
+            f"{batch * seq / (median_ms / 1e3):.0f} tokens/s, launches a step {expected}")
+    total = dict(attention.launches)      # ... and ends
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # The loss adds 0.01 x load balance (~1 a layer) and the z-loss (~0.005
+    # a layer) to a cross entropy near ln(V) + 1/2 at random init.
+    if not abs(losses[0] - (math.log(cfg.vocab_size) + 0.5)) < 1.0:
+        raise AssertionError(f"mixtral first loss {losses[0]} far from ln(V) + 1/2")
+    profile = profile_step(step_fns["full"], state, host[steps].to("cuda"),
+                           record_shapes=True)
+    want = {f"{n}_wgmma_kernel<{cfg.head_dim}>": c for n, c in expected.items()}
+    if profile["attention_launches"] != want:
+        raise AssertionError(f"profiled mixtral step launched "
+                             f"{profile['attention_launches']}, not {want}")
+    profile["moe_groups_ms"] = moe_groups(profile)
+    # Active-parameter MFU: 6 N_active + 6 L d T FLOPs a token over the bf16
+    # peak, N_active counting top_k of the n_experts experts of each layer
+    # (what the dispatch pads to capacity and the fp32 dispatch/combine
+    # products add is not counted).
+    n_active = cfg.num_params - (cfg.n_experts - cfg.expert_top_k) * \
+        3 * cfg.d_model * cfg.d_ff * cfg.n_layers
+    fpt = 6.0 * n_active + 6 * cfg.n_layers * cfg.d_model * seq
+    for turn in turns:
+        turn["mfu_active_bf16_989"] = turn["tokens_per_s"] * fpt / PEAK_BF16_FLOPS
+    log(f"mixtral train [{card}]: {cfg.n_layers} layers ({cfg.num_params / 1e9:.3f} B "
+        f"params, {n_active / 1e9:.3f} B active), init {init_s:.1f} s, peak "
+        f"{peak_gib:.2f} GiB, first loss {losses[0]:.4f}, launches {total}; "
+        f"active MFU {[round(t['mfu_active_bf16_989'], 4) for t in turns]}; profiled "
+        f"full step: device busy {profile['device_busy_ms']:.1f} ms of "
+        f"{profile['wall_ms']:.1f}, groups {json.dumps(profile['moe_groups_ms'])}")
+    del state
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "n_layers": cfg.n_layers, "batch": batch, "seq": seq,
+            "steps_per_turn": steps, "params": cfg.num_params, "active_params": n_active,
+            "init_s": init_s, "losses": losses, "turns": turns, "peak_mem_gib": peak_gib,
+            "launches": total, "launches_per_step": expected, "profiled_step": profile}
+
+
+def moe_serve_fp32_twin(torch, models, seed: int, card: str) -> dict:
+    """Phase 11b's exactness check: mixtral-8x7b at full width and fp32,
+    MIXTRAL_FP32_TWIN_LAYERS deep, served by PagedLLMEngine (8 slots,
+    max_len 2048, knob defaults) on phase 6's traffic; greedy tokens and
+    every first-token logit held to the dropless re-prefill at the fp32
+    bounds."""
+    import dataclasses
+    import numpy as np
+
+    from ray_tpu_torch.serve import PagedLLMEngine
+
+    cfg = dataclasses.replace(models.configs.MIXTRAL_8X7B, n_layers=MIXTRAL_FP32_TWIN_LAYERS,
+                              compute_dtype=torch.float32, remat=False)
+    params = models.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                                device="cuda")
+    engine = PagedLLMEngine(cfg, params, num_slots=8, max_len=2048, seed=seed)
+    del params
+    try:
+        engine.warmup()
+        prompts, temps, waits = serve_traffic(np.random.default_rng(seed), cfg)
+        results, run_s = run_streams(engine, prompts, 64, temps=temps, waits=waits)
+        firsts = []
+
+        def first_token(i, p, logits):
+            stored = engine.allocator._meta[tuple(p)].float()
+            firsts.append(float((stored - logits[len(p) - 1].float()).abs().max()))
+
+        greedy = [i for i, temp in enumerate(temps) if temp == 0]
+        agreement = forward_agreement(
+            torch, models, engine.params, cfg, [prompts[i] for i in greedy],
+            [results[i][0] for i in greedy], card, on_logits=first_token,
+            teacher=reprefill_teacher, margin=SERVE_FP32_MARGIN)
+        stats = engine.engine_stats()
+    finally:
+        engine.shutdown()
+    log(f"serve [{card}]: fp32 twin, {cfg.name} at {cfg.n_layers} layers: 8 requests "
+        f"in {run_s:.2f} s, {stats['prefill_chunks']} prefill chunks, prefix_hits "
+        f"{stats['prefix_hits']}; first-token logits vs the re-prefill max |diff| "
+        f"{[round(f, 7) for f in firsts]} (bound {SERVE_FP32_LOGITS_TOL})")
+    if max(firsts) > SERVE_FP32_LOGITS_TOL:
+        raise AssertionError(f"fp32 twin: first-token logits differ by {max(firsts)}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "run_s": run_s, "teacher_forced": agreement,
+            "first_token_logits_max_abs_diff": firsts,
+            "prefill_chunks": stats["prefill_chunks"], "prefix_hits": stats["prefix_hits"]}
+
+
+def moe_serve_path(torch, models, attention, seed: int, card: str) -> dict:
+    """Phase 11b: mixtral-8x7b served at full width, depth cut to
+    MIXTRAL_SERVE_LAYERS, bf16 weights drawn a layer at a time, through
+    phase 6's traffic and measurements, held to the dropless re-prefill;
+    first its fp32 twin (`moe_serve_fp32_twin`)."""
+    import dataclasses
+
+    twin = moe_serve_fp32_twin(torch, models, seed, card)
+    cfg = dataclasses.replace(models.configs.MIXTRAL_8X7B, n_layers=MIXTRAL_SERVE_LAYERS,
+                              param_dtype=torch.bfloat16, remat=False)
+    params, run = serve_main_path(torch, models, attention, seed, card, cfg=cfg,
+                                  teacher=reprefill_teacher)
+    del params
+    torch.cuda.empty_cache()
+    return {**run, "fp32_twin": twin}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -1147,7 +1572,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = check_kernels(torch, attention, gen)
-    check_reference(torch, models)
+    full_grads = check_reference(torch, models)["card_grads"]
     run = main_path(torch, models, attention, args.steps, args.seed)
     log("main path: " + json.dumps(run))
     serve_ref = check_serving_reference(torch, models, card)
@@ -1159,6 +1584,16 @@ def main() -> int:
     slice_run = serve_slice_main_path(torch, models, attention, params, args.seed, card)
     log("serving slice main path: " + json.dumps(slice_run))
     del params
+    torch.cuda.empty_cache()
+    moe_ref = check_remat_and_moe_reference(torch, models, card, full_grads)
+    del full_grads
+    log("remat and MoE reference: " + json.dumps(moe_ref))
+    remat = remat_turns(torch, models, attention, args.steps, args.seed, card)
+    log("remat turns: " + json.dumps(remat))
+    moe_train = moe_train_path(torch, models, attention, args.steps, args.seed, card)
+    log("mixtral train: " + json.dumps(moe_train))
+    moe_serve = moe_serve_path(torch, models, attention, args.seed, card)
+    log("mixtral serve: " + json.dumps(moe_serve))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -1166,6 +1601,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": run["launches"][name],
+            # This slice's main path: the mixtral-8x7b train steps of phase 11a.
+            "launches_mixtral_8x7b_train": moe_train["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

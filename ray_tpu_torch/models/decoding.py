@@ -22,10 +22,11 @@ donation buys. A functional copy of the cache per layer does not fit at
 llama3-8b. So a slice of the cache is a view that the next write changes:
 `extract_prefix` returns copies. Attention is an fp32 product in plain
 PyTorch, as it is plain XLA in the JAX package: there is no kernel on these
-paths.
+paths. MoE layers route exactly (`moe_mlp_dropless`), so every step
+computes the same function whatever the batch.
 
 Not ported yet: `cache_shardings` (tensor-parallel serving, ROADMAP queue
-A, item 5) and MoE layers (`n_experts > 0` raises; item 6).
+A, item 5).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.transformer import TransformerConfig, resolve_device
+from ray_tpu_torch.ops.moe import MOE_PARAMS, moe_mlp_dropless
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rotary import apply_rope
 
@@ -55,11 +57,12 @@ def _qkv(bp, x, cfg: TransformerConfig, positions):
 
 
 def _mlp(bp, x, cfg: TransformerConfig):
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported yet: ROADMAP queue A, item 6")
     cd = cfg.compute_dtype
     h = rms_norm(x, bp["mlp_norm"], eps=cfg.norm_eps)
+    if cfg.n_experts > 0:
+        # Dropless: capacity routing (training's) would make a decode step
+        # depend on how many tokens share it.
+        return moe_mlp_dropless(h, {n: bp[n] for n in MOE_PARAMS}, cfg.moe)
     gate = h @ bp["w_gate"].to(cd)
     up = h @ bp["w_up"].to(cd)
     return (F.silu(gate) * up) @ bp["w_down"].to(cd)

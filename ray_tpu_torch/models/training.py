@@ -4,7 +4,9 @@
 The step is eager PyTorch: forward and loss, backward through the flash
 attention kernels, then clipping and AdamW. It updates the state in place
 (params, moments) and returns it, where JAX returns a new, donated state.
-Sharding over several GPUs is a later slice (ROADMAP queue A).
+With MoE the loss carries the auxiliary losses, so the metrics, the grad
+norm and clipping see them as JAX's step does. Sharding over several GPUs
+is a later slice (ROADMAP queue A).
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Compute ops of the PyTorch/CUDA port (counterpart of `ray_tpu.ops`).
 
 Attention runs hand-written CUDA kernels for Hopper on CUDA tensors and
-their plain versions on CPU tensors; norms and rotary embeddings are plain
-tensor math, as they are plain XLA in the JAX package.
+their plain versions on CPU tensors; norms, rotary embeddings and the MoE
+layer (`ops/moe.py`) are plain tensor math, as they are plain XLA in the
+JAX package.
 """
 from ray_tpu_torch.ops.attention import flash_attention, mha_reference
 from ray_tpu_torch.ops.norms import rms_norm

@@ -7,8 +7,8 @@ weights and tokens from seed 0: one step to warm up, then one under
 torch.profiler. Prints the card's name and power limit, then one JSON
 object: device time by kernel group, the device's busy time and idle
 share, the top kernels by device time and the aten ops by self device
-time. `chip_smoke.py` reads the group totals and
-the busy time of `profile_step` alone.
+time. `chip_smoke.py` reads the group totals, the device time by
+launching aten op and dtype, and the busy time of `profile_step` alone.
 """
 from __future__ import annotations
 
@@ -44,13 +44,16 @@ def attention_kernel_name(name: str) -> str:
     return m.group(0) if m else name
 
 
-def profile_step(step_fn, state, tokens, *, detail: bool = False) -> dict:
+def profile_step(step_fn, state, tokens, *, detail: bool = False,
+                 record_shapes: bool = False) -> dict:
     """One train step under torch.profiler: `trace_summary` of it, and
-    with `detail` also the aten ops by self device time."""
+    with `detail` also the aten ops by self device time. `record_shapes`
+    records the ops' input dtypes, which `ops_ms` then tells apart."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         _, metrics = step_fn(state, {"tokens": tokens})
         float(metrics["loss"])
@@ -68,7 +71,9 @@ def profile_step(step_fn, state, tokens, *, detail: bool = False) -> dict:
 def trace_summary(prof, wall_ms: float) -> dict:
     """From a finished torch.profiler run over `wall_ms` of host time:
     device ms by kernel group, the device's busy ms and idle share, the
-    launches of each attention kernel by name and the top 15 kernels."""
+    launches of each attention kernel by name, the top 15 kernels, and
+    device ms by the aten op that launched each kernel ("aten::bmm float";
+    the dtype of its first input, where the run recorded shapes)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -77,11 +82,19 @@ def trace_summary(prof, wall_ms: float) -> dict:
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         raise AssertionError("profiler recorded no device kernels")
-    groups, by_name, attention = {}, {}, {}
+    # A kernel's "External id" is that of the innermost op that launched it.
+    launcher = {}
+    for e in events:
+        if e.get("cat") == "cpu_op" and "External id" in e.get("args", {}):
+            types = e["args"].get("Input type") or [""]
+            launcher[e["args"]["External id"]] = f"{e['name']} {types[0]}".strip()
+    groups, by_name, attention, ops = {}, {}, {}, {}
     for e in kernels:
         ms = e["dur"] / 1e3
         group = kernel_group(e["name"])
         groups[group] = groups.get(group, 0.0) + ms
+        op = launcher.get(e.get("args", {}).get("External id"), "(no op)")
+        ops[op] = ops.get(op, 0.0) + ms
         # Summed under the first 80 characters of the name, the key shown.
         by_name[e["name"][:80]] = by_name.get(e["name"][:80], 0.0) + ms
         if group in ATTENTION_KERNELS:
@@ -95,6 +108,7 @@ def trace_summary(prof, wall_ms: float) -> dict:
            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     out["top_kernels_ms"] = dict(top)
+    out["ops_ms"] = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
     return out
 
 

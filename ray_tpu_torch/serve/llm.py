@@ -24,10 +24,12 @@ Both can verify prompt-lookup drafts (`speculation_k >= 2`): a tick
 verifies K candidates per slot in one width-K call, exact under greedy
 decoding.
 
+Both serve MoE models (`n_experts > 0`) with exact, dropless routing.
+
 Not ported yet, each raising NotImplementedError where a caller could ask
-for it: the object-store arena (`store=`, ROADMAP queue A, item 10),
-tensor-parallel serving (`mesh=`, item 5) and MoE (item 6). Serving spans
-and histograms, `LLMDeployment` and `serve/disagg.py` come with item 10.
+for it: the object-store arena (`store=`, ROADMAP queue A, item 10) and
+tensor-parallel serving (`mesh=`, item 5). Serving spans and histograms,
+`LLMDeployment` and `serve/disagg.py` come with item 10.
 """
 from __future__ import annotations
 
@@ -329,10 +331,6 @@ class LLMEngine(_EngineBase):
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=) is not ported yet: "
                 "ROADMAP queue A, item 5")
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "MoE (n_experts > 0) is not ported yet: ROADMAP queue A, "
-                "item 6")
         self.device = resolve_device(device)
         self.cfg = cfg
         with torch.no_grad():
@@ -550,10 +548,6 @@ class PagedLLMEngine(_EngineBase):
             raise NotImplementedError(
                 "the object-store arena (store=) is not ported yet: "
                 "ROADMAP queue A, item 10")
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "MoE (n_experts > 0) is not ported yet: ROADMAP queue A, "
-                "item 6")
         self.device = resolve_device(device)
         self.cfg = cfg
         # The JAX step casts the fp32 masters to the compute dtype inside

@@ -2,7 +2,8 @@
 
 TINY (4 query heads over 2 kv heads, so GQA is on the path) at fp32
 compute in both packages, weights drawn by the JAX init and carried across
-with `jax_bridge`, inputs from numpy at a fixed seed. fp32 runs the same
+with `jax_bridge`, inputs from numpy at a fixed seed; the steps' tests run
+again on TINY_MOE (4 experts, top 2, dropless routing). fp32 runs the same
 arithmetic in both frameworks, so logits and the scattered KV blocks are
 held to atol 1e-4, rtol 1e-4. Pool block 0 is left out of the KV
 comparisons: inactive lanes all write it, and which duplicate write lands
@@ -28,14 +29,24 @@ BS = 4           # tokens per block
 N_BLOCKS = 24    # pool blocks, block 0 the null block
 
 
-@pytest.fixture(scope="module")
-def model():
-    jcfg = dataclasses.replace(jax_configs.TINY, compute_dtype=jnp.float32)
-    tcfg = dataclasses.replace(configs.TINY, compute_dtype=torch.float32)
-    assert tcfg.n_kv_heads < tcfg.n_heads
+def _model(name):
+    jcfg = dataclasses.replace(jax_configs.get(name), compute_dtype=jnp.float32)
+    tcfg = dataclasses.replace(configs.get(name), compute_dtype=torch.float32)
     jp = jax_init(jax.random.key(0), jcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     return jcfg, jp, tcfg, tp
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg, jp, tcfg, tp = _model("tiny")
+    assert tcfg.n_kv_heads < tcfg.n_heads
+    return jcfg, jp, tcfg, tp
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    return _model("tiny-moe")
 
 
 def _caches(cfg, rng=None):
@@ -447,3 +458,52 @@ def test_prefix_snapshot_survives_later_writes_and_matches_jax(model):
     extract, insert, sample = tdec.make_prefix_cache_fns()
     assert (extract, insert, sample) == (tdec.extract_prefix,
                                          tdec.insert_prefix, tdec.sample_one)
+
+
+# ---------------------------------------------------------------------------
+# MoE: the same steps on TINY_MOE
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", [
+    test_prefill_chunks_then_decode_across_a_block_boundary,
+    test_decode_step_and_burst_on_a_filled_pool,
+    test_paged_verify_step_on_a_partly_right_draft_matches_jax,
+    test_prefill_then_decode_steps_match_jax,
+    test_verify_step_on_a_partly_right_draft_matches_jax,
+    test_greedy_decode_burst_matches_jax,
+], ids=lambda case: case.__name__[len("test_"):])
+def test_tiny_moe_steps_match_jax(moe_model, case):
+    """Each paged and contiguous step's test above, on TINY_MOE: its MLP is
+    the dropless MoE in both packages."""
+    case(moe_model)
+
+
+def test_tiny_moe_decode_matches_reprefill(moe_model):
+    """The port's twin of tests/test_llm.py's MoE check: the cached greedy
+    decode gives the tokens of re-prefilling the grown sequence each step,
+    and its logits are within the tolerance of the re-prefill's (dropless
+    routing does not depend on how many tokens share a call)."""
+    _, _, tcfg, tp = moe_model
+    prompt = np.random.default_rng(10).integers(0, tcfg.vocab_size, 8).tolist()
+    seq, ref_tokens, ref_logits = list(prompt), [], []
+    for _ in range(4):
+        padded = torch.zeros(1, T_MAX, dtype=torch.int32)
+        padded[0, :len(seq)] = torch.tensor(seq)
+        _, last = tdec.prefill(tp, tdec.init_cache(tcfg, 1, T_MAX, device="cpu"),
+                               padded, 0, len(seq), tcfg)
+        ref_logits.append(last)
+        ref_tokens.append(int(torch.argmax(last)))
+        seq.append(ref_tokens[-1])
+    cache = tdec.init_cache(tcfg, 1, T_MAX, device="cpu")
+    padded = torch.zeros(1, 16, dtype=torch.int32)
+    padded[0, :8] = torch.tensor(prompt)
+    cache, last = tdec.prefill(tp, cache, padded, 0, 8, tcfg)
+    out, logits = [int(torch.argmax(last))], [last]
+    for _ in range(3):
+        cache, step = tdec.decode_step(
+            tp, cache, torch.tensor([out[-1]], dtype=torch.int32),
+            torch.tensor([True]), tcfg)
+        logits.append(step[0])
+        out.append(int(torch.argmax(step[0])))
+    assert out == ref_tokens
+    torch.testing.assert_close(torch.stack(logits), torch.stack(ref_logits),
+                               **TOL)

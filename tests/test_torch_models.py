@@ -164,18 +164,91 @@ def test_remat_full_matches_no_remat():
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("overrides,kwargs,match", [
-    (dict(remat=True, remat_policy="dots"), {}, "remat_policy='dots'"),
-    (dict(remat=True, remat_policy="ff"), {}, "remat_policy='ff'"),
-    (dict(n_experts=4), {}, "MoE"),
-    ({}, dict(seq_shards=2), "seq_shards=2"),
-])
-def test_unported_paths_raise(overrides, kwargs, match):
+def _port_loss_and_grads(params, tokens, cfg):
+    p = {k: ({n: w.clone().requires_grad_() for n, w in v.items()}
+             if isinstance(v, dict) else v.clone().requires_grad_())
+         for k, v in params.items()}
+    loss = loss_fn(p, {"tokens": tokens}, cfg)
+    loss.backward()
+    return loss.detach(), [w.grad for w in tree_leaves(p)]
+
+
+@pytest.mark.parametrize("policy", ["dots", "ff"])
+def test_remat_policy_matches_full_no_remat_and_jax(policy):
+    """Dense TINY under "dots" and "ff": the port's loss and grads equal
+    those of "full" and of no remat (the same values, saved or recomputed),
+    and JAX's under the same policy."""
+    jcfg, tcfg = _configs("tiny", remat=True, remat_policy=policy)
+    jp, tp = _params(jcfg, tcfg)
+    tokens = _tokens(tcfg.vocab_size, seed=7)
+    loss, grads = _port_loss_and_grads(tp, torch.from_numpy(tokens), tcfg)
+    for other in (dict(remat=True, remat_policy="full"), dict(remat=False)):
+        l0, g0 = _port_loss_and_grads(tp, torch.from_numpy(tokens),
+                                      dataclasses.replace(tcfg, **other))
+        torch.testing.assert_close(loss, l0, rtol=0, atol=0)
+        for a, b in zip(grads, g0):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    batch = {"tokens": jnp.asarray(tokens)}
+    assert float(loss) == pytest.approx(float(jax_loss(jp, batch, jcfg)),
+                                        rel=1e-5)
+    want = jax.grad(jax_loss)(jp, batch, jcfg)
+    got = _grad_tree(tp, grads)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-5)
+
+
+def _grad_tree(params, grads):
+    """The flat grads of `tree_leaves(params)` back in params' tree, numpy."""
+    it = iter(grads)
+    return params_to_numpy({k: ({n: next(it) for n in v}
+                                if isinstance(v, dict) else next(it))
+                            for k, v in params.items()})
+
+
+@pytest.mark.parametrize("policy,rerun_per_layer", [
+    ("full", 6), ("dots", 0), ("ff", 6)])
+def test_remat_policy_reruns_the_products_it_does_not_save(policy,
+                                                           rerun_per_layer):
+    """The weight products backward runs again, per layer. "full" reruns
+    six of the block's seven: no backward formula reads w_down's output, so
+    the recompute stops before it (torch's checkpoint stops early, as JAX's
+    partial evaluation leaves it out). "dots" saves all seven. "ff" saves
+    w_down's input, whose backward still needs w_gate's and w_up's outputs,
+    so the same six run again."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+                CountMM.count += 1
+            return func(*args, **(kwargs or {}))
+
+    _, tcfg = _configs("tiny")
+    params = init_params(tcfg, torch.Generator().manual_seed(1), device="cpu")
+    tokens = torch.from_numpy(_tokens(tcfg.vocab_size, seed=8))
+    counts = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(tcfg, remat=remat, remat_policy=policy)
+        leaves = [w.clone().requires_grad_() for w in tree_leaves(params)]
+        it = iter(leaves)
+        p = {k: ({n: next(it) for n in v} if isinstance(v, dict) else next(it))
+             for k, v in params.items()}
+        loss = loss_fn(p, {"tokens": tokens}, cfg)
+        CountMM.count = 0
+        with CountMM():
+            loss.backward()
+        counts[remat] = CountMM.count
+    assert counts[True] - counts[False] == rerun_per_layer * tcfg.n_layers
+
+
+def test_unported_paths_raise():
     _, tcfg = _configs("tiny")
     params = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
-    cfg = dataclasses.replace(tcfg, **overrides)
-    with pytest.raises(NotImplementedError, match=match):
-        forward(params, torch.zeros(1, 4, dtype=torch.int32), cfg, **kwargs)
+    with pytest.raises(NotImplementedError, match="seq_shards=2"):
+        forward(params, torch.zeros(1, 4, dtype=torch.int32), tcfg,
+                seq_shards=2)
 
 
 def test_module_matches_functional():

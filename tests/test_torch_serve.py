@@ -7,6 +7,8 @@ heads over 2 kv heads) at fp32 compute with the same weights, carried
 across with `jax_bridge`; greedy tokens must be equal, request for
 request. Every engine is shut down and its thread joined by the `engines`
 fixture, every wait has its own timeout, and no assertion reads a clock.
+The engine tests named in `test_tiny_moe_engines_match_jax` run again on
+TINY_MOE (4 experts, top 2), whose MLPs route dropless in both packages.
 """
 import dataclasses
 import threading
@@ -38,9 +40,11 @@ KNOBS = ("kv_block_size", "kv_block_count", "kv_block_prefix_sharing",
 
 
 @pytest.fixture(scope="module")
-def model():
-    jcfg = dataclasses.replace(jax_configs.TINY, compute_dtype=jnp.float32)
-    tcfg = dataclasses.replace(configs.TINY, compute_dtype=torch.float32)
+def model(request):
+    """TINY, or the config named by an indirect parameter."""
+    name = getattr(request, "param", "tiny")
+    jcfg = dataclasses.replace(jax_configs.get(name), compute_dtype=jnp.float32)
+    tcfg = dataclasses.replace(configs.get(name), compute_dtype=torch.float32)
     jp = jax_init(jax.random.key(0), jcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     return jcfg, jp, tcfg, tp
@@ -249,9 +253,6 @@ def test_unported_options_raise(model):
         PagedLLMEngine(tcfg, tp, store=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="queue A, item 5"):
         LLMEngine(tcfg, tp, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        PagedLLMEngine(dataclasses.replace(tcfg, n_experts=4), tp,
-                       device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -624,3 +625,21 @@ def test_llm_engine_stream_resume_and_failures(engines):
     eng._decode = real
     assert eng._slots == [None, None]
     assert eng.generate([4, 5, 6, 7], max_tokens=9, timeout=WAIT_S) == full
+
+
+# ---------------------------------------------------------------------------
+# MoE: the engines on TINY_MOE
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("model", ["tiny-moe"], indirect=True)
+@pytest.mark.parametrize("case", [
+    test_concurrent_requests_match_jax,
+    test_prompt_longer_than_a_chunk_prefills_in_chunks_like_jax,
+    test_paged_speculation_is_exact_and_matches_jax,
+    test_llm_engine_single_and_concurrent_match_jax,
+    test_llm_engine_speculation_is_exact_and_matches_jax,
+], ids=lambda case: case.__name__[len("test_"):])
+def test_tiny_moe_engines_match_jax(model, engines, case):
+    """Each engine test above on TINY_MOE: greedy tokens (and accepted
+    drafts) equal the JAX engines'."""
+    assert model[2].n_experts == 4
+    case(engines)

@@ -2,8 +2,8 @@
 
 Five steps of `make_train_step` on TINY at fp32 compute, from the same
 JAX-drawn weights and the same numpy batches, against JAX's jitted step on
-a one-device mesh; plus the schedule, clipping and AdamW update on their
-own against optax.
+a one-device mesh, and three on TINY_MOE; plus the schedule, clipping and
+AdamW update on their own against optax.
 """
 import dataclasses
 
@@ -142,3 +142,39 @@ def test_eval_step_matches_jax():
         params_from_jax(jparams, TCFG, device="cpu"), {"tokens": tokens})
     assert not got.requires_grad
     assert float(got) == pytest.approx(want, rel=1e-5)
+
+
+def test_three_moe_train_steps_match_jax():
+    """TINY_MOE (4 experts, top 2): the loss, its grad norm and the clipped
+    update carry the auxiliary losses as JAX's step does; held as the dense
+    steps above."""
+    jcfg = dataclasses.replace(jax_configs.TINY_MOE, compute_dtype=jnp.float32)
+    tcfg = dataclasses.replace(configs.TINY_MOE, compute_dtype=torch.float32)
+    opt = dict(lr=1e-2, warmup=1, total_steps=10)
+    rng = np.random.default_rng(6)
+    batches = [rng.integers(0, tcfg.vocab_size, (4, 33), dtype=np.int32)
+               for _ in range(3)]
+    mesh = build_mesh(MeshConfig(fsdp=-1), devices=jax.devices()[:1])
+    jinit, jstep = jax_make_train_step(
+        jcfg, mesh, optimizer=jax_default_optimizer(
+            opt["lr"], warmup=opt["warmup"], total_steps=opt["total_steps"]))
+    jstate = jinit(jax.random.key(0))
+    start = jax.tree.map(np.asarray, jstate.params)
+    tinit, tstep = make_train_step(
+        tcfg, device="cpu", optimizer=default_optimizer(
+            opt["lr"], warmup=opt["warmup"], total_steps=opt["total_steps"]))
+    tstate = tinit(params=params_from_jax(start, tcfg, device="cpu"))
+    for i, tokens in enumerate(batches):
+        jstate, jm = jstep(jstate, {"tokens": jnp.asarray(tokens)})
+        tstate, tm = tstep(tstate, {"tokens": tokens})
+        assert tm["step"] == int(jm["step"]) == i + 1
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-4)
+        assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
+                                                       rel=1e-4)
+    got = params_to_numpy(tstate.params)
+    want = jax.tree.map(np.asarray, jstate.params)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    moved = max(float(np.abs(a - b).max()) for a, b in
+                zip(jax.tree.leaves(got), jax.tree.leaves(start)))
+    assert moved > 1e-2
