@@ -11,11 +11,12 @@ Run from a checkout of the repository on a machine with a Hopper card
    kernel, with any report line on a serialised wgmma or an ignored
    setmaxnreg; fails if setmaxnreg would not get its registers;
 2. kernels: hold each flash-attention kernel against its plain PyTorch
-   version on the card, in bf16 (bench-350m heads, llama3-8b heads, a
-   ragged T, odd unequal Tq and Tkv at D 64 and 128) and fp32, causal and
-   not, within `KERNEL_TOLERANCE` of ray_tpu_torch/ops/attention.py, and
-   two bf16 dq launches on the same inputs bit for bit; time kernel, plain
-   version and `scaled_dot_product_attention` as a yardstick;
+   version on the card, in bf16 (bench-350m heads, llama3-8b heads,
+   bench-1b4 heads, a ragged T, odd unequal Tq and Tkv at D 64 and 128)
+   and fp32, causal and not, within `KERNEL_TOLERANCE` of
+   ray_tpu_torch/ops/attention.py, and two bf16 dq launches on the same
+   inputs bit for bit; time kernel, plain version and
+   `scaled_dot_product_attention` as a yardstick;
 3. reference: a 2-layer model's loss and gradients at fp32 through the
    kernels on the card against the same model through the plain versions
    on the CPU;
@@ -87,12 +88,28 @@ Run from a checkout of the repository on a machine with a Hopper card
    `forward` replaced as the teacher by a dropless re-prefill of each
    grown sequence through the contiguous path, and a decode step whose
    largest tensor must stay below a layer's expert weight (no copy of the
-   stacked weights).
+   stacked weights);
+12. the sharded train step at world 1: `build_mesh(MeshConfig(fsdp=-1))`
+   starts a one-rank NCCL group (the collectives are checked on it), the
+   params are DTensors laid out by DEFAULT_RULES, and batches come through
+   `data.torch_feed` (pinned, depth 2) from a seeded numpy corpus:
+   (a) bench-350m (phase 4's batch and optimizer), the plain step and the
+   mesh step from the same params on the same batches in turns (plain,
+   mesh, mesh, plain): step and host enqueue medians, the loss difference
+   at each step, the feed's hits and misses, launches 2L / L / L a step;
+   (b) this slice's main path: bench-1b4 at full width (bf16, remat
+   "full", batch 4 x 2048) through the mesh step with Adafactor(1e-4):
+   step median over steps 2..N, tokens/s, MFU, peak memory, launches 2L /
+   L / L a step at D 128, one profiled step, Adafactor's update alone; (c) fp32, card against CPU
+   (a "cpu" mesh over the same group): phase 3's 2-layer model (widths
+   256 and 512) for 3 Adafactor steps under the mesh path, loss within
+   1e-5, params within 1e-4 and their updates within 1e-3 of the largest.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
-phase 4's steps, and of phase 11a's as `launches_mixtral_8x7b_train`),
-and {"ok": true, "device": {...}}.
+phase 4's steps, of phase 11a's as `launches_mixtral_8x7b_train` and of
+phase 12b's as `launches_bench_1b4_mesh_train`), and {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -119,6 +136,7 @@ SOURCE = "ray_tpu_torch/csrc/flash_attention.cu"
 # (label, B, Tq, Tkv, H, D); the first is the main path's shape.
 BF16_SHAPES = [("bench-350m", 8, 2048, 2048, 16, 64),
                ("llama3-8b-heads", 2, 2048, 2048, 32, 128),
+               ("bench-1b4", 4, 2048, 2048, 16, 128),
                ("ragged-T", 2, 1000, 1000, 16, 64),
                ("odd-unequal-d64", 1, 257, 300, 4, 64),
                ("odd-unequal-d128", 1, 257, 300, 4, 128)]
@@ -1539,6 +1557,235 @@ def moe_serve_path(torch, models, attention, seed: int, card: str) -> dict:
     return {**run, "fp32_twin": twin}
 
 
+# Phase 12c: Adafactor's learning rate. bench.py's 1e-4 moves a param by
+# ~1e-4 of itself a step, below what a 1e-4 bound on the params can see;
+# at 1e-2 a wrong update shows.
+MESH_REF_LR = 1e-2
+
+
+def check_collectives(torch, mesh) -> dict:
+    """Phase 12: each collective once on the card over the one-rank NCCL
+    group (fsdp, size 1): every result equals its input."""
+    from ray_tpu_torch.parallel import collectives
+
+    x = torch.arange(24, dtype=torch.float32, device="cuda").reshape(4, 6)
+    out = {name: fn(x, "fsdp", mesh=mesh) for name, fn in {
+        "psum": collectives.psum, "pmean": collectives.pmean,
+        "all_gather": collectives.all_gather, "psum_scatter": collectives.psum_scatter,
+        "ppermute_ring": collectives.ppermute_ring}.items()}
+    out["all_to_all"] = collectives.all_to_all(x, "fsdp", mesh=mesh, split_dim=0,
+                                               concat_dim=1)
+    for name, y in out.items():
+        if not torch.equal(y, x):
+            raise AssertionError(f"{name} over a one-rank group changed its input")
+    return {"checked": sorted(out), "backend": torch.distributed.get_backend()}
+
+
+def fed_turn(torch, attention, step_fn, state, feed, expected) -> tuple:
+    """Steps over a torch_feed, each timed on the host clock (enqueue,
+    then synchronised); the launches of every step must be `expected`."""
+    step_ms, host_ms, losses = [], [], []
+    with feed:
+        for batch in feed:
+            attention.reset_launches()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            host_ms.append((time.perf_counter() - t0) * 1e3)  # enqueued, not run
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if dict(attention.launches) != expected or not math.isfinite(losses[-1]):
+                raise AssertionError(f"launches {dict(attention.launches)} != "
+                                     f"{expected}, or loss {losses[-1]}")
+    return state, {"step_ms": step_ms, "host_enqueue_ms": host_ms, "losses": losses,
+                   "median_ms": statistics.median(step_ms[1:] or step_ms),
+                   "median_host_ms": statistics.median(host_ms[1:] or host_ms),
+                   "feed_hits": feed.hits, "feed_misses": feed.misses}
+
+
+def mesh_turns(torch, models, attention, mesh, steps: int, seed: int, card: str) -> dict:
+    """Phase 12a: bench-350m, the plain step and the mesh step from the
+    same params on the same batches, in turns (plain, mesh, mesh, plain),
+    each turn fed by torch_feed."""
+    import numpy as np
+
+    from ray_tpu_torch.data import torch_feed
+
+    cfg = models.configs.BENCH_350M
+    batch, seq = 8, 2048
+    opt = models.training.default_optimizer(3e-4, warmup=10, total_steps=1000)
+    init_plain, step_plain = models.training.make_train_step(cfg, device="cuda",
+                                                             optimizer=opt)
+    init_mesh, step_mesh = models.training.make_train_step(cfg, mesh, optimizer=opt)
+    states = {"plain": init_plain(torch.Generator(device="cuda").manual_seed(seed))}
+    states["mesh"] = init_mesh(params=states["plain"].params)
+    corpus = np.random.default_rng(seed + 12).integers(
+        0, cfg.vocab_size, (2 * steps, batch, seq + 1), dtype=np.int32)
+    expected = {"fa_fwd": 2 * cfg.n_layers, "fa_bwd_dq": cfg.n_layers,
+                "fa_bwd_dkv": cfg.n_layers}
+    turns = []
+    for path, half in (("plain", 0), ("mesh", 0), ("mesh", 1), ("plain", 1)):
+        source = ({"tokens": t} for t in corpus[half * steps:(half + 1) * steps])
+        feed = torch_feed(source, device="cuda", mesh=mesh if path == "mesh" else None,
+                          prefetch=2)
+        torch.cuda.synchronize()
+        states[path], turn = fed_turn(torch, attention, {"plain": step_plain,
+                                                         "mesh": step_mesh}[path],
+                                      states[path], feed, expected)
+        turns.append({"path": path, "batches": [half * steps, (half + 1) * steps],
+                      **turn, "launches_per_step": expected})
+        log(f"mesh [{card}] {cfg.name} {path} (batches {half * steps}..): median step "
+            f"{turn['median_ms']:.2f} ms (host enqueue {turn['median_host_ms']:.2f}; "
+            f"steps {[round(x, 1) for x in turn['step_ms']]}), feed hits "
+            f"{turn['feed_hits']} misses {turn['feed_misses']}, launches a step {expected}")
+    # The same batches from the same params: plain turn i against mesh turn i.
+    diffs = [abs(a - b) for half in (0, 1)
+             for a, b in zip(turns[half * 3]["losses"], turns[1 + half]["losses"])]
+    log(f"mesh [{card}]: |loss mesh - loss plain| per step {[f'{d:.3g}' for d in diffs]}")
+    if not abs(turns[0]["losses"][0] - (math.log(cfg.vocab_size) + 0.5)) < 1.0:
+        raise AssertionError(f"first loss {turns[0]['losses'][0]} far from ln(V) + 1/2")
+    if max(diffs) > 1e-2:
+        raise AssertionError(f"mesh and plain steps part: loss diffs {diffs}")
+    del states
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "batch": batch, "seq": seq, "steps_per_turn": steps,
+            "turns": turns, "loss_abs_diff": diffs}
+
+
+def bench_1b4_path(torch, models, attention, mesh, steps: int, seed: int, card: str) -> dict:
+    """Phase 12b: bench-1b4 at full width through the mesh step with
+    Adafactor(1e-4), fed by torch_feed; then one profiled step."""
+    import numpy as np
+
+    from ray_tpu_torch.data import torch_feed
+    from ray_tpu_torch.scripts.profile_step import profile_step
+
+    cfg = models.configs.BENCH_1B4
+    batch, seq = 4, 2048
+    init_fn, step_fn = models.training.make_train_step(
+        cfg, mesh, optimizer=models.training.Adafactor(1e-4))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    corpus = np.random.default_rng(seed + 13).integers(
+        0, cfg.vocab_size, (steps + 1, batch, seq + 1), dtype=np.int32)
+    expected = {"fa_fwd": 2 * cfg.n_layers, "fa_bwd_dq": cfg.n_layers,
+                "fa_bwd_dkv": cfg.n_layers}
+    feed = torch_feed(({"tokens": t} for t in corpus[:steps]), device="cuda",
+                      mesh=mesh, prefetch=2)
+    total = {n: 0 for n in attention.launches}
+    attention.reset_launches()            # this slice's main path starts
+    step_ms, host_ms, losses = [], [], []
+    with feed:
+        for batch_ in feed:
+            t_step = time.perf_counter()
+            state, metrics = step_fn(state, batch_)
+            host_ms.append((time.perf_counter() - t_step) * 1e3)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t_step) * 1e3)
+            counts = {n: attention.launches[n] - total[n] for n in total}
+            total = dict(attention.launches)
+            if counts != expected or not math.isfinite(losses[-1]):
+                raise AssertionError(f"bench-1b4 step {len(losses)}: launches {counts} "
+                                     f"!= {expected}, or loss {losses[-1]}")
+    total = dict(attention.launches)      # ... and ends
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not abs(losses[0] - (math.log(cfg.vocab_size) + 0.5)) < 1.0:
+        raise AssertionError(f"bench-1b4 first loss {losses[0]} far from ln(V) + 1/2")
+    profile = profile_step(step_fn, state, torch.from_numpy(corpus[steps]).to("cuda"))
+    want = {f"{n}_wgmma_kernel<{cfg.head_dim}>": c for n, c in expected.items()}
+    if profile["attention_launches"] != want:
+        raise AssertionError(f"profiled bench-1b4 step launched "
+                             f"{profile['attention_launches']}, not {want}")
+    # The optimizer's share: Adafactor alone on fixed grads of the same leaves.
+    leaves = models.training.tree_leaves(state.params)
+    grads = [p.detach() * 1e-3 for p in leaves]
+
+    def adafactor_update():
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        models.training.Adafactor(1e-4).update(state.opt_state, leaves, steps)
+
+    adafactor_ms = time_ms(adafactor_update, iters=3, warmup=1)
+    del grads
+    median_ms = statistics.median(step_ms[1:] or step_ms)
+    tokens_per_s = batch * seq / (median_ms / 1e3)
+    fpt = 6.0 * cfg.num_params + 6 * cfg.n_layers * cfg.d_model * seq
+    run = {"config": cfg.name, "batch": batch, "seq": seq, "steps": steps,
+           "params": cfg.num_params, "init_s": init_s, "losses": losses,
+           "step_ms": step_ms, "host_enqueue_ms": host_ms, "steady_step_ms": median_ms,
+           "tokens_per_s": tokens_per_s,
+           "mfu_bf16_989": tokens_per_s * fpt / PEAK_BF16_FLOPS,
+           "peak_mem_gib": peak_gib, "feed_hits": feed.hits, "feed_misses": feed.misses,
+           "adafactor_update_ms": adafactor_ms,
+           "launches": total, "launches_per_step": expected,
+           "profiled_step": {k: profile[k] for k in (
+               "wall_ms", "device_busy_ms", "idle_share", "groups_ms", "top_kernels_ms")}}
+    log(f"bench-1b4 [{card}] mesh step, Adafactor: median {median_ms:.2f} ms (steps "
+        f"{[round(x, 1) for x in step_ms]}, host {[round(x, 1) for x in host_ms]}), "
+        f"{tokens_per_s:.0f} tokens/s, MFU {run['mfu_bf16_989']:.4f}, peak "
+        f"{peak_gib:.2f} GiB, init {init_s:.1f} s, losses {[round(x, 4) for x in losses]}, "
+        f"feed hits {feed.hits} misses {feed.misses}, launches {total}; profiled step: "
+        f"device busy {profile['device_busy_ms']:.1f} ms of {profile['wall_ms']:.1f}, "
+        f"groups {json.dumps(profile['groups_ms'])}; Adafactor alone {adafactor_ms:.2f} ms")
+    del state
+    torch.cuda.empty_cache()
+    return run
+
+
+def check_mesh_reference(torch, models, mesh, card: str) -> dict:
+    """Phase 12c: 3 Adafactor steps of phase 3's fp32 model under the mesh
+    path on the card and on the CPU (a "cpu" mesh over the same group)."""
+    from ray_tpu_torch.parallel import build_mesh
+
+    cfg, params, tokens = reference_model(torch, models)
+    batches = [tokens.numpy()] * 3
+    runs = {}
+    for device, m in (("cpu", build_mesh(device_type="cpu")), ("cuda", mesh)):
+        init_fn, step_fn = models.training.make_train_step(
+            cfg, m, optimizer=models.training.Adafactor(MESH_REF_LR))
+        state = init_fn(params=params)
+        losses = [float(step_fn(state, {"tokens": b})[1]["loss"]) for b in batches]
+        runs[device] = (losses, [p.detach().full_tensor().cpu() for p in
+                                 models.training.tree_leaves(state.params)])
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
+    start = models.training.tree_leaves(params)
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    param_diff = max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu))
+    update_diff = worst_grad_diff([a - s for a, s in zip(p_gpu, start)],
+                                  [b - s for b, s in zip(p_cpu, start)])
+    log(f"mesh reference [{card}]: Adafactor({MESH_REF_LR}) x 3 at fp32, losses card "
+        f"{l_gpu} cpu {l_cpu} (worst rel diff {loss_diff:.3g}); params max |diff| "
+        f"{param_diff:.3g}, updates {update_diff:.3g} of their largest")
+    if loss_diff > 1e-5 or param_diff > 1e-4 or update_diff > 1e-3:
+        raise AssertionError("mesh path: card and CPU part")
+    return {"losses_card": l_gpu, "losses_cpu": l_cpu, "loss_rel_diff": loss_diff,
+            "param_max_abs_diff": param_diff, "update_rel_diff": update_diff}
+
+
+def mesh_phase(torch, models, attention, steps: int, seed: int, card: str) -> dict:
+    """Phase 12 on one world-1 group, which it destroys when done."""
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+
+    mesh = build_mesh(MeshConfig(fsdp=-1))
+    try:
+        out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "collectives": check_collectives(torch, mesh)}
+        log(f"mesh [{card}]: {out}")
+        out["bench_350m_turns"] = mesh_turns(torch, models, attention, mesh, steps,
+                                             seed, card)
+        out["bench_1b4"] = bench_1b4_path(torch, models, attention, mesh, steps, seed,
+                                          card)
+        out["reference"] = check_mesh_reference(torch, models, mesh, card)
+        return out
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -1594,6 +1841,8 @@ def main() -> int:
     log("mixtral train: " + json.dumps(moe_train))
     moe_serve = moe_serve_path(torch, models, attention, args.seed, card)
     log("mixtral serve: " + json.dumps(moe_serve))
+    sharded = mesh_phase(torch, models, attention, args.steps, args.seed, card)
+    log("sharded train: " + json.dumps(sharded))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -1603,6 +1852,8 @@ def main() -> int:
             "replaces": replaces, "launches": run["launches"][name],
             # This slice's main path: the mixtral-8x7b train steps of phase 11a.
             "launches_mixtral_8x7b_train": moe_train["launches"][name],
+            # This slice's main path: phase 12b's bench-1b4 mesh steps.
+            "launches_bench_1b4_mesh_train": sharded["bench_1b4"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

@@ -26,7 +26,7 @@ paths. MoE layers route exactly (`moe_mlp_dropless`), so every step
 computes the same function whatever the batch.
 
 Not ported yet: `cache_shardings` (tensor-parallel serving, ROADMAP queue
-A, item 5).
+A, item 12).
 """
 from __future__ import annotations
 

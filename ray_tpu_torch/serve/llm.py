@@ -28,7 +28,7 @@ Both serve MoE models (`n_experts > 0`) with exact, dropless routing.
 
 Not ported yet, each raising NotImplementedError where a caller could ask
 for it: the object-store arena (`store=`, ROADMAP queue A, item 10) and
-tensor-parallel serving (`mesh=`, item 5). Serving spans and histograms,
+tensor-parallel serving (`mesh=`, item 12). Serving spans and histograms,
 `LLMDeployment` and `serve/disagg.py` come with item 10.
 """
 from __future__ import annotations
@@ -330,7 +330,7 @@ class LLMEngine(_EngineBase):
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=) is not ported yet: "
-                "ROADMAP queue A, item 5")
+                "ROADMAP queue A, item 12")
         self.device = resolve_device(device)
         self.cfg = cfg
         with torch.no_grad():

@@ -251,7 +251,7 @@ def test_unported_options_raise(model):
         KVBlockAllocator(9, 4, store=object())
     with pytest.raises(NotImplementedError, match="queue A, item 10"):
         PagedLLMEngine(tcfg, tp, store=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A, item 5"):
+    with pytest.raises(NotImplementedError, match="queue A, item 12"):
         LLMEngine(tcfg, tp, mesh=object(), device="cpu")
 
 
