@@ -103,13 +103,30 @@ Run from a checkout of the repository on a machine with a Hopper card
    L / L a step at D 128, one profiled step, Adafactor's update alone; (c) fp32, card against CPU
    (a "cpu" mesh over the same group): phase 3's 2-layer model (widths
    256 and 512) for 3 Adafactor steps under the mesh path, loss within
-   1e-5, params within 1e-4 and their updates within 1e-3 of the largest.
+   1e-5, params within 1e-4 and their updates within 1e-3 of the largest;
+13. the pipeline and context-parallel attention at world 1, on a (dp 1,
+   pp 1) mesh and an sp mesh of one rank: (a) this slice's main path:
+   bench-350m (phase 4's batch, remat "full") through
+   `make_pipeline_train_step` with 4 microbatches and `AdamW()`, in turns
+   with the plain step from the same params on the same batches (plain,
+   pipeline, pipeline, plain): step and host enqueue medians, peak
+   memory, the loss difference at each step (each within
+   PIPE_LOSS_TOL), launches 2L / L / L a plain step and 4 ticks of that a
+   pipeline step; (b) ring and Ulysses attention at bench-1b4's attention
+   shape (bf16, causal), forward and backward: Ulysses launches each
+   kernel once and equals flash_attention bit for bit, ring launches none
+   and is held to mha_reference at fp32 within KERNEL_TOLERANCE["bf16"];
+   each timed against flash_attention, host enqueue beside wall time; (c)
+   fp32, card against CPU: `make_pipeline_loss` and its grads on phase 3's
+   model (pp 1, 2 microbatches; loss 1e-5, grads 1e-4), ring and Ulysses
+   at sp 1 within CP_REF_TOL.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
-phase 4's steps, of phase 11a's as `launches_mixtral_8x7b_train` and of
-phase 12b's as `launches_bench_1b4_mesh_train`), and {"ok": true,
-"device": {...}}.
+phase 4's steps, of phase 11a's as `launches_mixtral_8x7b_train`, of
+phase 12b's as `launches_bench_1b4_mesh_train`, of phase 13a's pipeline
+steps as `launches_bench_350m_pipeline_train` and of 13b's Ulysses call
+as `launches_ulysses`), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1565,7 +1582,8 @@ MESH_REF_LR = 1e-2
 
 def check_collectives(torch, mesh) -> dict:
     """Phase 12: each collective once on the card over the one-rank NCCL
-    group (fsdp, size 1): every result equals its input."""
+    group (fsdp, size 1): every result equals its input (all_to_all and
+    ppermute_ring issue no collective over one rank)."""
     from ray_tpu_torch.parallel import collectives
 
     x = torch.arange(24, dtype=torch.float32, device="cuda").reshape(4, 6)
@@ -1786,6 +1804,228 @@ def mesh_phase(torch, models, attention, steps: int, seed: int, card: str) -> di
         torch.distributed.destroy_process_group()
 
 
+# Phase 13a: the pipeline's microbatches (bench-350m's batch of 8 rows
+# makes microbatches of 2); at pp 1 a step runs M + S - 1 = 4 ticks.
+PIPE_MICROBATCHES = 4
+# Phase 13a: |pipeline - plain| of every step's loss. At world 1 both
+# compute the same function; the microbatched products round in bf16 in
+# another grouping.
+PIPE_LOSS_TOL = 1e-2
+# Phase 13c: ring and Ulysses attention at fp32, card against CPU (atol,
+# rtol) on outputs and q/k/v grads.
+CP_REF_TOL = (1e-5, 1e-5)
+
+
+def pipeline_turns(torch, models, attention, mesh, steps: int, seed: int, card: str) -> dict:
+    """Phase 13a: bench-350m through `make_pipeline_train_step` (pp 1, 4
+    microbatches) and through the plain `make_train_step`, both with
+    `AdamW()` (optax.adamw(1e-3)), from the same params on the same
+    batches, in turns (plain, pipeline, pipeline, plain)."""
+    import numpy as np
+
+    from ray_tpu_torch.parallel import pipeline
+
+    cfg = models.configs.BENCH_350M
+    batch, seq = 8, 2048
+    opt = models.training.AdamW()
+    init_plain, step_plain = models.training.make_train_step(cfg, device="cuda",
+                                                             optimizer=opt)
+    init_pipe, step_pipe = pipeline.make_pipeline_train_step(
+        cfg, mesh, n_microbatches=PIPE_MICROBATCHES, optimizer=opt)
+    step_fns = {"plain": step_plain, "pipeline": step_pipe}
+    states = {"plain": init_plain(torch.Generator(device="cuda").manual_seed(seed))}
+    states["pipeline"] = init_pipe(params=states["plain"].params)
+    corpus = np.random.default_rng(seed + 13).integers(
+        0, cfg.vocab_size, (2 * steps, batch, seq + 1), dtype=np.int32)
+    host = torch.from_numpy(corpus).pin_memory()
+    ticks = PIPE_MICROBATCHES + mesh.size(mesh.mesh_dim_names.index(pipeline.AXIS_PIPE)) - 1
+    expected = {"plain": {"fa_fwd": 2 * cfg.n_layers, "fa_bwd_dq": cfg.n_layers,
+                          "fa_bwd_dkv": cfg.n_layers}}
+    expected["pipeline"] = {n: c * ticks for n, c in expected["plain"].items()}
+    total = {n: 0 for n in attention.launches}  # the pipeline steps' launches
+    turns = []
+    for path, half in (("plain", 0), ("pipeline", 0), ("pipeline", 1), ("plain", 1)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, host_ms, losses = [], [], []
+        for i in range(half * steps, (half + 1) * steps):
+            tokens = host[i].to("cuda", non_blocking=True)
+            attention.reset_launches()
+            t0 = time.perf_counter()
+            states[path], metrics = step_fns[path](states[path], {"tokens": tokens})
+            host_ms.append((time.perf_counter() - t0) * 1e3)  # enqueued, not run
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = dict(attention.launches)
+            if counts != expected[path] or not math.isfinite(losses[-1]):
+                raise AssertionError(f"{path} step {i}: launches {counts} != "
+                                     f"{expected[path]}, or loss {losses[-1]}")
+            if path == "pipeline":
+                total = {n: total[n] + counts[n] for n in total}
+        turn = {"path": path, "batches": [half * steps, (half + 1) * steps],
+                "step_ms": step_ms, "host_enqueue_ms": host_ms, "losses": losses,
+                "median_ms": statistics.median(step_ms[1:] or step_ms),
+                "median_host_ms": statistics.median(host_ms[1:] or host_ms),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches_per_step": expected[path]}
+        turns.append(turn)
+        log(f"pipeline [{card}] {cfg.name} {path} (batches {half * steps}..): median "
+            f"step {turn['median_ms']:.2f} ms (host enqueue {turn['median_host_ms']:.2f}; "
+            f"steps {[round(x, 1) for x in step_ms]}), peak {turn['peak_mem_gib']:.2f} GiB "
+            f"(both states resident), losses {[round(x, 5) for x in losses]}, launches a "
+            f"step {expected[path]}")
+    # The same batches from the same params: plain turn i against pipeline turn i.
+    diffs = [abs(a - b) for half in (0, 1)
+             for a, b in zip(turns[half * 3]["losses"], turns[1 + half]["losses"])]
+    log(f"pipeline [{card}]: |loss pipeline - loss plain| per step "
+        f"{[f'{d:.3g}' for d in diffs]}")
+    if not abs(turns[0]["losses"][0] - (math.log(cfg.vocab_size) + 0.5)) < 1.0:
+        raise AssertionError(f"first loss {turns[0]['losses'][0]} far from ln(V) + 1/2")
+    if max(diffs) > PIPE_LOSS_TOL:
+        raise AssertionError(f"pipeline and plain losses part: diffs {diffs}")
+    del states
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "batch": batch, "seq": seq, "steps_per_turn": steps,
+            "n_microbatches": PIPE_MICROBATCHES, "ticks": ticks, "turns": turns,
+            "loss_abs_diff": diffs, "launches": total}
+
+
+def host_and_wall_ms(torch, fn, iters: int = 10) -> tuple[float, float]:
+    """(host ms to enqueue one call, wall ms of one call) over `iters`
+    calls in a row: near each other, the host sets the call's time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3, (time.perf_counter() - t0) / iters * 1e3
+
+
+def _fwd_bwd(torch, fn, q, k, v, do) -> list:
+    """[out, dq, dk, dv] of fn(q, k, v) and the cotangent do."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves)
+    return [out.detach(), *torch.autograd.grad(out, leaves, do)]
+
+
+def context_parallel_attention(torch, attention, sp_mesh, seed: int, card: str) -> dict:
+    """Phase 13b: ring and Ulysses attention over an sp axis of one rank at
+    bench-1b4's attention shape (bf16, causal), forward and backward:
+    Ulysses launches each kernel once and equals flash_attention bit for
+    bit; ring launches none and is held to mha_reference at fp32 on the
+    same inputs. Each is timed against flash_attention (CUDA events), and
+    its host enqueue read beside its wall time."""
+    from ray_tpu_torch.ops import flash_attention, ring_attention, ulysses_attention
+
+    b, t, h, d = 4, 2048, 16, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    fns = {"flash": lambda a, b_, c: flash_attention(a, b_, c, True),
+           "ulysses": lambda a, b_, c: ulysses_attention(a, b_, c, mesh=sp_mesh),
+           "ring": lambda a, b_, c: ring_attention(a, b_, c, mesh=sp_mesh)}
+    one = {"fa_fwd": 1, "fa_bwd_dq": 1, "fa_bwd_dkv": 1}
+    expected = {"flash": one, "ulysses": one, "ring": {n: 0 for n in one}}
+    runs, launches = {}, {}
+    for name, fn in fns.items():
+        attention.reset_launches()
+        runs[name] = _fwd_bwd(torch, fn, q, k, v, do)
+        torch.cuda.synchronize()
+        launches[name] = dict(attention.launches)
+        if launches[name] != expected[name]:
+            raise AssertionError(f"{name}: launches {launches[name]} != {expected[name]}")
+    if not all(torch.equal(a, b_) for a, b_ in zip(runs["ulysses"], runs["flash"])):
+        raise AssertionError("Ulysses at sp 1 differs from flash_attention")
+    want = _fwd_bwd(torch, lambda a, b_, c: attention.mha_reference(
+        a.float(), b_.float(), c.float(), causal=True), q, k, v, do)
+    ring_err = [max_err(got, exp, attention.KERNEL_TOLERANCE["bf16"])
+                for got, exp in zip(runs["ring"], want)]
+    del runs, want
+    torch.cuda.empty_cache()
+    ms = {name: time_ms(lambda fn=fn: _fwd_bwd(torch, fn, q, k, v, do), iters=5)
+          for name, fn in fns.items()}
+    host = {name: host_and_wall_ms(torch, lambda fn=fn: _fwd_bwd(torch, fn, q, k, v, do))
+            for name, fn in fns.items()}
+    out = {"shape": [b, t, h, d], "dtype": "bf16", "causal": True,
+           "launches": launches, "ulysses_equals_flash": True,
+           "ring_vs_reference": {"max_abs_err": max(e for e, _ in ring_err),
+                                 "tolerance_share": max(s_ for _, s_ in ring_err)},
+           "fwd_bwd_ms": ms, "host_enqueue_and_wall_ms": host}
+    log(f"context parallel [{card}] at sp 1, {b}x{t}x{h}x{d} bf16 causal, fwd+bwd: "
+        f"flash {ms['flash']:.3f} ms, ulysses {ms['ulysses']:.3f} ms (equal to flash, "
+        f"launches {launches['ulysses']}), ring {ms['ring']:.3f} ms (launches "
+        f"{launches['ring']}; vs mha_reference {out['ring_vs_reference']}); host "
+        f"enqueue and wall ms a call {host}")
+    return out
+
+
+def check_pipeline_reference(torch, models, mesh, sp_mesh, card: str) -> dict:
+    """Phase 13c, fp32, card against CPU ("cpu" meshes over the same group):
+    make_pipeline_loss and its grads on phase 3's model at pp 1 and 2
+    microbatches (loss 1e-5, grads 1e-4 of each tensor's max), and ring and
+    Ulysses attention at sp 1 (CP_REF_TOL)."""
+    from ray_tpu_torch.ops import ring_attention, ulysses_attention
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.pipeline import (
+        build_pipeline_mesh, make_pipeline_loss, pipeline_shardings)
+
+    cfg, params, tokens = reference_model(torch, models)
+    start = models.jax_bridge.params_to_numpy(params)
+    runs = {}
+    for device, m in (("cpu", build_pipeline_mesh(1, device_type="cpu")), ("cuda", mesh)):
+        p = models.jax_bridge.params_from_jax(start, cfg, mesh=m,
+                                              shardings=pipeline_shardings(cfg, m))
+        leaves = models.training.tree_leaves(p)
+        for w in leaves:
+            w.requires_grad_()
+        loss = make_pipeline_loss(cfg, m, 2)(p, {"tokens": tokens})
+        loss.backward()
+        runs[device] = (float(loss.detach()),
+                        [w.grad.full_tensor().detach().cpu() for w in leaves])
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    worst = worst_grad_diff(g_gpu, g_cpu)
+    if not math.isclose(l_gpu, l_cpu, rel_tol=1e-5) or worst > 1e-4:
+        raise AssertionError(f"pipeline loss card {l_gpu} cpu {l_cpu}, grads {worst:.3g}")
+    gen = torch.Generator().manual_seed(15)
+    q, k, v, do = (torch.randn(2, 256, 4, 64, generator=gen) for _ in range(4))
+    cpu_sp = build_mesh(MeshConfig(fsdp=1, sp=1), device_type="cpu")
+    attn = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        want = _fwd_bwd(torch, lambda a, b, c: fn(a, b, c, mesh=cpu_sp), q, k, v, do)
+        got = _fwd_bwd(torch, lambda a, b, c: fn(a, b, c, mesh=sp_mesh),
+                       *(x.cuda() for x in (q, k, v, do)))
+        errs = [max_err(g.cpu(), w, CP_REF_TOL) for g, w in zip(got, want)]
+        attn[name] = {"max_abs_err": max(e for e, _ in errs),
+                      "tolerance_share": max(s_ for _, s_ in errs)}
+    out = {"pipeline_loss_card": l_gpu, "pipeline_loss_cpu": l_cpu,
+           "pipeline_worst_grad_diff": worst, "attention": attn}
+    log(f"pipeline reference [{card}]: fp32 loss card {l_gpu:.6f} cpu {l_cpu:.6f}, worst "
+        f"grad diff {worst:.3g} of its tensor's max; ring/Ulysses at sp 1 card vs cpu "
+        f"{attn}")
+    return out
+
+
+def pipeline_phase(torch, models, attention, steps: int, seed: int, card: str) -> dict:
+    """Phase 13 on one world-1 group (a (dp 1, pp 1) pipeline mesh and an
+    sp mesh of one rank over it), which it destroys when done."""
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.parallel.pipeline import build_pipeline_mesh
+
+    mesh = build_pipeline_mesh(1)
+    try:
+        sp_mesh = build_mesh(MeshConfig(fsdp=1, sp=1))
+        return {
+            "bench_350m_pipeline": pipeline_turns(torch, models, attention, mesh, steps,
+                                                  seed, card),
+            "context_parallel": context_parallel_attention(torch, attention, sp_mesh,
+                                                           seed, card),
+            "reference": check_pipeline_reference(torch, models, mesh, sp_mesh, card)}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -1843,6 +2083,8 @@ def main() -> int:
     log("mixtral serve: " + json.dumps(moe_serve))
     sharded = mesh_phase(torch, models, attention, args.steps, args.seed, card)
     log("sharded train: " + json.dumps(sharded))
+    piped = pipeline_phase(torch, models, attention, args.steps, args.seed, card)
+    log("pipeline and context parallel: " + json.dumps(piped))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -1854,6 +2096,11 @@ def main() -> int:
             "launches_mixtral_8x7b_train": moe_train["launches"][name],
             # This slice's main path: phase 12b's bench-1b4 mesh steps.
             "launches_bench_1b4_mesh_train": sharded["bench_1b4"]["launches"][name],
+            # This slice's main paths: phase 13a's pipeline steps and 13b's
+            # Ulysses call.
+            "launches_bench_350m_pipeline_train":
+                piped["bench_350m_pipeline"]["launches"][name],
+            "launches_ulysses": piped["context_parallel"]["launches"]["ulysses"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

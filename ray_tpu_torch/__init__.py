@@ -2,11 +2,13 @@
 
 It runs beside `ray_tpu`, which stays the reference, and imports nothing
 from it. Ported so far: `ops` (flash attention as hand-written CUDA
-kernels, norms, rotary embeddings, MoE), `models` (transformer, configs,
-the train step on one device or sharded over a mesh with AdamW or
-Adafactor, decoding on the contiguous and the paged KV cache, the weight
-bridge from JAX), `parallel` (the device mesh, the logical sharding rules
-on DTensor, collectives over named mesh dims), `data` (the pinned,
+kernels, ring and Ulysses attention over a sequence-split axis, norms,
+rotary embeddings, MoE), `models` (transformer, configs, the train step
+on one device or sharded over a mesh, sequence axis included, with AdamW,
+SGD or Adafactor, decoding on the contiguous and the paged KV cache, the
+weight bridge from JAX), `parallel` (the device mesh, the logical sharding
+rules on DTensor, differentiable collectives over named mesh dims, the
+GPipe pipeline over a pp axis), `data` (the pinned,
 prefetching device feed), `train` (the torch.distributed backend),
 `serve` (the fixed-slot and paged serving engines, with speculative
 decoding and KV import/export, and the block allocator) and, of `core`,

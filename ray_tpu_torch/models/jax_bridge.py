@@ -5,7 +5,9 @@ stacked on a leading axis), so crossing over is a copy of numpy arrays.
 This module takes and returns numpy only: it imports no JAX. JAX params
 sharded on a mesh come across as `jax.device_get` gives them (whole numpy
 arrays); `params_from_jax` lays them out on a torch mesh by the same
-logical rules, and `params_to_numpy` gathers DTensors whole again.
+logical rules (or by the shardings the caller passes, such as a pipeline's
+stage split), and
+`params_to_numpy` gathers DTensors whole again.
 """
 from __future__ import annotations
 
@@ -23,13 +25,16 @@ from ray_tpu_torch.parallel.sharding import (
 def params_from_jax(np_tree: dict, cfg: TransformerConfig,
                     device: torch.device | str = "cuda", *,
                     mesh: DeviceMesh | None = None,
-                    rules: LogicalRules = DEFAULT_RULES) -> dict:
+                    rules: LogicalRules = DEFAULT_RULES,
+                    shardings: dict | None = None) -> dict:
     """The JAX param pytree, as numpy arrays, -> the port's params.
 
     Every leaf of `param_shapes(cfg)` must be present with its shape;
     values are cast to `cfg.param_dtype` on `device`. Under a `mesh`
     (whose device type replaces `device`) they become DTensors laid out
-    by `param_logical_axes(cfg)` and `rules`.
+    by `param_logical_axes(cfg)` and `rules`, or by `shardings` (a tree of
+    `NamedSharding`s, e.g. `parallel.pipeline.pipeline_shardings`) when
+    given.
     """
     device = resolve_device(device if mesh is None else mesh.device_type)
 
@@ -52,7 +57,9 @@ def params_from_jax(np_tree: dict, cfg: TransformerConfig,
     params = convert(param_shapes(cfg), np_tree, "")
     if mesh is None:
         return params
-    return shard_pytree(params, param_shardings(param_logical_axes(cfg), mesh, rules))
+    if shardings is None:
+        shardings = param_shardings(param_logical_axes(cfg), mesh, rules)
+    return shard_pytree(params, shardings)
 
 
 def params_to_numpy(params: dict) -> dict:

@@ -10,8 +10,14 @@ see them as JAX's step does.
 
 With a `mesh` (`parallel.build_mesh`) the params are DTensors laid out by
 the logical rules, the step takes the global batch (each rank computes
-its rows), and its loss, grads and metrics are the global batch's, as
-JAX's sharded step gives them. Without one it runs on one device.
+its rows, and under an sp axis its share of the positions), and its
+loss, grads and metrics are the global batch's, as JAX's sharded step
+gives them. Without one it runs on one device.
+
+Optimizers: `Optimizer` (the JAX package's default: clipping, AdamW on a
+warmup-cosine schedule), `AdamW` and `SGD` (optax.adamw and optax.sgd at
+a constant rate, as the pipeline uses them) and `Adafactor`; each runs on
+the local shards of DTensor params.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from ray_tpu_torch.models.transformer import (
     TransformerConfig, init_params, layout_for, loss_fn, param_logical_axes,
     resolve_device)
 from ray_tpu_torch.parallel.collectives import psum
-from ray_tpu_torch.parallel.mesh import local_batch_rows
+from ray_tpu_torch.parallel.mesh import AXIS_SEQ, local_batch_rows, mesh_axis_sizes
 from ray_tpu_torch.parallel.sharding import (
     DEFAULT_RULES, LogicalRules, NamedSharding, local_tensor, logical_to_mesh,
     mesh_axes, param_shardings, placements, shard_axes)
@@ -124,13 +130,65 @@ class Optimizer:
         """Clip the leaves' grads, take one AdamW step at the scheduled lr,
         clear the grads; return the global norm of the raw grads."""
         norm = clip_by_global_norm_([p.grad for p in leaves], self.grad_clip)
-        for p, local in zip(leaves, opt.param_groups[0]["params"]):
-            local.grad = local_tensor(p.grad)
-        for group in opt.param_groups:
-            group["lr"] = self.learning_rate(count)
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        _adamw_step(opt, leaves, self.learning_rate(count))
+        return norm
+
+
+def _adamw_step(opt: torch.optim.Optimizer, leaves: list[torch.Tensor], lr: float):
+    """One step of `opt` (a torch AdamW over the leaves' local shards) from
+    the leaves' grads at rate `lr`, then clear the grads."""
+    for p, local in zip(leaves, opt.param_groups[0]["params"]):
+        local.grad = local_tensor(p.grad)
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    for p in leaves:
+        p.grad = None
+
+
+# optax.adamw(1e-3)'s defaults, which the JAX pipeline's train step uses.
+ADAMW_LR = 1e-3
+ADAMW_BETAS = (0.9, 0.999)
+ADAMW_WEIGHT_DECAY = 1e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """optax.adamw(1e-3) with its defaults: b1 0.9, b2 0.999, eps 1e-8,
+    weight decay 1e-4 on every parameter, a constant rate, no clipping
+    (what the JAX pipeline's train step uses)."""
+
+    def init(self, leaves: list[torch.Tensor]) -> torch.optim.Optimizer:
+        return torch.optim.AdamW([local_tensor(p) for p in leaves],
+                                 lr=ADAMW_LR, betas=ADAMW_BETAS, eps=ADAM_EPS,
+                                 weight_decay=ADAMW_WEIGHT_DECAY)
+
+    def update(self, opt: torch.optim.Optimizer, leaves: list[torch.Tensor],
+               count: int) -> torch.Tensor:
+        """One AdamW step from the leaves' grads, which it clears; return
+        the global norm of the grads."""
+        norm = global_norm([p.grad for p in leaves])
+        _adamw_step(opt, leaves, ADAMW_LR)
+        return norm
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    """optax.sgd(learning_rate): p -= learning_rate * grad, no state."""
+    learning_rate: float
+
+    def init(self, leaves: list[torch.Tensor]) -> None:
+        return None
+
+    @torch.no_grad()
+    def update(self, state: None, leaves: list[torch.Tensor],
+               count: int) -> torch.Tensor:
+        """One step from the leaves' grads, which it clears; return the
+        global norm of the grads."""
+        norm = global_norm([p.grad for p in leaves])
         for p in leaves:
+            local_tensor(p).sub_(local_tensor(p.grad), alpha=self.learning_rate)
             p.grad = None
         return norm
 
@@ -237,13 +295,20 @@ def default_optimizer(lr: float = 3e-4, *, warmup: int = 100,
                      weight_decay=weight_decay, grad_clip=grad_clip)
 
 
+def _mesh_seq_shards(mesh: DeviceMesh | None) -> int:
+    """The mesh's sp size: how many ranks split the positions."""
+    return 1 if mesh is None else mesh_axis_sizes(mesh).get(AXIS_SEQ, 1)
+
+
 def _local_batch(batch: dict, device: torch.device, mesh: DeviceMesh | None,
                  rules: LogicalRules) -> dict:
-    """This rank's rows of a global batch, on `device`. A DTensor (what
-    `data.torch_feed` yields under a mesh) is laid out as `rules` split the
-    batch and gives its local rows. A host array is sliced to this rank's
-    rows and copied synchronously; `data.torch_feed` stages batches in
-    pinned memory and copies them ahead of the step."""
+    """This rank's rows of a global batch, on `device`, and under an sp
+    axis of more than one rank its positions (`_local_positions`). A
+    DTensor (what `data.torch_feed` yields under a mesh: rows only) is laid
+    out as `rules` split the batch and gives its local rows. A host array
+    is sliced to this rank's rows and copied synchronously;
+    `data.torch_feed` stages batches in pinned memory and copies them
+    ahead of the step."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, DTensor):
@@ -255,7 +320,26 @@ def _local_batch(batch: dict, device: torch.device, mesh: DeviceMesh | None,
         if mesh is not None:
             v = v[local_batch_rows(mesh, v.shape[0], mesh_axes(rules, "batch", mesh))]
         out[k] = v.to(device)
+    if _mesh_seq_shards(mesh) > 1:
+        return _local_positions(out, mesh)
     return out
+
+
+def _local_positions(batch: dict, mesh: DeviceMesh) -> dict:
+    """This rank's share of the positions of its rows, under the mesh's sp
+    axis (the axis the context-parallel attention runs over): inputs and
+    targets are cut from (B, T+1) "tokens" first, since T+1 does not split,
+    then every (B, T) entry keeps columns [i*T/sp, (i+1)*T/sp) at sp index i."""
+    if "targets" not in batch:
+        tokens = batch["tokens"]
+        batch = {**batch, "tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    n, i = _mesh_seq_shards(mesh), mesh.get_local_rank(AXIS_SEQ)
+    t = batch["tokens"].shape[1]
+    if t % n or any(v.shape[1] != t for v in batch.values()):
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        raise ValueError(f"{shapes}: each needs T columns, T divisible by sp={n}")
+    per = t // n
+    return {k: v[:, i * per:(i + 1) * per] for k, v in batch.items()}
 
 
 def _own(t: torch.Tensor, sharding: NamedSharding | None, device: torch.device,
@@ -272,13 +356,23 @@ def _own(t: torch.Tensor, sharding: NamedSharding | None, device: torch.device,
     return t.to(device, dtype).clone().requires_grad_()
 
 
+def own_params(tree: dict, shardings: dict | None, device: torch.device,
+               dtype: torch.dtype) -> dict:
+    """`_own` over a param tree, each leaf laid out by its entry of
+    `shardings` (a tree of NamedShardings, or None for plain tensors)."""
+    return {k: own_params(v, shardings and shardings[k], device, dtype)
+            if isinstance(v, dict) else _own(v, shardings and shardings[k], device, dtype)
+            for k, v in tree.items()}
+
+
 def make_train_step(
     cfg: TransformerConfig,
     mesh: DeviceMesh | None = None,
     *,
     rules: LogicalRules = DEFAULT_RULES,
-    optimizer: Optimizer | Adafactor | None = None,
+    optimizer: Optimizer | AdamW | SGD | Adafactor | None = None,
     device: torch.device | str = "cuda",
+    seq_shards: int | None = None,
 ) -> tuple[Callable[..., TrainState], Callable[..., tuple[TrainState, dict]]]:
     """Returns (init_fn(generator=None, *, params=None) -> TrainState,
     step_fn(state, batch) -> (state, metrics)).
@@ -287,12 +381,16 @@ def make_train_step(
     rank must draw the same) or copies the given `params` tree. Under a
     `mesh` (whose device type replaces `device`) they become DTensors laid
     out by `param_shardings(param_logical_axes(cfg), mesh, rules)`, and
-    `step_fn` takes the global batch. Metrics: "loss" and "grad_norm" (of
-    the raw grads) as 0-d tensors on the device, the global batch's, and
+    `step_fn` takes the global batch. `seq_shards` defaults to the mesh's
+    sp size, as in the JAX package: above 1, attention is
+    `cfg.sp_attention` over sp. Metrics: "loss" and "grad_norm" (of the
+    raw grads) as 0-d tensors on the device, the global batch's, and
     "step" as an int.
     """
     device = resolve_device(device if mesh is None else mesh.device_type)
     layout_for(cfg, mesh, rules)  # raises now for a layout not ported yet
+    if seq_shards is None:
+        seq_shards = _mesh_seq_shards(mesh)
     shardings = None if mesh is None else \
         param_shardings(param_logical_axes(cfg), mesh, rules)
     optimizer = optimizer or default_optimizer()
@@ -301,19 +399,13 @@ def make_train_step(
                 params: dict | None = None) -> TrainState:
         if params is None:
             params = init_params(cfg, generator, device=device)
-
-        def own(tree, shardings):
-            return {k: own(v, shardings and shardings[k]) if isinstance(v, dict)
-                    else _own(v, shardings and shardings[k], device, cfg.param_dtype)
-                    for k, v in tree.items()}
-
-        params = own(params, shardings)
+        params = own_params(params, shardings, device, cfg.param_dtype)
         return TrainState(step=0, params=params,
                           opt_state=optimizer.init(tree_leaves(params)))
 
     def step_fn(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         loss = loss_fn(state.params, _local_batch(batch, device, mesh, rules), cfg,
-                       rules=rules, mesh=mesh)
+                       rules=rules, mesh=mesh, seq_shards=seq_shards)
         loss.backward()
         grad_norm = optimizer.update(state.opt_state,
                                      tree_leaves(state.params), state.step)
@@ -328,13 +420,15 @@ def make_eval_step(cfg: TransformerConfig, mesh: DeviceMesh | None = None, *,
                    rules: LogicalRules = DEFAULT_RULES,
                    device: torch.device | str = "cuda"):
     """fn(params, batch) -> loss, without building a graph; under a `mesh`
-    as `make_train_step`'s step (global batch in, global loss out)."""
+    as `make_train_step`'s step (global batch in, global loss out, the
+    positions split over the mesh's sp axis)."""
     device = resolve_device(device if mesh is None else mesh.device_type)
     layout_for(cfg, mesh, rules)
+    seq_shards = _mesh_seq_shards(mesh)
 
     def eval_fn(params: dict, batch: dict) -> torch.Tensor:
         with torch.no_grad():
             return loss_fn(params, _local_batch(batch, device, mesh, rules), cfg,
-                           rules=rules, mesh=mesh)
+                           rules=rules, mesh=mesh, seq_shards=seq_shards)
 
     return eval_fn

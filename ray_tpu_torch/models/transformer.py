@@ -20,17 +20,20 @@ gathers its weights over the data dims just before use (inside the
 checkpoint, so backward gathers again), keeping their tensor-parallel
 split: wq/wk/wv/w_gate/w_up by columns, wo and w_down by rows, each of
 the latter followed by a psum over tp. The embedding and the head are
-gathered whole.
+gathered whole. With an `sp` axis each rank also holds only its share of
+the positions (`seq_shards > 1`): attention runs over the whole sequence
+by ring or Ulysses attention (`cfg.sp_attention`), and the weights' grads
+sum over sp as over the data dims.
 
 Not ported yet (raises NotImplementedError naming its ROADMAP item):
-sequence parallelism (`seq_shards > 1` or an sp axis, ring or ulysses),
-expert parallelism, and MoE under a data or tensor split.
+expert parallelism, and MoE under a data, sequence or tensor split.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +45,9 @@ from torch.utils.checkpoint import (
 from ray_tpu_torch.ops.attention import flash_attention
 from ray_tpu_torch.ops.moe import MOE_PARAMS, MoEConfig, moe_mlp
 from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.ring_attention import make_ring_attention
 from ray_tpu_torch.ops.rotary import apply_rope
+from ray_tpu_torch.ops.ulysses import make_ulysses_attention
 from ray_tpu_torch.parallel.collectives import psum, pvary
 from ray_tpu_torch.parallel.mesh import (
     AXIS_EXPERT, AXIS_SEQ, AXIS_TENSOR, mesh_axis_sizes)
@@ -206,21 +211,36 @@ def param_logical_axes(cfg: TransformerConfig) -> dict:
     return axes
 
 
+def _causal_flash(q, k, v):
+    return flash_attention(q, k, v, True, None)
+
+
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """How forward meets a mesh: the mesh axes the batch rows split over
-    (`batch`, of `batch_shards` ranks), and the axis that splits heads and
-    the MLP (`tensor`, None when no rank holds a split). Without a mesh
-    every method passes its input through."""
+    (`batch`, of `batch_shards` ranks), the axis that splits the positions
+    (`seq`: (sp,) of `seq_shards` ranks, or ()), the axis that splits heads
+    and the MLP (`tensor`, None when no rank holds a split), and the
+    attention over this rank's q, k, v (`attend`). Without a mesh every
+    method passes its input through."""
     mesh: DeviceMesh | None = None
     batch: tuple[str, ...] = ()
     batch_shards: int = 1
+    seq: tuple[str, ...] = ()
+    seq_shards: int = 1
     tensor: str | None = None
+    attend: Callable = _causal_flash
 
     def weight(self, w, whole: bool = False):
-        """The weight this rank computes with (see `gather_param`)."""
+        """The weight this rank computes with (see `gather_param`): its
+        grad is a partial sum over the data dims and sp, whose ranks each
+        saw other rows or positions."""
         keep = () if whole else (AXIS_TENSOR,)
-        return gather_param(w, keep=keep, partial=self.batch)
+        return gather_param(w, keep=keep, partial=self.batch + self.seq)
+
+    def first_position(self, t: int) -> int:
+        """The global position of this rank's first of `t` positions."""
+        return self.mesh.get_local_rank(AXIS_SEQ) * t if self.seq else 0
 
     def enter(self, h):
         """A replicated activation on its way into column-split products."""
@@ -238,10 +258,6 @@ def layout_for(cfg: TransformerConfig, mesh: DeviceMesh | None,
     if mesh is None:
         return Layout()
     sizes = mesh_axis_sizes(mesh)
-    if sizes.get(AXIS_SEQ, 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with sp={sizes[AXIS_SEQ]} (sequence parallelism) is not "
-            "ported yet: ROADMAP queue A, item 7")
     if sizes.get(AXIS_EXPERT, 1) > 1:
         raise NotImplementedError(
             f"a mesh with ep={sizes[AXIS_EXPERT]} (expert parallelism) is not "
@@ -257,16 +273,42 @@ def layout_for(cfg: TransformerConfig, mesh: DeviceMesh | None,
     if tensor and (cfg.n_heads % sizes[tensor] or cfg.n_kv_heads % sizes[tensor]):
         raise ValueError(f"{cfg.n_heads} heads and {cfg.n_kv_heads} kv heads "
                          f"do not split over tp={sizes[tensor]}")
-    if cfg.n_experts > 0 and (batch or tensor):
+    seq_shards = sizes.get(AXIS_SEQ, 1)
+    seq = (AXIS_SEQ,) if seq_shards > 1 else ()
+    if cfg.n_experts > 0 and (batch or seq or tensor):
         raise NotImplementedError(
-            "MoE under a data or tensor split is not ported yet (its routing "
-            "must span the global batch): ROADMAP queue A, item 12")
+            "MoE under a data, sequence or tensor split is not ported yet (its "
+            "routing must span the global batch): ROADMAP queue A, item 12")
     return Layout(mesh=mesh, batch=batch,
-                  batch_shards=math.prod(sizes[a] for a in batch), tensor=tensor)
+                  batch_shards=math.prod(sizes[a] for a in batch), seq=seq,
+                  seq_shards=seq_shards, tensor=tensor)
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
-    """q (B,T,nh,hd), k/v (B,T,nkv,hd): GQA repeat, then flash attention.
+def _with_attention(lay: Layout, cfg: TransformerConfig, seq_shards: int) -> Layout:
+    """`lay` with the attention `forward(seq_shards=...)` asks for: flash
+    attention over this rank's whole sequence, or (seq_shards > 1) the
+    context-parallel `cfg.sp_attention` over the mesh's sp axis."""
+    if seq_shards <= 1:
+        if lay.seq:
+            raise ValueError(
+                f"a mesh with sp={lay.seq_shards} splits the sequence: pass "
+                f"seq_shards > 1 (ring or ulysses attention over sp)")
+        return lay
+    if lay.mesh is None:
+        raise ValueError("sequence parallelism requires a mesh")
+    if cfg.sp_attention not in ("ring", "ulysses"):
+        # Both schemes are exact, so a typo would silently run the wrong
+        # communication pattern.
+        raise ValueError(f"sp_attention={cfg.sp_attention!r}: expected 'ring' "
+                         f"or 'ulysses'")
+    make = make_ulysses_attention if cfg.sp_attention == "ulysses" else \
+        make_ring_attention
+    return dataclasses.replace(lay, attend=make(lay.mesh, axis=AXIS_SEQ, causal=True))
+
+
+def _attention(q, k, v, cfg: TransformerConfig, attend: Callable = _causal_flash):
+    """q (B,T,nh,hd), k/v (B,T,nkv,hd): GQA repeat, then `attend` (flash
+    attention, or a context-parallel scheme over it).
 
     `repeat_interleave` matches `jnp.repeat`: each kv head is repeated in
     place (h0 h0 h1 h1 ...), not tiled.
@@ -275,7 +317,7 @@ def _attention(q, k, v, cfg: TransformerConfig):
         rep = cfg.n_heads // cfg.n_kv_heads
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
-    return flash_attention(q, k, v, True, None)
+    return attend(q, k, v)
 
 
 def _attn(x, bp: dict, positions, cfg: TransformerConfig, lay: Layout):
@@ -289,7 +331,7 @@ def _attn(x, bp: dict, positions, cfg: TransformerConfig, lay: Layout):
     v = (h @ lay.weight(bp["wv"]).to(cd)).view(b, t, -1, cfg.head_dim)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
-    attn = _attention(q, k, v, cfg).reshape(b, t, -1)
+    attn = _attention(q, k, v, cfg, lay.attend).reshape(b, t, -1)
     return x + lay.leave(attn @ lay.weight(bp["wo"]).to(cd))
 
 
@@ -363,8 +405,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
     """tokens (B, T) int -> logits (B, T, vocab) in the compute dtype.
 
     Under a `mesh`, `params` are DTensors laid out by `rules` and `tokens`
-    are this rank's rows; so are the logits. With MoE, `return_aux` (a
-    dict) receives each auxiliary loss summed over the layers."""
+    are this rank's rows; so are the logits. With `seq_shards > 1` the
+    mesh's sp axis splits the positions too: `tokens` are this rank's
+    share of them, in sp order, and attention is `cfg.sp_attention` ("ring"
+    or "ulysses") over sp; default `positions` are then global. With MoE,
+    `return_aux` (a dict) receives each auxiliary loss summed over the
+    layers."""
     return _forward(params, tokens, cfg, layout_for(cfg, mesh, rules),
                     positions=positions, seq_shards=seq_shards,
                     return_aux=return_aux)
@@ -373,14 +419,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
 def _forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
              lay: Layout, *, positions=None, seq_shards: int = 1,
              return_aux: dict | None = None):
-    if seq_shards > 1:
-        raise NotImplementedError(
-            f"seq_shards={seq_shards} ({cfg.sp_attention} attention) is not "
-            "ported yet: ROADMAP queue A, item 7")
+    lay = _with_attention(lay, cfg, seq_shards)
     cd = cfg.compute_dtype
     t = tokens.shape[1]
     if positions is None:
-        positions = torch.arange(t, dtype=torch.int32, device=tokens.device)
+        positions = torch.arange(t, dtype=torch.int32, device=tokens.device) + \
+            lay.first_position(t)
     block = _block_fn(cfg)
 
     # Cast before the gather, as the JAX model does.
@@ -408,10 +452,12 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *,
     """Next-token cross entropy in fp32. batch: {"tokens": (B, T+1)} or
     {"tokens": (B, T), "targets": (B, T)}, optionally with a "mask".
 
-    Under a `mesh` the batch is this rank's rows and the loss is the
-    global batch's, the same on every rank: each rank's share of the
-    global mean, summed over the data dims by a psum whose backward gives
-    each rank its own share's grads (`gather_param` sums those)."""
+    Under a `mesh` the batch is this rank's rows (and, with `seq_shards >
+    1`, its positions: "tokens" and "targets" of T/sp columns each) and the
+    loss is the global batch's, the same on every rank: each rank's share
+    of the global mean, summed over the data dims and sp by a psum whose
+    backward gives each rank its own share's grads (`gather_param` sums
+    those)."""
     tokens = batch["tokens"]
     if "targets" in batch:
         inputs, targets = tokens, batch["targets"]
@@ -427,12 +473,13 @@ def loss_fn(params: dict, batch: dict, cfg: TransformerConfig, *,
     nll = logz - tgt
     mask = batch.get("mask")
     if lay.mesh is not None:
+        axes = lay.batch + lay.seq
         if mask is not None:
-            count = psum(torch.sum(mask).detach(), lay.batch, mesh=lay.mesh)
+            count = psum(torch.sum(mask).detach(), axes, mesh=lay.mesh)
             share = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
         else:
-            share = torch.sum(nll) / (nll.numel() * lay.batch_shards)
-        loss = psum(share, lay.batch, mesh=lay.mesh)
+            share = torch.sum(nll) / (nll.numel() * lay.batch_shards * lay.seq_shards)
+        loss = psum(share, axes, mesh=lay.mesh)
     elif mask is not None:
         loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     else:

@@ -1,7 +1,9 @@
 """Parallelism substrate of the port (counterpart of `ray_tpu.parallel`):
 a `DeviceMesh` with the JAX package's axis names, the logical sharding
 rules laid out as DTensor placements, and collectives over named mesh
-dims on torch.distributed (NCCL on the card, gloo on the CPU)."""
+dims on torch.distributed (NCCL on the card, gloo on the CPU). The GPipe
+pipeline is `ray_tpu_torch.parallel.pipeline`, imported on its own: it
+builds on `ray_tpu_torch.models`, which imports this package."""
 from ray_tpu_torch.parallel.mesh import (
     MeshConfig,
     build_mesh,

@@ -11,7 +11,12 @@ dims where JAX allows it (psum, pmean).
 backward passes each rank its own cotangent. `pvary` is its pair:
 identity forward, psum of the cotangents backward; a replicated
 activation goes through it before a product with a weight sharded over
-`axis`, whose ranks each give a partial gradient of it.
+`axis`, whose ranks each give a partial gradient of it. `ppermute_ring`
+and `all_to_all` are differentiable as `lax.ppermute` and
+`lax.all_to_all` are: backward rotates the cotangent by -shift, or swaps
+it back with the split and concat dims exchanged. Each is one collective
+on every rank of the axis, forward and backward, so the autograd graph
+must be the same on every rank (no branch on the rank around one).
 """
 from __future__ import annotations
 
@@ -95,12 +100,10 @@ def psum_scatter(x: torch.Tensor, axis: str, *, mesh: DeviceMesh, dim: int = 0,
     return out if tiled else out.squeeze(dim)
 
 
-def all_to_all(x: torch.Tensor, axis: str, *, mesh: DeviceMesh, split_dim: int,
-               concat_dim: int, tiled: bool = True):
-    """Block j of `split_dim` goes to rank j; the blocks received are
-    concatenated along `concat_dim` in rank order (untiled: split_dim has
-    the axis' size and is removed, and the blocks stack on concat_dim)."""
+def _all_to_all(x, axis, mesh, split_dim, concat_dim, tiled):
     n = axis_size(axis, mesh=mesh)
+    if n == 1:  # every block stays home: no collective, as in _ppermute_ring
+        return x.view_as(x) if tiled else x.movedim(split_dim, 0).movedim(0, concat_dim)
     if not tiled:
         x = x.movedim(split_dim, 0)
     else:
@@ -112,6 +115,26 @@ def all_to_all(x: torch.Tensor, axis: str, *, mesh: DeviceMesh, split_dim: int,
     return torch.cat(out.unbind(0), dim=concat_dim)
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, split_dim, concat_dim, tiled):
+        ctx.args = axis, mesh, concat_dim, split_dim, tiled
+        return _all_to_all(x, axis, mesh, split_dim, concat_dim, tiled)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, *ctx.args), None, None, None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis: str, *, mesh: DeviceMesh, split_dim: int,
+               concat_dim: int, tiled: bool = True):
+    """Block j of `split_dim` goes to rank j; the blocks received are
+    concatenated along `concat_dim` in rank order (untiled: split_dim has
+    the axis' size and is removed, and the blocks stack on concat_dim)."""
+    return _AllToAll.apply(x, axis, mesh, split_dim % x.dim(), concat_dim % x.dim(),
+                           tiled)
+
+
 def axis_index(axis: str, *, mesh: DeviceMesh) -> int:
     return mesh.get_local_rank(axis)
 
@@ -120,10 +143,7 @@ def axis_size(axis: str, *, mesh: DeviceMesh) -> int:
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
-def ppermute_ring(x: torch.Tensor, axis: str, *, mesh: DeviceMesh, shift: int = 1):
-    """Rotate shards around the `axis` ring by `shift`: rank i's value
-    lands on rank i+shift, i.e. each rank receives the value of its
-    `-shift` neighbour."""
+def _ppermute_ring(x, axis, mesh, shift):
     n = axis_size(axis, mesh=mesh)
     if n == 1 or shift % n == 0:
         return x.clone()
@@ -137,6 +157,24 @@ def ppermute_ring(x: torch.Tensor, axis: str, *, mesh: DeviceMesh, shift: int = 
     for r in reqs:
         r.wait()
     return out
+
+
+class _PpermuteRing(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, shift):
+        ctx.axis, ctx.mesh, ctx.shift = axis, mesh, shift
+        return _ppermute_ring(x, axis, mesh, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ppermute_ring(grad, ctx.axis, ctx.mesh, -ctx.shift), None, None, None
+
+
+def ppermute_ring(x: torch.Tensor, axis: str, *, mesh: DeviceMesh, shift: int = 1):
+    """Rotate shards around the `axis` ring by `shift`: rank i's value
+    lands on rank i+shift, i.e. each rank receives the value of its
+    `-shift` neighbour."""
+    return _PpermuteRing.apply(x, axis, mesh, shift)
 
 
 def unshard(x) -> np.ndarray:

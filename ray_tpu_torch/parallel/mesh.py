@@ -81,6 +81,15 @@ def _start_world_group(device_type: str) -> None:
         raise ValueError(f"device_type {device_type!r}: expected 'cuda' or 'cpu'")
 
 
+def ensure_group(device_type: str) -> None:
+    """The default process group, started as a world-1 group for this
+    process when there is none; raises for CUDA without a device."""
+    if not dist.is_initialized():
+        _start_world_group(device_type)
+    elif device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a mesh with device_type='cuda' needs a CUDA device")
+
+
 def build_mesh(
     config: MeshConfig | None = None,
     *,
@@ -91,10 +100,7 @@ def build_mesh(
     named and ordered by `axis_order`, sized by `config` (all ranks on
     fsdp by default). Rank r sits at the row-major position r, as
     `np.reshape` lays JAX's devices out on a flat topology."""
-    if not dist.is_initialized():
-        _start_world_group(device_type)
-    elif device_type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_mesh(device_type='cuda') needs a CUDA device")
+    ensure_group(device_type)
     sizes = mesh_shape_for(dist.get_world_size(), config)
     return init_device_mesh(device_type, tuple(sizes[a] for a in axis_order),
                             mesh_dim_names=tuple(axis_order))

@@ -125,17 +125,18 @@ def _start_params():
                                        device="cpu"))
 
 
-def _jax_train(sizes, rules, start, batches):
+def _jax_train(sizes, rules, start, batches, sp_attention="ring"):
     """JAX's sharded step from `start`, laid out as its init_fn lays params
     out; the opt state's scalars are replicated as the step returns them,
     so its second call does not compile again."""
     mesh = _jax_mesh(sizes)
+    cfg = dataclasses.replace(JCFG, sp_attention=sp_attention)
     optimizer = jax_default_optimizer(OPT["lr"], warmup=OPT["warmup"],
                                       total_steps=OPT["total_steps"])
-    _, step_fn = jax_make_train_step(JCFG, mesh, rules=JAX_RULES[rules],
+    _, step_fn = jax_make_train_step(cfg, mesh, rules=JAX_RULES[rules],
                                      optimizer=optimizer)
     params = jax.device_put(start, jax_param_shardings(
-        param_logical_axes(JCFG), mesh, JAX_RULES[rules]))
+        param_logical_axes(cfg), mesh, JAX_RULES[rules]))
     replicated = NamedSharding(mesh, P())
     opt_state = jax.tree.map(lambda x: jax.device_put(x, replicated) if x.ndim == 0
                              else x, optimizer.init(params))
@@ -148,13 +149,13 @@ def _jax_train(sizes, rules, start, batches):
     return metrics, jax.device_get(state.params)
 
 
-def _check_train(ranks, sizes, rules, feed=False):
+def _check_train(ranks, sizes, rules, feed=False, sp_attention="ring"):
     """Three AdamW steps on both sides (the ranks run while JAX does);
     returns the ranks' results and the batches."""
     batches, start = _batches(3), _start_params()
     ranks.send("train", sizes=sizes, rules=rules, start=start, batches=batches,
-               opt=OPT, feed=feed)
-    want, want_params = _jax_train(sizes, rules, start, batches)
+               opt=OPT, feed=feed, sp_attention=sp_attention)
+    want, want_params = _jax_train(sizes, rules, start, batches, sp_attention)
     results = ranks.results()
     for res in results:
         for got, exp in zip(res["metrics"], want):
@@ -188,6 +189,25 @@ def test_dp2_fsdp2_fed_by_torch_feed_matches_jax(ranks):
     for rank, res in enumerate(results):
         for fed, batch in zip(res["fed_rows"], batches):
             np.testing.assert_array_equal(fed, batch[index[jax.devices()[rank]]])
+
+
+def test_fsdp2_sp2_ring_fed_by_torch_feed_matches_jax(ranks):
+    """fsdp 2 x sp 2, ring attention: the feed gives each rank its rows
+    whole (a DTensor over dp/fsdp, replicated over sp), and the step cuts
+    inputs and targets from them before taking its sp share of the
+    positions; loss, grad norm and params as JAX's global-view step."""
+    results, batches = _check_train(ranks, {"fsdp": 2, "sp": 2}, "default", feed=True,
+                                    sp_attention="ring")
+    for rank, res in enumerate(results):
+        for fed, batch in zip(res["fed_rows"], batches):
+            rows = batch.shape[0] // 2
+            np.testing.assert_array_equal(fed, batch[rank // 2 * rows:(rank // 2 + 1) * rows])
+
+
+def test_sp2_tp2_ulysses_matches_jax(ranks):
+    """sp 2 x tp 2, Ulysses over this rank's tp heads (4/2 heads: 2 q and,
+    repeated, 2 kv heads a rank, split again over sp)."""
+    _check_train(ranks, {"sp": 2, "tp": 2}, "default", sp_attention="ulysses")
 
 
 @pytest.mark.parametrize("sizes", [{"fsdp": 2, "tp": 2}, {"dp": 2, "fsdp": 2}],
@@ -244,11 +264,10 @@ def test_collectives_match_jax_shard_map(ranks):
 
 
 def test_layouts_not_ported_yet_raise(ranks):
-    """sp and ep meshes and MoE under a data split raise NotImplementedError
+    """ep meshes and MoE under a data split raise NotImplementedError
     naming their ROADMAP item; heads that tp does not divide, ValueError."""
     ranks.send("errors")
     for res in ranks.results():
-        assert res == {"sp": "NotImplementedError: item 7",
-                       "ep": "NotImplementedError: item 12",
+        assert res == {"ep": "NotImplementedError: item 12",
                        "moe": "NotImplementedError: item 12",
                        "heads": "ValueError"}

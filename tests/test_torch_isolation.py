@@ -16,11 +16,16 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "ray_tpu")
+# Modules the walk must reach (the context-parallel and pipeline slice).
+REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
+            "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.collectives",
+            "ray_tpu_torch.models.training")
 
 _CHECK = r"""
 import importlib, importlib.abc, pkgutil, sys
 
 FORBIDDEN = %r
+REQUIRED = %r
 
 def forbidden(name):
     return name.split(".")[0] in FORBIDDEN
@@ -41,9 +46,10 @@ names = ["ray_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if forbidden(m))
-print("imported", len(names), "modules; forbidden:", bad)
-sys.exit(1 if bad or len(names) < 10 else 0)
-""" % (FORBIDDEN,)
+missing = sorted(set(REQUIRED) - set(names))
+print("imported", len(names), "modules; forbidden:", bad, "missing:", missing)
+sys.exit(1 if bad or missing or len(names) < 10 else 0)
+""" % (FORBIDDEN, REQUIRED)
 
 
 def test_package_imports_no_jax_and_no_ray_tpu():

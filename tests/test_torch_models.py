@@ -244,11 +244,18 @@ def test_remat_policy_reruns_the_products_it_does_not_save(policy,
 
 
 def test_unported_paths_raise():
-    _, tcfg = _configs("tiny")
+    """Sequence parallelism is ported: seq_shards=2 without a mesh raises
+    the JAX package's ValueError (the sp paths are tested in
+    test_torch_context_pipeline.py and test_torch_world_one.py)."""
+    jcfg, tcfg = _configs("tiny")
     params = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="seq_shards=2"):
+    with pytest.raises(ValueError, match="requires a mesh") as got:
         forward(params, torch.zeros(1, 4, dtype=torch.int32), tcfg,
                 seq_shards=2)
+    with pytest.raises(ValueError) as want:
+        jax_forward(params_to_numpy(params), jnp.zeros((1, 4), jnp.int32), jcfg,
+                    seq_shards=2)
+    assert str(got.value) == str(want.value)
 
 
 def test_module_matches_functional():

@@ -10,17 +10,19 @@ from __future__ import annotations
 import dataclasses
 import traceback
 
+import numpy as np
 import torch
 from torch.distributed.tensor import distribute_tensor
 
 from ray_tpu_torch.data import torch_feed
 from ray_tpu_torch.models import configs
 from ray_tpu_torch.models.jax_bridge import params_from_jax, params_to_numpy
-from ray_tpu_torch.models.transformer import param_logical_axes
+from ray_tpu_torch.models.transformer import forward, param_logical_axes
 from ray_tpu_torch.models.training import (
-    Adafactor, default_optimizer, make_train_step)
-from ray_tpu_torch.parallel import collectives, sharding
-from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    SGD, Adafactor, default_optimizer, make_train_step, tree_leaves)
+from ray_tpu_torch.ops import ring_attention, ulysses_attention
+from ray_tpu_torch.parallel import collectives, pipeline, sharding
+from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh, local_batch_rows
 from ray_tpu_torch.train import TorchBackend
 
 TCFG = dataclasses.replace(configs.TINY, compute_dtype=torch.float32)
@@ -37,22 +39,33 @@ def mesh_for(sizes: dict):
     return _meshes[key]
 
 
+def pipeline_mesh_for(pp: int, dp: int):
+    """One pipeline mesh per (pp, dp) over the first pp x dp ranks, built
+    by every rank in the same order."""
+    if (pp, dp) not in _meshes:
+        _meshes[pp, dp] = pipeline.build_pipeline_mesh(pp, dp=dp, device_type="cpu")
+    return _meshes[pp, dp]
+
+
 def _optimizer(opt: dict):
     if opt["kind"] == "adafactor":
         return Adafactor(opt["lr"])
+    if opt["kind"] == "sgd":
+        return SGD(opt["lr"])
     return default_optimizer(opt["lr"], warmup=opt["warmup"],
                              total_steps=opt["total_steps"])
 
 
-def train(sizes, rules, start, batches, opt, feed=False):
+def train(sizes, rules, start, batches, opt, feed=False, sp_attention="ring"):
     """`len(batches)` steps from the JAX-drawn `start` params on global
     batches; with `feed`, the batches come through `torch_feed` as
     DTensors. Returns the metrics, the final params (whole), each leaf's
     local shape, and the rows fed to this rank."""
     mesh = mesh_for(sizes)
-    init_fn, step_fn = make_train_step(TCFG, mesh, rules=RULES[rules],
+    cfg = dataclasses.replace(TCFG, sp_attention=sp_attention)
+    init_fn, step_fn = make_train_step(cfg, mesh, rules=RULES[rules],
                                        optimizer=_optimizer(opt))
-    state = init_fn(params=params_from_jax(start, TCFG, mesh=mesh, rules=RULES[rules]))
+    state = init_fn(params=params_from_jax(start, cfg, mesh=mesh, rules=RULES[rules]))
     source = ({"tokens": b} for b in batches)
     fed_rows, metrics = [], []
     with torch_feed(source, device="cpu", mesh=mesh if feed else None) as stream:
@@ -119,10 +132,120 @@ def collective_ops(sizes, axis, x):
     }
 
 
+def _columns(x: np.ndarray, mesh) -> np.ndarray:
+    """This rank's sp share of dim 1 of x."""
+    n, i = mesh.size(mesh.mesh_dim_names.index("sp")), mesh.get_local_rank("sp")
+    per = x.shape[1] // n
+    return x[:, i * per:(i + 1) * per]
+
+
+def cp_attention(scheme, sizes, causal, q, k, v, do):
+    """Ring or Ulysses attention on this rank's sp share of (B, T, H, D)
+    q, k, v, and the grads of sum(out * do): this rank's shares of the
+    output and of dq, dk, dv; a ValueError's text instead, if it raises."""
+    mesh = mesh_for(sizes)
+    fn = {"ring": ring_attention, "ulysses": ulysses_attention}[scheme]
+    q, k, v = (torch.from_numpy(_columns(x, mesh)).requires_grad_() for x in (q, k, v))
+    try:
+        out = fn(q, k, v, mesh=mesh, causal=causal)
+    except ValueError as e:
+        return {"error": str(e)}
+    (out * torch.from_numpy(_columns(do, mesh))).sum().backward()
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+            "dv": v.grad.numpy()}
+
+
+def sp_forward(sizes, scheme, start, tokens):
+    """`forward(seq_shards=sp)` on this rank's rows and sp share of the
+    global `tokens`; its logits, with the rows and columns they cover."""
+    mesh = mesh_for(sizes)
+    cfg = dataclasses.replace(TCFG, sp_attention=scheme)
+    params = params_from_jax(start, cfg, mesh=mesh)
+    rows = local_batch_rows(mesh, tokens.shape[0], ("dp", "fsdp"))
+    local = _columns(tokens[rows], mesh)
+    logits = forward(params, torch.from_numpy(local), cfg, mesh=mesh,
+                     seq_shards=sizes["sp"])
+    t = local.shape[1]
+    first = mesh.get_local_rank("sp") * t
+    return {"logits": logits.detach().numpy(), "rows": (rows.start, rows.stop),
+            "cols": (first, first + t)}
+
+
+def _pipeline_cfg(cfg_kw: dict):
+    return dataclasses.replace(configs.TINY, compute_dtype=torch.float32, **cfg_kw)
+
+
+def pipeline_run(pp, dp, n_micro, cfg_kw, start, batches, grads=False, opt=None):
+    """The pipeline over the first pp x dp ranks (the others return None)
+    from the JAX-drawn `start` params: with `opt`, one
+    `make_pipeline_train_step` step a batch (losses and final params, whole);
+    else `make_pipeline_loss` on the first batch (its value and, with
+    `grads`, every param's grad, whole)."""
+    mesh = pipeline_mesh_for(pp, dp)
+    if mesh.get_coordinate() is None:
+        return None
+    cfg = _pipeline_cfg(cfg_kw)
+    params = params_from_jax(start, cfg, mesh=mesh,
+                             shardings=pipeline.pipeline_shardings(cfg, mesh))
+    if opt is not None:
+        init_fn, step_fn = pipeline.make_pipeline_train_step(
+            cfg, mesh, n_microbatches=n_micro, optimizer=_optimizer(opt))
+        state = init_fn(params=params)
+        losses = [float(step_fn(state, b)[1]["loss"]) for b in batches]
+        return {"losses": losses, "params": params_to_numpy(state.params),
+                "step": state.step}
+    for p in tree_leaves(params):
+        p.requires_grad_()
+    loss = pipeline.make_pipeline_loss(cfg, mesh, n_micro)(params, batches[0])
+    out = {"loss": float(loss)}
+    if grads:
+        loss.backward()
+        out["grads"] = params_to_numpy(
+            {k: ({n: w.grad for n, w in v.items()} if isinstance(v, dict) else v.grad)
+             for k, v in params.items()})
+    return out
+
+
+def pipeline_errors():
+    """What the pipeline raises for MoE, and that `dryrun_pipeline` runs
+    over all four ranks (dp 2 x pp 2)."""
+    out = {}
+    try:
+        pipeline.make_pipeline_loss(configs.TINY_MOE, pipeline_mesh_for(2, 1), 2)
+        out["moe"] = "no error"
+    except NotImplementedError as e:
+        out["moe"] = f"NotImplementedError: {e}"
+    pipeline.dryrun_pipeline(4, device_type="cpu")
+    out["dryrun"] = "ran"
+    return out
+
+
+def collective_grads(sizes, axis, x, w):
+    """Grads of sum(w_local * op(x_local)) through ppermute_ring and
+    all_to_all over `axis`, on this rank's rows of x and of each w."""
+    mesh = mesh_for(sizes)
+
+    def part(a):
+        rows = a.shape[0] // mesh.size()
+        return a[mesh.get_rank() * rows:(mesh.get_rank() + 1) * rows]
+
+    ops = {"ppermute_ring": lambda t: collectives.ppermute_ring(t, axis, mesh=mesh),
+           "ppermute_ring_back": lambda t: collectives.ppermute_ring(
+               t, axis, mesh=mesh, shift=-1),
+           "all_to_all": lambda t: collectives.all_to_all(
+               t, axis, mesh=mesh, split_dim=0, concat_dim=1)}
+    out = {}
+    for name, op in ops.items():
+        local = torch.from_numpy(part(x)).requires_grad_()
+        (op(local) * torch.from_numpy(part(w[name]))).sum().backward()
+        out[name] = local.grad.numpy()
+    return out
+
+
 def errors():
     """What make_train_step raises for layouts the port does not run yet."""
     out = {}
-    cases = {"sp": (TCFG, {"fsdp": 2, "sp": 2}), "ep": (TCFG, {"fsdp": 2, "ep": 2}),
+    cases = {"ep": (TCFG, {"fsdp": 2, "ep": 2}),
              "moe": (configs.TINY_MOE, {"fsdp": 4}),
              "heads": (dataclasses.replace(TCFG, n_heads=3, n_kv_heads=3, d_model=96),
                        {"fsdp": 1, "tp": 4})}
@@ -138,7 +261,9 @@ def errors():
 
 
 CASES = {"train": train, "errors": errors, "shapes": shapes, "adafactor": adafactor,
-         "collectives": collective_ops}
+         "collectives": collective_ops, "cp_attention": cp_attention,
+         "sp_forward": sp_forward, "pipeline": pipeline_run,
+         "pipeline_errors": pipeline_errors, "collective_grads": collective_grads}
 
 
 def main(rank: int, world: int, port: int, inbox, outbox) -> None:
