@@ -119,14 +119,33 @@ Run from a checkout of the repository on a machine with a Hopper card
    each timed against flash_attention, host enqueue beside wall time; (c)
    fp32, card against CPU: `make_pipeline_loss` and its grads on phase 3's
    model (pp 1, 2 microbatches; loss 1e-5, grads 1e-4), ring and Ulysses
-   at sp 1 within CP_REF_TOL.
+   at sp 1 within CP_REF_TOL;
+14. expert parallelism and tensor-parallel serving at world 1, each part
+   on a world-1 group it starts and destroys: (b) right after phase 8, on
+   its llama3-8b weights: `LLMEngine(mesh=...)` over a tp mesh of one rank
+   in turns with `LLMEngine()` (plain, mesh, mesh, plain) on phase 8b's
+   traffic and a decode round at width 8: greedy tokens equal over the
+   turns and held to `forward` as in phase 6; TTFT, decode tokens/s, a
+   burst's ms beside its host enqueue ms; (c) right after phase 11b, on
+   its mixtral-8x7b weights (24 layers) once the paged engine is gone: the
+   same mesh engine and traffic, held to the dropless re-prefill as 11b
+   is; (a) this slice's main path, after phase 13: mixtral-8x7b at phase
+   11a's cell through the mesh step on `build_mesh(MeshConfig(fsdp=-1,
+   ep=1))`, fed by torch_feed, after the plain step from the same params
+   on the same batches (whose state is freed first): every step's loss
+   within MOE_MESH_LOSS_TOL of the plain step's, launches 2L / L / L a
+   step, step and host enqueue ms, tokens/s, active MFU, peak memory; (d)
+   fp32, card against CPU: TINY_MOE (widened to head dim 64) through the
+   mesh path at ep 1 (loss 1e-5, grads 1e-4) and the tp-1 LLMEngine
+   (tokens equal), and `dryrun_tp_serving` at tp 1.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
 phase 4's steps, of phase 11a's as `launches_mixtral_8x7b_train`, of
 phase 12b's as `launches_bench_1b4_mesh_train`, of phase 13a's pipeline
-steps as `launches_bench_350m_pipeline_train` and of 13b's Ulysses call
-as `launches_ulysses`), and {"ok": true, "device": {...}}.
+steps as `launches_bench_350m_pipeline_train`, of 13b's Ulysses call
+as `launches_ulysses` and of 14a's mesh steps as
+`launches_mixtral_8x7b_mesh_train`), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1569,9 +1588,13 @@ def moe_serve_path(torch, models, attention, seed: int, card: str) -> dict:
                               param_dtype=torch.bfloat16, remat=False)
     params, run = serve_main_path(torch, models, attention, seed, card, cfg=cfg,
                                   teacher=reprefill_teacher)
+    torch.cuda.empty_cache()   # the paged engine and its pool are gone
+    tp = tp_engine_phase(torch, models, attention, params, cfg, seed, card, "14c",
+                         plain_turns=False, teacher=reprefill_teacher)
+    log("14c tensor-parallel LLMEngine: " + json.dumps(tp))
     del params
     torch.cuda.empty_cache()
-    return {**run, "fp32_twin": twin}
+    return {**run, "fp32_twin": twin, "tp_engine": tp}
 
 
 # Phase 12c: Adafactor's learning rate. bench.py's 1e-4 moves a param by
@@ -1603,6 +1626,7 @@ def fed_turn(torch, attention, step_fn, state, feed, expected) -> tuple:
     """Steps over a torch_feed, each timed on the host clock (enqueue,
     then synchronised); the launches of every step must be `expected`."""
     step_ms, host_ms, losses = [], [], []
+    total = {n: 0 for n in expected}
     with feed:
         for batch in feed:
             attention.reset_launches()
@@ -1615,7 +1639,9 @@ def fed_turn(torch, attention, step_fn, state, feed, expected) -> tuple:
             if dict(attention.launches) != expected or not math.isfinite(losses[-1]):
                 raise AssertionError(f"launches {dict(attention.launches)} != "
                                      f"{expected}, or loss {losses[-1]}")
+            total = {n: total[n] + attention.launches[n] for n in total}
     return state, {"step_ms": step_ms, "host_enqueue_ms": host_ms, "losses": losses,
+                   "launches": total,
                    "median_ms": statistics.median(step_ms[1:] or step_ms),
                    "median_host_ms": statistics.median(host_ms[1:] or host_ms),
                    "feed_hits": feed.hits, "feed_misses": feed.misses}
@@ -2026,6 +2052,234 @@ def pipeline_phase(torch, models, attention, steps: int, seed: int, card: str) -
         torch.distributed.destroy_process_group()
 
 
+# Phase 14a: |mesh - plain| of every step's loss, mixtral-8x7b at bf16 on
+# the same params and batches. At world 1 both steps compute the same
+# function (phase 12a's bench-350m agreed bit for bit).
+MOE_MESH_LOSS_TOL = 1e-2
+# Phase 14b/c: the fixed-slot engine's traffic, phase 8b's: prompts of
+# these lengths, the first sent twice (a prefix-cache hit).
+TP_PROMPT_LENGTHS = (512, 64, 100, 128, 200, 256, 300)
+
+
+def moe_mesh_path(torch, models, attention, mesh, steps: int, seed: int,
+                  card: str) -> dict:
+    """Phase 14a: mixtral-8x7b at phase 11a's cell (full width, depth
+    MIXTRAL_TRAIN_LAYERS, batch 2 x 2048, remat "full", AdamW with warmup)
+    through the mesh step on `mesh` (fsdp over the world-1 group, ep 1),
+    fed by torch_feed. The plain step runs first from the same params
+    (drawn again from the seed) on the same batches, and its state is freed
+    before the mesh state exists; every mesh step's loss must be within
+    MOE_MESH_LOSS_TOL of the plain step's, and every step of both must
+    launch each kernel 2L / L / L times."""
+    import dataclasses
+    import numpy as np
+
+    from ray_tpu_torch.data import torch_feed
+
+    cfg = dataclasses.replace(models.configs.MIXTRAL_8X7B,
+                              n_layers=MIXTRAL_TRAIN_LAYERS, remat=True)
+    batch, seq = 2, 2048
+    opt = models.training.default_optimizer(3e-4, warmup=10, total_steps=1000)
+    corpus = np.random.default_rng(seed + 14).integers(
+        0, cfg.vocab_size, (steps, batch, seq + 1), dtype=np.int32)
+    expected = {"fa_fwd": 2 * cfg.n_layers, "fa_bwd_dq": cfg.n_layers,
+                "fa_bwd_dkv": cfg.n_layers}
+    n_active = cfg.num_params - (cfg.n_experts - cfg.expert_top_k) * \
+        3 * cfg.d_model * cfg.d_ff * cfg.n_layers
+    fpt = 6.0 * n_active + 6 * cfg.n_layers * cfg.d_model * seq
+    runs = {}
+    for path, m in (("plain", None), ("mesh", mesh)):
+        init_fn, step_fn = models.training.make_train_step(cfg, m, device="cuda",
+                                                           optimizer=opt)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        feed = torch_feed(({"tokens": t} for t in corpus), device="cuda", mesh=m,
+                          prefetch=2)
+        state, turn = fed_turn(torch, attention, step_fn, state, feed, expected)
+        del state
+        torch.cuda.empty_cache()
+        turn.update(init_s=init_s, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    tokens_per_s=batch * seq / (turn["median_ms"] / 1e3))
+        turn["mfu_active_bf16_989"] = turn["tokens_per_s"] * fpt / PEAK_BF16_FLOPS
+        runs[path] = turn
+        log(f"14a mixtral train [{card}] {path} step: median {turn['median_ms']:.2f} ms "
+            f"(steps {[round(x, 1) for x in turn['step_ms']]}, host enqueue "
+            f"{[round(x, 1) for x in turn['host_enqueue_ms']]}), "
+            f"{turn['tokens_per_s']:.0f} tokens/s, active MFU "
+            f"{turn['mfu_active_bf16_989']:.4f}, peak {turn['peak_mem_gib']:.2f} GiB, "
+            f"init {init_s:.1f} s, feed hits {turn['feed_hits']} misses "
+            f"{turn['feed_misses']}, launches a step {expected}")
+    diffs = [abs(a - b) for a, b in zip(runs["mesh"]["losses"], runs["plain"]["losses"])]
+    log(f"14a mixtral train [{card}]: |loss mesh - loss plain| per step "
+        f"{[f'{d:.3g}' for d in diffs]} (bound {MOE_MESH_LOSS_TOL})")
+    if not abs(runs["plain"]["losses"][0] - (math.log(cfg.vocab_size) + 0.5)) < 1.0:
+        raise AssertionError(f"14a first loss {runs['plain']['losses'][0]} far from "
+                             f"ln(V) + 1/2")
+    if max(diffs) > MOE_MESH_LOSS_TOL:
+        raise AssertionError(f"14a: mesh and plain steps part: loss diffs {diffs}")
+    return {"config": cfg.name, "n_layers": cfg.n_layers, "batch": batch, "seq": seq,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "steps": steps,
+            "active_params": n_active, "plain": runs["plain"], "mesh_step": runs["mesh"],
+            "loss_abs_diff": diffs, "launches": runs["mesh"]["launches"],
+            "launches_per_step": expected}
+
+
+def tp_engine_phase(torch, models, attention, params, cfg, seed: int, card: str,
+                    label: str, plain_turns: bool, teacher=forward_teacher) -> dict:
+    """Phase 14b (llama3-8b on phase 8's weights) and 14c (mixtral-8x7b on
+    phase 11b's, `teacher` its dropless re-prefill): the fixed-slot
+    `LLMEngine(mesh=...)` over a tp mesh of a world-1 group it starts (and
+    destroys when done), 8 slots, max_len 2048, on phase 8b's traffic, then
+    a decode round (8 prompts of 64 tokens, 128 new each, at width 8).
+    With `plain_turns`
+    it runs in turns with the meshless `LLMEngine` (plain, mesh, mesh,
+    plain) and every turn's greedy tokens must equal the first's; each
+    engine is shut down and freed before the next one is built. The first
+    mesh turn's tokens are held to `teacher` (MoE: at most
+    MOE_BF16_BEYOND_SHARE of the positions beyond the margin)."""
+    import numpy as np
+
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.serve import LLMEngine
+
+    num_slots, max_len, new_tokens = 8, 2048, 64
+    rng = np.random.default_rng(seed + 140)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TP_PROMPT_LENGTHS]
+    prompts.insert(1, prompts[0])
+    waits = {1: 0, **{i: 1 for i in range(2, len(prompts))}}
+    round_prompts = [rng.integers(0, cfg.vocab_size, 64).tolist() for _ in range(num_slots)]
+    mesh = build_mesh(MeshConfig(fsdp=1, tp=1))
+    turns, agreement = [], None
+    try:
+        for path in (("plain", "mesh", "mesh", "plain") if plain_turns else ("mesh",)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            engine = LLMEngine(cfg, params, num_slots=num_slots, max_len=max_len,
+                               prefill_buckets=(64, 128, 256, 512), seed=seed,
+                               **({"mesh": mesh} if path == "mesh" else {}))
+            try:
+                attention.reset_launches()
+                results, run_s = run_streams(engine, prompts, new_tokens, waits=waits)
+                launches = dict(attention.launches)
+                if any(launches.values()):
+                    raise AssertionError(f"{label}: the serving path launched {launches}")
+                stats = engine.engine_stats()
+                if stats["prefix_hits"] != 1:
+                    raise AssertionError(f"{label}: the repeated prompt did not hit: {stats}")
+                if path == "mesh" and agreement is None:
+                    agreement = forward_agreement(
+                        torch, models, engine.params, cfg, prompts,
+                        [r[0] for r in results], card, teacher=teacher,
+                        max_beyond_share=MOE_BF16_BEYOND_SHARE if cfg.n_experts else 0.0)
+                n_log = len(engine.burst_log)
+                run_streams(engine, round_prompts, 2 * new_tokens)
+                full = [b for b in list(engine.burst_log)[n_log:] if b[5] == num_slots]
+                if not full:
+                    raise AssertionError(f"{label}: no burst ran with 8 live slots")
+                turn = {"path": path, "run_s": run_s, "ttft_ms": [r[1] for r in results],
+                        "tokens": [r[0] for r in results],
+                        "decode_bursts": len(full),
+                        "decode_tokens_per_s": _work_rate(full),
+                        "burst_ms": [(b[2] - b[0]) * 1e3 for b in full],
+                        "burst_enqueue_ms": [(b[1] - b[0]) * 1e3 for b in full],
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+            finally:
+                engine.shutdown()
+            del engine
+            turns.append(turn)
+            log(f"{label} [{card}] {cfg.name} LLMEngine {path}: 8 requests of "
+                f"{[len(p) for p in prompts]} tokens in {run_s:.2f} s, TTFT ms "
+                f"{[round(t, 1) for t in turn['ttft_ms']]}; decode round: "
+                f"{turn['decode_tokens_per_s']:.1f} tokens/s over {len(full)} bursts with "
+                f"8 live slots, a burst {statistics.median(turn['burst_ms']):.2f} ms median "
+                f"(host enqueue {statistics.median(turn['burst_enqueue_ms']):.2f} ms); "
+                f"peak {turn['peak_mem_gib']:.2f} GiB")
+    finally:
+        torch.distributed.destroy_process_group()
+    same = all(t["tokens"] == turns[0]["tokens"] for t in turns)
+    log(f"{label} [{card}]: greedy tokens equal over the turns "
+        f"{[t['path'] for t in turns]}: {same}")
+    if not same:
+        raise AssertionError(f"{label}: the engines' greedy tokens differ")
+    for t in turns:
+        del t["tokens"]
+    return {"config": cfg.name, "n_layers": cfg.n_layers, "prompts": [len(p) for p in prompts],
+            "turns": turns, "teacher_forced": agreement}
+
+
+def check_expert_tp_reference(torch, models, card: str) -> dict:
+    """Phase 14d at fp32, card against CPU, on a world-1 group it starts
+    (and destroys): TINY_MOE (4 experts, top 2) widened to d_model 256 so
+    its heads are the kernels' 64, remat "full": the mesh path's loss and
+    grads at (fsdp 1, ep 1) on a "cuda" and a "cpu" mesh (loss 1e-5, grads
+    1e-4 of each tensor's max), and the tp-1 `LLMEngine`'s greedy tokens (a
+    prefix hit among them) card == CPU; then `dryrun_tp_serving` at tp 1."""
+    import dataclasses
+    import numpy as np
+
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+    from ray_tpu_torch.serve import LLMEngine
+    from ray_tpu_torch.serve.llm import dryrun_tp_serving
+
+    cfg = dataclasses.replace(models.configs.TINY_MOE, d_model=256, d_ff=512,
+                              remat=True, compute_dtype=torch.float32)
+    params = models.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 129), dtype=np.int32)
+    prompts = [[5, 6, 7, 8, 9], [5, 6, 7, 8, 9], [100, 3, 99]]
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):   # the group starts with NCCL beside gloo
+            mesh = build_mesh(MeshConfig(fsdp=-1, ep=1), device_type=device)
+            init_fn, _ = models.training.make_train_step(cfg, mesh)
+            state = init_fn(params=params)
+            loss = models.loss_fn(state.params, {"tokens": torch.from_numpy(tokens).to(device)},
+                                  cfg, mesh=mesh)
+            loss.backward()
+            grads = [p.grad.full_tensor().cpu() for p in
+                     models.training.tree_leaves(state.params)]
+            tp_mesh = build_mesh(MeshConfig(fsdp=1, tp=1), device_type=device)
+            engine = LLMEngine(cfg, params, mesh=tp_mesh, num_slots=2, max_len=64,
+                               prefill_buckets=(16,))
+            try:
+                toks = [engine.generate(p, max_tokens=8, timeout=120) for p in prompts]
+                hits = engine.stats["prefix_hits"]
+            finally:
+                engine.shutdown()
+            out[device] = (float(loss.detach()), grads, toks, hits)
+        dryrun_tp_serving(models.configs.TINY_MOE, 1, timeout=120)
+    finally:
+        torch.distributed.destroy_process_group()
+    (l_cpu, g_cpu, t_cpu, h_cpu), (l_gpu, g_gpu, t_gpu, h_gpu) = out["cpu"], out["cuda"]
+    worst = worst_grad_diff(g_gpu, g_cpu)
+    log(f"14d expert/tp reference [{card}]: {cfg.name} d 256 mesh step at ep 1, loss card "
+        f"{l_gpu:.6f} cpu {l_cpu:.6f}, worst grad diff {worst:.3g}; tp-1 LLMEngine tokens "
+        f"card == cpu: {t_gpu == t_cpu} (prefix hits {h_gpu}, {h_cpu}); "
+        f"dryrun_tp_serving(tp=1) ran")
+    if not math.isclose(l_gpu, l_cpu, rel_tol=1e-5) or worst > 1e-4:
+        raise AssertionError("14d: the mesh path's card and CPU loss or grads part")
+    if t_gpu != t_cpu or h_gpu != 1 or h_cpu != 1:
+        raise AssertionError(f"14d: tp engine tokens card {t_gpu} cpu {t_cpu}")
+    return {"loss_card": l_gpu, "loss_cpu": l_cpu, "worst_grad_diff": worst,
+            "tokens_equal": True, "dryrun_tp_serving": "ran"}
+
+
+def expert_mesh_phase(torch, models, attention, steps: int, seed: int, card: str) -> dict:
+    """Phase 14a on one world-1 group (destroyed when done), then 14d."""
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+
+    mesh = build_mesh(MeshConfig(fsdp=-1, ep=1))
+    try:
+        run = moe_mesh_path(torch, models, attention, mesh, steps, seed, card)
+    finally:
+        torch.distributed.destroy_process_group()
+    return {"mixtral_8x7b_mesh": run,
+            "reference": check_expert_tp_reference(torch, models, card)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -2070,6 +2324,9 @@ def main() -> int:
     log("serving slice reference: " + json.dumps(slice_ref))
     slice_run = serve_slice_main_path(torch, models, attention, params, args.seed, card)
     log("serving slice main path: " + json.dumps(slice_run))
+    tp_llama = tp_engine_phase(torch, models, attention, params, models.configs.LLAMA3_8B,
+                               args.seed, card, "14b", plain_turns=True)
+    log("14b tensor-parallel LLMEngine: " + json.dumps(tp_llama))
     del params
     torch.cuda.empty_cache()
     moe_ref = check_remat_and_moe_reference(torch, models, card, full_grads)
@@ -2085,6 +2342,8 @@ def main() -> int:
     log("sharded train: " + json.dumps(sharded))
     piped = pipeline_phase(torch, models, attention, args.steps, args.seed, card)
     log("pipeline and context parallel: " + json.dumps(piped))
+    experts = expert_mesh_phase(torch, models, attention, args.steps, args.seed, card)
+    log("14a/d expert parallelism: " + json.dumps(experts))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -2101,6 +2360,9 @@ def main() -> int:
             "launches_bench_350m_pipeline_train":
                 piped["bench_350m_pipeline"]["launches"][name],
             "launches_ulysses": piped["context_parallel"]["launches"]["ulysses"][name],
+            # This slice's main path: phase 14a's mixtral-8x7b mesh steps.
+            "launches_mixtral_8x7b_mesh_train":
+                experts["mixtral_8x7b_mesh"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

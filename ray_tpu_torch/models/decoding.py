@@ -25,8 +25,15 @@ PyTorch, as it is plain XLA in the JAX package: there is no kernel on these
 paths. MoE layers route exactly (`moe_mlp_dropless`), so every step
 computes the same function whatever the batch.
 
-Not ported yet: `cache_shardings` (tensor-parallel serving, ROADMAP queue
-A, item 12).
+Tensor-parallel serving (the contiguous path, which `LLMEngine(mesh=...)`
+runs): each rank holds its tp shard of the weights as `TP_RULES` lay them
+out (heads, kv heads, d_ff and vocab split over tp) and of the cache
+(`cache_shardings`: kv heads split), as plain tensors. The steps take the
+`mesh` and compute on the rank's heads (head counts come from the local
+weights), sum the partial outputs of `wo` and `w_down` over tp, look a
+token up in the rank's vocab rows (a psum over tp gives every rank its
+row), and gather the logits over tp, so every rank samples from the whole
+vocab. The paged steps keep no mesh: the JAX paged engine has none.
 """
 from __future__ import annotations
 
@@ -36,36 +43,79 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.device_mesh import DeviceMesh
+
 from ray_tpu_torch.models.transformer import TransformerConfig, resolve_device
-from ray_tpu_torch.ops.moe import MOE_PARAMS, moe_mlp_dropless
+from ray_tpu_torch.ops.moe import MOE_PARAMS, MoELayout, moe_mlp_dropless
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rotary import apply_rope
+from ray_tpu_torch.parallel.collectives import all_gather, axis_size, psum
+from ray_tpu_torch.parallel.mesh import AXIS_TENSOR
+from ray_tpu_torch.parallel.sharding import NamedSharding
 
 _NEG_INF = -1e30
 
 
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    """The tp split of a serving step: the mesh and its tp axis, () when
+    no rank holds a split (no mesh, or tp of one rank)."""
+    mesh: DeviceMesh | None = None
+    axes: tuple[str, ...] = ()
+
+    @classmethod
+    def of(cls, mesh: DeviceMesh | None) -> "_TP":
+        if mesh is None or AXIS_TENSOR not in mesh.mesh_dim_names or \
+                axis_size(AXIS_TENSOR, mesh=mesh) == 1:
+            return cls()
+        return cls(mesh, (AXIS_TENSOR,))
+
+    def leave(self, out):
+        """The partial sums of a row-split product, summed over tp."""
+        return psum(out, self.axes, mesh=self.mesh)
+
+    def embed(self, embed, tokens):
+        """Each token's row of the embedding, whose vocab rows split over tp:
+        the rank holding it gives the row, the others zeros."""
+        if not self.axes:
+            return embed[tokens]
+        v = embed.shape[0]
+        local = tokens - self.mesh.get_local_rank(AXIS_TENSOR) * v
+        mine = (local >= 0) & (local < v)
+        rows = embed[torch.where(mine, local, 0)]
+        return self.leave(torch.where(mine[..., None], rows, 0))
+
+    def logits(self, logits):
+        """The logits of this rank's vocab columns -> the whole vocab."""
+        if not self.axes:
+            return logits
+        return all_gather(logits, AXIS_TENSOR, mesh=self.mesh, dim=-1)
+
+
 def _qkv(bp, x, cfg: TransformerConfig, positions):
+    """q, k, v of this rank's heads (all of them without a tp split)."""
     cd = cfg.compute_dtype
     h = rms_norm(x, bp["attn_norm"], eps=cfg.norm_eps)
     b, t = x.shape[:2]
-    q = (h @ bp["wq"].to(cd)).view(b, t, cfg.n_heads, cfg.head_dim)
-    k = (h @ bp["wk"].to(cd)).view(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ bp["wv"].to(cd)).view(b, t, cfg.n_kv_heads, cfg.head_dim)
+    q = (h @ bp["wq"].to(cd)).view(b, t, -1, cfg.head_dim)
+    k = (h @ bp["wk"].to(cd)).view(b, t, -1, cfg.head_dim)
+    v = (h @ bp["wv"].to(cd)).view(b, t, -1, cfg.head_dim)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     return q, k, v
 
 
-def _mlp(bp, x, cfg: TransformerConfig):
+def _mlp(bp, x, cfg: TransformerConfig, tp: _TP = _TP()):
     cd = cfg.compute_dtype
     h = rms_norm(x, bp["mlp_norm"], eps=cfg.norm_eps)
     if cfg.n_experts > 0:
         # Dropless: capacity routing (training's) would make a decode step
         # depend on how many tokens share it.
-        return moe_mlp_dropless(h, {n: bp[n] for n in MOE_PARAMS}, cfg.moe)
+        return moe_mlp_dropless(h, {n: bp[n] for n in MOE_PARAMS}, cfg.moe,
+                                MoELayout(mesh=tp.mesh, tensor=tp.axes))
     gate = h @ bp["w_gate"].to(cd)
     up = h @ bp["w_up"].to(cd)
-    return (F.silu(gate) * up) @ bp["w_down"].to(cd)
+    return tp.leave((F.silu(gate) * up) @ bp["w_down"].to(cd))
 
 
 def _gqa(kh, vh, cfg: TransformerConfig):
@@ -89,12 +139,12 @@ def _attend(q, kh, vh, mask, cfg: TransformerConfig):
     return attn.reshape(*q.shape[:2], -1).to(cfg.compute_dtype)
 
 
-def _final_logits(params, x, cfg: TransformerConfig):
+def _final_logits(params, x, cfg: TransformerConfig, tp: _TP = _TP()):
     cd = cfg.compute_dtype
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(cd).t()
-    return x @ params["lm_head"].to(cd)
+        return tp.logits(x @ params["embed"].to(cd).t())
+    return tp.logits(x @ params["lm_head"].to(cd))
 
 
 def _layer(params, i: int) -> dict:
@@ -164,12 +214,27 @@ class KVCache:
     lengths: torch.Tensor    # (S,) int32: tokens currently in each slot
 
 
+def cache_shardings(mesh: DeviceMesh) -> KVCache:
+    """`NamedSharding`s of the KVCache leaves, beside the (L, S, T, Hkv, D)
+    layout they index: kv heads split over the mesh's tp axis, lengths
+    replicated (tensor-parallel serving)."""
+    kv = NamedSharding(mesh, (None, None, None, AXIS_TENSOR, None))
+    return KVCache(k=kv, v=kv, lengths=NamedSharding(mesh, ()))
+
+
 def init_cache(cfg: TransformerConfig, num_slots: int, max_len: int,
                dtype: torch.dtype | None = None, *,
-               device: torch.device | str = "cuda") -> KVCache:
-    device = resolve_device(device)
+               device: torch.device | str = "cuda",
+               shardings: KVCache | None = None) -> KVCache:
+    """A zero cache. With `shardings` (see `cache_shardings`) each rank
+    allocates only its shard, on the mesh's device, so no rank ever holds
+    the whole cache; the leaves are this rank's plain tensors."""
     dtype = dtype or cfg.compute_dtype
     shape = (cfg.n_layers, num_slots, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if shardings is not None:
+        device = shardings.k.mesh.device_type
+        shape = shardings.k.shard_shape(shape)
+    device = resolve_device(device)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    lengths=torch.zeros((num_slots,), dtype=torch.int32,
@@ -177,7 +242,7 @@ def init_cache(cfg: TransformerConfig, num_slots: int, max_len: int,
 
 
 def prefill(params, cache: KVCache, tokens: torch.Tensor, slot: int,
-            length: int, cfg: TransformerConfig):
+            length: int, cfg: TransformerConfig, mesh: DeviceMesh | None = None):
     """Run a (1, T_pad) prompt through the model, writing its k/v into
     `slot` at positions 0..T_pad-1; `length` (<= T_pad) is the true prompt
     length. Returns (cache, logits of token length-1 (vocab,)).
@@ -186,11 +251,13 @@ def prefill(params, cache: KVCache, tokens: torch.Tensor, slot: int,
     positions from T_pad on keep what they held. Every mask stops at the
     slot's length, so neither is ever read. Only the last real row goes
     through the final norm and head: the returned logits are a tensor of
-    their own, which the engine's prefix cache keeps."""
+    their own, which the engine's prefix cache keeps. Under a `mesh` the
+    params and cache are this rank's tp shards (see the module doc)."""
     cd = cfg.compute_dtype
+    tp = _TP.of(mesh)
     t = tokens.shape[1]
     positions = torch.arange(t, device=tokens.device)
-    x = params["embed"].to(cd)[tokens.long()]                 # (1, T, d)
+    x = tp.embed(params["embed"].to(cd), tokens.long())       # (1, T, d)
     mask = ((positions[:, None] >= positions[None, :])
             & (positions[None, :] < length))[None]            # (1, T, T)
     for i in range(cfg.n_layers):
@@ -198,15 +265,16 @@ def prefill(params, cache: KVCache, tokens: torch.Tensor, slot: int,
         q, k, v = _qkv(bp, x, cfg, positions)                 # (1,T,H,D)
         cache.k[i, slot, :t] = k[0].to(cache.k.dtype)
         cache.v[i, slot, :t] = v[0].to(cache.v.dtype)
-        x = x + _attend(q, k, v, mask, cfg) @ bp["wo"].to(cd)
-        x = x + _mlp(bp, x, cfg)
+        x = x + tp.leave(_attend(q, k, v, mask, cfg) @ bp["wo"].to(cd))
+        x = x + _mlp(bp, x, cfg, tp)
     cache.lengths[slot] = length
-    last = _final_logits(params, x[:, length - 1:length], cfg)
+    last = _final_logits(params, x[:, length - 1:length], cfg, tp)
     return cache, last[0, 0]
 
 
 def _wide_decode(params, cache: KVCache, tokens: torch.Tensor,
-                 active: torch.Tensor, cfg: TransformerConfig):
+                 active: torch.Tensor, cfg: TransformerConfig,
+                 mesh: DeviceMesh | None = None):
     """Width-K core of `decode_step` and `verify_step`: tokens (S, K) at
     positions lengths[s]..lengths[s]+K-1, their KV written into each
     ACTIVE slot, attending to cache[:len] plus the in-window causal
@@ -219,6 +287,7 @@ def _wide_decode(params, cache: KVCache, tokens: torch.Tensor,
     length an idle slot holds. Inactive lanes attend to their old KV, so
     their logits may differ from JAX's; no caller reads them."""
     cd = cfg.compute_dtype
+    tp = _TP.of(mesh)
     s_count, k_w = tokens.shape
     t_cache = cache.k.shape[2]
     dev = tokens.device
@@ -228,7 +297,7 @@ def _wide_decode(params, cache: KVCache, tokens: torch.Tensor,
     wpos = torch.clamp(start, max=t_cache - k_w)[:, None] + window
     rows = torch.arange(s_count, device=dev)[:, None].expand(-1, k_w)
     keep = active[:, None, None, None]
-    x = params["embed"].to(cd)[tokens.long()]                  # (S, K, d)
+    x = tp.embed(params["embed"].to(cd), tokens.long())        # (S, K, d)
     mask = (torch.arange(t_cache, device=dev)[None, None, :]
             <= positions[:, :, None])                          # (S, K, T)
     for i in range(cfg.n_layers):
@@ -239,25 +308,27 @@ def _wide_decode(params, cache: KVCache, tokens: torch.Tensor,
                                           k_cache[rows, wpos])
         v_cache[rows, wpos] = torch.where(keep, v.to(v_cache.dtype),
                                           v_cache[rows, wpos])
-        x = x + _attend(q, k_cache, v_cache, mask, cfg) @ bp["wo"].to(cd)
-        x = x + _mlp(bp, x, cfg)
-    return _final_logits(params, x, cfg)                       # (S,K,vocab)
+        x = x + tp.leave(_attend(q, k_cache, v_cache, mask, cfg) @ bp["wo"].to(cd))
+        x = x + _mlp(bp, x, cfg, tp)
+    return _final_logits(params, x, cfg, tp)                   # (S,K,vocab)
 
 
 def decode_step(params, cache: KVCache, tokens: torch.Tensor,
-                active: torch.Tensor, cfg: TransformerConfig):
+                active: torch.Tensor, cfg: TransformerConfig,
+                mesh: DeviceMesh | None = None):
     """One token for every slot: tokens (S,) int32 (each slot's last
     sampled token), active (S,) bool. Returns (cache, logits (S, vocab)).
     Inactive slots flow through the products (fixed shapes); their cache
     and lengths are left as they were."""
-    logits = _wide_decode(params, cache, tokens[:, None], active, cfg)
+    logits = _wide_decode(params, cache, tokens[:, None], active, cfg, mesh)
     cache.lengths = torch.where(active, cache.lengths + 1, cache.lengths)
     return cache, logits[:, 0]
 
 
 def verify_step(params, cache: KVCache, cand_tokens: torch.Tensor,
                 active: torch.Tensor, temps: torch.Tensor,
-                generator: torch.Generator, cfg: TransformerConfig):
+                generator: torch.Generator, cfg: TransformerConfig,
+                mesh: DeviceMesh | None = None):
     """Speculative verification: K candidate tokens per slot in one call
     (prompt-lookup decoding: the drafts are n-gram matches in the slot's
     own context, no draft model).
@@ -270,26 +341,28 @@ def verify_step(params, cache: KVCache, cand_tokens: torch.Tensor,
     a+1: the stale tail past the new length is masked, so rejecting a
     draft needs no rollback."""
     start = cache.lengths
-    logits = _wide_decode(params, cache, cand_tokens, active, cfg)
+    logits = _wide_decode(params, cache, cand_tokens, active, cfg, mesh)
     tok_out, accepted = _accept(logits, cand_tokens, temps, generator)
     cache.lengths = torch.where(active, start + 1 + accepted, start)
     return cache, tok_out, accepted
 
 
 def decode_and_sample(params, cache: KVCache, tokens, active, temps,
-                      generator: torch.Generator, cfg: TransformerConfig):
+                      generator: torch.Generator, cfg: TransformerConfig,
+                      mesh: DeviceMesh | None = None):
     """Decode + per-slot sampling: (cache, next_tokens (S,))."""
-    cache, logits = decode_step(params, cache, tokens, active, cfg)
+    cache, logits = decode_step(params, cache, tokens, active, cfg, mesh)
     return cache, sample_per_slot(logits, generator, temps)
 
 
 def prefill_and_sample(params, cache: KVCache, tokens, slot: int,
                        length: int, temp: float,
-                       generator: torch.Generator, cfg: TransformerConfig):
+                       generator: torch.Generator, cfg: TransformerConfig,
+                       mesh: DeviceMesh | None = None):
     """Returns (cache, first_token, last_logits): the logits come back so
     the engine's prefix cache can re-sample them under another
     temperature on a later hit."""
-    cache, last_logits = prefill(params, cache, tokens, slot, length, cfg)
+    cache, last_logits = prefill(params, cache, tokens, slot, length, cfg, mesh)
     temp = torch.tensor(temp, dtype=torch.float32, device=last_logits.device)
     return cache, sample_one(last_logits, temp, generator), last_logits
 
@@ -317,22 +390,22 @@ def insert_prefix(cache: KVCache, k_slice, v_slice, slot: int,
 
 def decode_burst(params, cache: KVCache, tokens, active, temps,
                  generator: torch.Generator, cfg: TransformerConfig,
-                 n_steps: int):
+                 n_steps: int, mesh: DeviceMesh | None = None):
     """`n_steps` decode+sample steps, all enqueued on the device before the
     caller reads anything back. Returns (cache, token matrix (n_steps, S))."""
     out = []
     for _ in range(n_steps):
         cache, tokens = decode_and_sample(params, cache, tokens, active,
-                                          temps, generator, cfg)
+                                          temps, generator, cfg, mesh)
         out.append(tokens)
     return cache, torch.stack(out)
 
 
-def make_engine_fns(cfg: TransformerConfig):
-    """(prefill_and_sample, decode_burst) bound to `cfg`: the fixed-slot
-    engine's two device calls."""
-    return (functools.partial(prefill_and_sample, cfg=cfg),
-            functools.partial(decode_burst, cfg=cfg))
+def make_engine_fns(cfg: TransformerConfig, mesh: DeviceMesh | None = None):
+    """(prefill_and_sample, decode_burst) bound to `cfg` (and a tp `mesh`):
+    the fixed-slot engine's two device calls."""
+    return (functools.partial(prefill_and_sample, cfg=cfg, mesh=mesh),
+            functools.partial(decode_burst, cfg=cfg, mesh=mesh))
 
 
 def ngram_propose(context, k_minus_1: int, ngram: int = 2):
@@ -351,10 +424,10 @@ def ngram_propose(context, k_minus_1: int, ngram: int = 2):
     return []
 
 
-def make_spec_fns(cfg: TransformerConfig):
-    """The speculative verifier bound to `cfg` (K rides in the candidate
-    shape)."""
-    return functools.partial(verify_step, cfg=cfg)
+def make_spec_fns(cfg: TransformerConfig, mesh: DeviceMesh | None = None):
+    """The speculative verifier bound to `cfg` (and a tp `mesh`; K rides in
+    the candidate shape)."""
+    return functools.partial(verify_step, cfg=cfg, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

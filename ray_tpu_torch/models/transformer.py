@@ -25,8 +25,11 @@ the positions (`seq_shards > 1`): attention runs over the whole sequence
 by ring or Ulysses attention (`cfg.sp_attention`), and the weights' grads
 sum over sp as over the data dims.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP item):
-expert parallelism, and MoE under a data, sequence or tensor split.
+MoE layers run under every split, as one routing group over the global
+batch (`ops/moe.py`): the router is gathered whole, each rank keeps its
+experts' shard over `ep` (their grads split there) and their d_ff
+columns over tp. As in the JAX package, MoE does not run in the
+pipeline (`parallel/pipeline.py` raises for it).
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ from torch.utils.checkpoint import (
     checkpoint, create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops.attention import flash_attention
-from ray_tpu_torch.ops.moe import MOE_PARAMS, MoEConfig, moe_mlp
+from ray_tpu_torch.ops.moe import (
+    MOE_PARAMS, MoEConfig, MoELayout, moe_mlp, moe_param_logical_axes)
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.ring_attention import make_ring_attention
 from ray_tpu_torch.ops.rotary import apply_rope
@@ -189,12 +193,7 @@ def param_logical_axes(cfg: TransformerConfig) -> dict:
         "mlp_norm": ("layers", "embed"),
     }
     if cfg.n_experts > 0:
-        blocks.update({
-            "router": ("layers", "embed", "expert"),
-            "w_gate": ("layers", "expert", "embed", "mlp"),
-            "w_up": ("layers", "expert", "embed", "mlp"),
-            "w_down": ("layers", "expert", "mlp", "embed"),
-        })
+        blocks.update({n: ("layers",) + a for n, a in moe_param_logical_axes().items()})
     else:
         blocks.update({
             "w_gate": ("layers", "embed", "mlp"),
@@ -220,23 +219,32 @@ class Layout:
     """How forward meets a mesh: the mesh axes the batch rows split over
     (`batch`, of `batch_shards` ranks), the axis that splits the positions
     (`seq`: (sp,) of `seq_shards` ranks, or ()), the axis that splits heads
-    and the MLP (`tensor`, None when no rank holds a split), and the
-    attention over this rank's q, k, v (`attend`). Without a mesh every
-    method passes its input through."""
+    and the MLP (`tensor`, None when no rank holds a split), the axis the
+    experts split over (`expert`: ep, or None), and the attention over
+    this rank's q, k, v (`attend`). Without a mesh every method passes its
+    input through."""
     mesh: DeviceMesh | None = None
     batch: tuple[str, ...] = ()
     batch_shards: int = 1
     seq: tuple[str, ...] = ()
     seq_shards: int = 1
     tensor: str | None = None
+    expert: str | None = None
     attend: Callable = _causal_flash
 
     def weight(self, w, whole: bool = False):
         """The weight this rank computes with (see `gather_param`): its
-        grad is a partial sum over the data dims and sp, whose ranks each
-        saw other rows or positions."""
-        keep = () if whole else (AXIS_TENSOR,)
+        tp split kept (and an expert weight's ep split), or gathered
+        `whole`. Its grad is a partial sum over the data dims and sp, whose
+        ranks each saw other rows or positions."""
+        keep = () if whole else (AXIS_TENSOR, AXIS_EXPERT)
         return gather_param(w, keep=keep, partial=self.batch + self.seq)
+
+    def moe(self) -> MoELayout:
+        """The MoE layer's view of this layout."""
+        return MoELayout(mesh=self.mesh, rows=self.batch, cols=self.seq,
+                         experts=(self.expert,) if self.expert else (),
+                         tensor=(self.tensor,) if self.tensor else ())
 
     def first_position(self, t: int) -> int:
         """The global position of this rank's first of `t` positions."""
@@ -258,10 +266,6 @@ def layout_for(cfg: TransformerConfig, mesh: DeviceMesh | None,
     if mesh is None:
         return Layout()
     sizes = mesh_axis_sizes(mesh)
-    if sizes.get(AXIS_EXPERT, 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with ep={sizes[AXIS_EXPERT]} (expert parallelism) is not "
-            "ported yet: ROADMAP queue A, item 12")
     batch = tuple(a for a in mesh_axes(rules, "batch", mesh) if sizes[a] > 1)
     split = {n: tuple(a for a in mesh_axes(rules, n, mesh) if sizes[a] > 1)
              for n in ("heads", "kv_heads", "mlp")}
@@ -275,13 +279,18 @@ def layout_for(cfg: TransformerConfig, mesh: DeviceMesh | None,
                          f"do not split over tp={sizes[tensor]}")
     seq_shards = sizes.get(AXIS_SEQ, 1)
     seq = (AXIS_SEQ,) if seq_shards > 1 else ()
-    if cfg.n_experts > 0 and (batch or seq or tensor):
-        raise NotImplementedError(
-            "MoE under a data, sequence or tensor split is not ported yet (its "
-            "routing must span the global batch): ROADMAP queue A, item 12")
+    expert = None
+    if cfg.n_experts > 0:
+        split = tuple(a for a in mesh_axes(rules, "expert", mesh) if sizes[a] > 1)
+        if split not in ((), (AXIS_EXPERT,)):
+            raise ValueError(f"experts must split over {AXIS_EXPERT!r} or none: {split}")
+        if split and cfg.n_experts % sizes[AXIS_EXPERT]:
+            raise ValueError(f"{cfg.n_experts} experts do not split over "
+                             f"ep={sizes[AXIS_EXPERT]}")
+        expert = split[0] if split else None
     return Layout(mesh=mesh, batch=batch,
                   batch_shards=math.prod(sizes[a] for a in batch), seq=seq,
-                  seq_shards=seq_shards, tensor=tensor)
+                  seq_shards=seq_shards, tensor=tensor, expert=expert)
 
 
 def _with_attention(lay: Layout, cfg: TransformerConfig, seq_shards: int) -> Layout:
@@ -353,7 +362,9 @@ def _block(x, bp: dict, positions, cfg: TransformerConfig, lay: Layout):
     x = _attn(x, bp, positions, cfg, lay)
     if cfg.n_experts > 0:
         h = rms_norm(x, lay.weight(bp["mlp_norm"]), eps=cfg.norm_eps)
-        out, aux = moe_mlp(h, {n: lay.weight(bp[n]) for n in MOE_PARAMS}, cfg.moe)
+        # The router gathered whole: every rank scores all the experts.
+        weights = {n: lay.weight(bp[n], whole=n == "router") for n in MOE_PARAMS}
+        out, aux = moe_mlp(h, weights, cfg.moe, lay.moe())
         return x + out, aux
     return x + _ff_out(_ff_hidden(x, bp, cfg, lay), bp, cfg, lay), {}
 

@@ -11,12 +11,14 @@ dims where JAX allows it (psum, pmean).
 backward passes each rank its own cotangent. `pvary` is its pair:
 identity forward, psum of the cotangents backward; a replicated
 activation goes through it before a product with a weight sharded over
-`axis`, whose ranks each give a partial gradient of it. `ppermute_ring`
-and `all_to_all` are differentiable as `lax.ppermute` and
-`lax.all_to_all` are: backward rotates the cotangent by -shift, or swaps
-it back with the split and concat dims exchanged. Each is one collective
-on every rank of the axis, forward and backward, so the autograd graph
-must be the same on every rank (no branch on the rank around one).
+`axis`, whose ranks each give a partial gradient of it. `all_gather`,
+`ppermute_ring` and `all_to_all` are differentiable as
+`lax.all_gather`, `lax.ppermute` and `lax.all_to_all` are: backward
+psum-scatters the cotangent, rotates it by -shift, or swaps it back with
+the split and concat dims exchanged. Each is one collective on every
+rank of the axis, forward and backward, so the autograd graph must be
+the same on every rank (no branch on the rank around one); over an axis
+of one rank none issues a collective.
 """
 from __future__ import annotations
 
@@ -82,21 +84,47 @@ def pmean(x: torch.Tensor, axis: str | Sequence[str], *, mesh: DeviceMesh):
     return psum(x, axis, mesh=mesh) / n
 
 
+def _all_gather(x, axis, mesh, dim):
+    if axis_size(axis, mesh=mesh) == 1:  # no collective, as in _all_to_all
+        return x.view_as(x)
+    return funcol.wait_tensor(funcol.all_gather_tensor(
+        x.contiguous(), dim, _group(mesh, axis)))
+
+
+def _psum_scatter(x, axis, mesh, dim):
+    if axis_size(axis, mesh=mesh) == 1:
+        return x.view_as(x)
+    return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+        x.contiguous(), "sum", dim, _group(mesh, axis)))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = axis, mesh, dim
+        return _all_gather(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _psum_scatter(grad, *ctx.args), None, None, None
+
+
 def all_gather(x: torch.Tensor, axis: str, *, mesh: DeviceMesh, dim: int = 0,
                tiled: bool = True):
-    """Every rank's x along `dim`: concatenated (tiled) or stacked."""
+    """Every rank's x along `dim`: concatenated (tiled) or stacked.
+    Differentiable as `lax.all_gather`: backward is the psum_scatter of
+    the cotangent, each rank keeping the sum of every rank's grad of its
+    own block."""
     if not tiled:
         x = x.unsqueeze(dim)
-    return funcol.wait_tensor(funcol.all_gather_tensor(
-        x.contiguous(), dim % x.dim(), _group(mesh, axis)))
+    return _AllGather.apply(x, axis, mesh, dim % x.dim())
 
 
 def psum_scatter(x: torch.Tensor, axis: str, *, mesh: DeviceMesh, dim: int = 0,
                  tiled: bool = True):
     """The sum over ranks, each rank keeping its block of `dim` (untiled:
     dim has the axis' size, and each rank keeps its index, squeezed)."""
-    out = funcol.wait_tensor(funcol.reduce_scatter_tensor(
-        x.contiguous(), "sum", dim % x.dim(), _group(mesh, axis)))
+    out = _psum_scatter(x, axis, mesh, dim % x.dim())
     return out if tiled else out.squeeze(dim)
 
 

@@ -95,15 +95,26 @@ def build_mesh(
     *,
     device_type: str = "cuda",
     axis_order: Sequence[str] = _CANONICAL_ORDER,
+    n_ranks: int | None = None,
 ) -> DeviceMesh:
-    """A DeviceMesh over every rank of the default process group, its dims
+    """A DeviceMesh over every rank of the default process group, or its
+    first `n_ranks` (as JAX builds one over the first devices), its dims
     named and ordered by `axis_order`, sized by `config` (all ranks on
     fsdp by default). Rank r sits at the row-major position r, as
-    `np.reshape` lays JAX's devices out on a flat topology."""
+    `np.reshape` lays JAX's devices out on a flat topology. Every rank must
+    call it; a rank past `n_ranks` is in no position of the mesh
+    (`get_coordinate()` is None)."""
     ensure_group(device_type)
-    sizes = mesh_shape_for(dist.get_world_size(), config)
-    return init_device_mesh(device_type, tuple(sizes[a] for a in axis_order),
-                            mesh_dim_names=tuple(axis_order))
+    world = dist.get_world_size()
+    n = world if n_ranks is None else n_ranks
+    if n > world:
+        raise ValueError(f"a mesh of {n} ranks over a group of {world}")
+    sizes = mesh_shape_for(n, config)
+    shape = tuple(sizes[a] for a in axis_order)
+    if n == world:
+        return init_device_mesh(device_type, shape, mesh_dim_names=tuple(axis_order))
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axis_order))
 
 
 def local_mesh(n: int | None = None, *, device_type: str = "cuda") -> DeviceMesh:

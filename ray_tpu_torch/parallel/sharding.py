@@ -157,6 +157,24 @@ def shard_pytree(tree: Any, shardings: Any):
                      tree, shardings)
 
 
+def local_shard(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of a whole tensor `t` under `sharding`, the block
+    the DTensor `distribute_tensor` makes would hold here, as a view of
+    `t` on its own device (the mesh's device is not touched). Several mesh
+    axes on one dim split it outermost first, as `placements` lays them."""
+    mesh = sharding.mesh
+    sizes = mesh_axis_sizes(mesh)
+    coordinate = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    shard = sharding.shard_shape(t.shape)
+    for i, entry in enumerate(sharding.spec):
+        index = 0
+        for a in _entry_axes(entry):
+            if a in sizes:
+                index = index * sizes[a] + coordinate[a]
+        t = t.narrow(i, index * shard[i], shard[i])
+    return t
+
+
 def with_logical_constraint(x, logical: Sequence[str | None],
                             rules: LogicalRules = DEFAULT_RULES,
                             mesh: DeviceMesh | None = None):

@@ -1,4 +1,5 @@
-"""Scripts that measure the port on a CUDA card; run each with `python3 -m`."""
+"""Scripts that measure the port on a CUDA card, and its test suite's clock
+(`test_timeline`); run each with `python3 -m`."""
 from __future__ import annotations
 
 import subprocess

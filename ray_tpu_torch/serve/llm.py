@@ -26,10 +26,14 @@ decoding.
 
 Both serve MoE models (`n_experts > 0`) with exact, dropless routing.
 
-Not ported yet, each raising NotImplementedError where a caller could ask
-for it: the object-store arena (`store=`, ROADMAP queue A, item 10) and
-tensor-parallel serving (`mesh=`, item 12). Serving spans and histograms,
-`LLMDeployment` and `serve/disagg.py` come with item 10.
+`LLMEngine(mesh=...)` serves tensor-parallel: every rank of the mesh runs
+one engine on its tp shard of the weights and the cache, the ranks' ticks
+in lockstep (`dryrun_tp_serving` drives it once).
+
+Not ported yet, raising NotImplementedError where a caller could ask for
+it: the object-store arena (`store=`, ROADMAP queue A, item 10). Serving
+spans and histograms, `LLMDeployment` and `serve/disagg.py` come with
+item 10.
 """
 from __future__ import annotations
 
@@ -43,14 +47,28 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch.core.config import get_config
 from ray_tpu_torch.models.decoding import (
-    gather_blocks, init_cache, init_paged_cache, make_engine_fns,
-    make_paged_engine_fns, make_paged_spec_fns, make_prefix_cache_fns,
-    make_spec_fns, ngram_propose, sample_one, scatter_blocks)
-from ray_tpu_torch.models.transformer import TransformerConfig, resolve_device
+    cache_shardings, gather_blocks, init_cache, init_paged_cache,
+    make_engine_fns, make_paged_engine_fns, make_paged_spec_fns,
+    make_prefix_cache_fns, make_spec_fns, ngram_propose, sample_one,
+    scatter_blocks)
+from ray_tpu_torch.models.transformer import (
+    TransformerConfig, init_params, param_logical_axes, resolve_device)
+from ray_tpu_torch.parallel.mesh import AXIS_TENSOR, MeshConfig, build_mesh
+from ray_tpu_torch.parallel.sharding import (
+    TP_RULES, local_shard, local_tensor, param_shardings)
 from ray_tpu_torch.serve.kv_cache import KVBlockAllocator
+
+# A tensor-parallel engine's first rank sends its followers a plan at least
+# this often when idle, so no follower waits on a collective for long; a
+# follower waits this long for the request its plan admits.
+LOCKSTEP_IDLE_S = 1.0
+LOCKSTEP_ADMIT_S = 300.0
 
 
 class StreamQueueFullError(Exception):
@@ -319,6 +337,19 @@ class LLMEngine(_EngineBase):
 
     Runs on `device` ("cuda" by default; "cpu" runs the same code on CPU
     tensors). Tokens come back to the host once per burst.
+
+    With a `mesh` (whose device type replaces `device`) it serves tensor-
+    parallel, as the JAX engine does: the params are split over the
+    mesh's tp axis by `TP_RULES`, each rank copying only its shard to its
+    device (pass host tensors, and no rank holds the whole model), and
+    the cache over kv heads (`cache_shardings`). Every rank of the mesh
+    builds the engine and is given the same requests in the same order,
+    as every rank of an SPMD program runs the same code; ranks apart on
+    other axes than tp are replicas. Every rank computes the whole logits
+    and samples them with the same seeded generator, so all emit the same
+    tokens. While the engine runs, its loop thread issues collectives
+    over the mesh's groups: the caller issues none there until
+    `shutdown()`.
     """
 
     def __init__(self, cfg: TransformerConfig, params, *, num_slots: int = 8,
@@ -326,15 +357,29 @@ class LLMEngine(_EngineBase):
                  eos_id: Optional[int] = None, seed: int = 0,
                  max_burst: int = 8, prefix_cache_size: int = 4,
                  speculation_k: int = 0, speculation_ngram: int = 2,
-                 mesh=None, device: torch.device | str = "cuda"):
+                 mesh: DeviceMesh | None = None,
+                 device: torch.device | str = "cuda"):
         if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet: "
-                "ROADMAP queue A, item 12")
+            tp = mesh.size(mesh.mesh_dim_names.index(AXIS_TENSOR)) \
+                if AXIS_TENSOR in mesh.mesh_dim_names else 1
+            for dim_name, dim in (("n_kv_heads", cfg.n_kv_heads),
+                                  ("n_heads", cfg.n_heads),
+                                  ("d_ff", cfg.d_ff),
+                                  ("vocab_size", cfg.vocab_size)):
+                if dim % tp:
+                    raise ValueError(
+                        f"tensor parallelism {tp} does not divide "
+                        f"{dim_name}={dim} for model {cfg.name!r} — "
+                        f"pick a tp that divides all sharded dims")
+            device = mesh.device_type
+            params = _local_shards(params, param_shardings(
+                param_logical_axes(cfg), mesh, TP_RULES))
         self.device = resolve_device(device)
         self.cfg = cfg
         with torch.no_grad():
             self.params = _to_compute(params, cfg.compute_dtype, self.device)
+        # The ranks tick in lockstep (`_loop`); one rank needs no plan.
+        self._lockstep = mesh if mesh is not None and mesh.size() > 1 else None
         self.num_slots = num_slots
         self.max_len = max_len
         self.buckets = tuple(b for b in sorted(prefill_buckets)
@@ -345,8 +390,10 @@ class LLMEngine(_EngineBase):
         self.max_burst = max(1, max_burst if eos_id is None else
                              min(max_burst, 4))
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.cache = init_cache(cfg, num_slots, max_len, device=self.device)
-        self._prefill, self._decode = make_engine_fns(cfg)
+        self.cache = init_cache(
+            cfg, num_slots, max_len, device=self.device,
+            shardings=None if mesh is None else cache_shardings(mesh))
+        self._prefill, self._decode = make_engine_fns(cfg, mesh)
         # Whole-prompt prefix cache: a repeated prompt skips prefill (one
         # device copy of its snapshotted KV + one sampling call). The
         # insertion-ordered dict is the LRU; 0 disables.
@@ -359,7 +406,7 @@ class LLMEngine(_EngineBase):
         # _maybe_finish keeps a margin of one advance (a burst or a verify
         # window) below max_len, without deepening the burst itself.
         self._advance_margin = max(self.max_burst, self._spec_k)
-        self._verify = make_spec_fns(cfg)
+        self._verify = make_spec_fns(cfg, mesh)
         self._pending: "queue.Queue[_Request]" = queue.Queue()
         self._slots: List[Optional[_Request]] = [None] * num_slots
         self._last_tokens = np.zeros((num_slots,), np.int32)
@@ -387,13 +434,55 @@ class LLMEngine(_EngineBase):
                 return b
         return self.max_len
 
-    def _admit(self) -> bool:
+    def _loop(self):
+        if self._lockstep is None:
+            return super()._loop()
+        # Each rank runs its own engine, and a loop that chose its ticks
+        # from its own request queue could admit a request on another tick
+        # than its peers: their collectives would then differ, and the
+        # ranks deadlock. (The JAX engine is one controller over all the
+        # devices: one queue, one choice.) So the mesh's first rank plans
+        # each tick (stop, or admit its queue head) and the others follow;
+        # the tick's other choices (verify or decode) are planned the same
+        # way, and the burst depth is the engine's constant.
+        leads = all(c == 0 for c in self._lockstep.get_coordinate())
+        with torch.no_grad():
+            while True:
+                self._work.clear()
+                with self._tick_lock:
+                    stop, admit = self._plan(
+                        self._stop, self._free_slot() >= 0 and not self._pending.empty())
+                    if stop:
+                        return
+                    progressed = self._tick(bool(admit))
+                if not progressed and leads:
+                    self._work.wait(LOCKSTEP_IDLE_S)
+
+    def _plan(self, *choices) -> list:
+        """This tick's `choices` as the mesh's first rank made them, on
+        every rank (a rank's own, without a lockstep mesh)."""
+        if self._lockstep is None:
+            return [int(c) for c in choices]
+        plan = torch.tensor([int(c) for c in choices], dtype=torch.int64)
+        _broadcast_from_first(plan, self._lockstep)
+        return plan.tolist()
+
+    def _admit(self, admit: Optional[bool] = None) -> bool:
+        """Admit the queue head into a free slot, if both exist; under a
+        lockstep plan (`admit`), exactly when the plan says, waiting for
+        the request the plan's first rank admits."""
         slot = self._free_slot()
-        if slot < 0:
+        if slot < 0 or admit is False:
             return False
         try:
-            req = self._pending.get_nowait()
+            req = (self._pending.get_nowait() if admit is None else
+                   self._pending.get(timeout=LOCKSTEP_ADMIT_S))
         except queue.Empty:
+            if admit:
+                raise RuntimeError(
+                    f"the tick plan admits a request and none came in "
+                    f"{LOCKSTEP_ADMIT_S} s: every rank of the mesh must be "
+                    f"given the same requests") from None
             return False
         try:
             n = len(req.prompt)
@@ -459,7 +548,8 @@ class LLMEngine(_EngineBase):
         a draft: the caller runs the plain burst instead."""
         live = [(i, i) for i, r in enumerate(self._slots) if r is not None]
         cand, drafted, greedy = self._drafts(live, self.num_slots)
-        if not self._spec_pays(drafted, greedy, int(active_mask.sum())):
+        if not self._plan(self._spec_pays(drafted, greedy,
+                                          int(active_mask.sum())))[0]:
             return False
         # Every candidate column of a greedy slot counts as proposed:
         # padding can be accepted too, and accepted never exceeds proposed.
@@ -475,8 +565,8 @@ class LLMEngine(_EngineBase):
             self._maybe_finish(i)
         return True
 
-    def _tick(self) -> bool:
-        admitted = self._admit()
+    def _tick(self, admit: Optional[bool] = None) -> bool:
+        admitted = self._admit(admit)
         active_mask = np.array([r is not None for r in self._slots])
         if not active_mask.any():
             return admitted
@@ -1071,6 +1161,61 @@ class PagedLLMEngine(_EngineBase):
                 out.append({"request_id": rid, "tokens": list(ctx[:n_kv]),
                             "block_size": bs, "kv": frame.numpy()})
         return out
+
+
+def _broadcast_from_first(t: torch.Tensor, mesh: DeviceMesh) -> None:
+    """Overwrite the CPU tensor `t` on every rank of `mesh` with its value
+    on the mesh's first rank: a broadcast along each mesh dim in turn,
+    from its index 0 (after dim i every rank holds the value of the rank
+    with its coordinates, zero on dims up to i). CPU tensors go over the
+    groups' gloo backend."""
+    for dim in range(mesh.ndim):
+        if mesh.size(dim) > 1:
+            group = mesh.get_group(dim)
+            dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+
+
+def _local_shards(params, shardings):
+    """This rank's shard of every leaf, laid out by `shardings`: a view of
+    the whole leaf where it lies, or a DTensor's local shard when it is
+    laid out so already (any other DTensor is gathered first). Host
+    tensors keep the whole model off the device, as the JAX engine shards
+    host copies; only each rank's shard is then copied to its device."""
+    def shard(w, sharding):
+        w = w.detach()
+        if isinstance(w, DTensor):
+            if w.device_mesh == sharding.mesh and \
+                    tuple(w.placements) == sharding.placements:
+                return local_tensor(w)
+            w = w.full_tensor()
+        return local_shard(w, sharding)
+
+    return {name: (_local_shards(w, shardings[name]) if isinstance(w, dict)
+                   else shard(w, shardings[name]))
+            for name, w in params.items()}
+
+
+def dryrun_tp_serving(cfg: TransformerConfig, tp: int, *, timeout: float = 45.0,
+                      device_type: str = "cuda") -> None:
+    """A tensor-parallel `LLMEngine` over the first `tp` ranks of the
+    default process group (started as a world-1 group when there is none)
+    generates 4 tokens from random weights, as the JAX package's serving
+    dry-run does; `timeout` bounds the generation. Every rank must call
+    it; the ranks past tp return at once."""
+    mesh = build_mesh(MeshConfig(tp=tp, fsdp=1), device_type=device_type, n_ranks=tp)
+    if mesh.get_coordinate() is None:
+        return
+    device = resolve_device(device_type)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                         device=device)
+    eng = LLMEngine(cfg, params, num_slots=2, max_len=64,
+                    prefill_buckets=(16,), prefix_cache_size=0, mesh=mesh)
+    try:
+        out = eng.generate([1, 2, 3], max_tokens=4, timeout=timeout)
+        if len(out) != 4:
+            raise RuntimeError(f"dryrun_tp_serving: {len(out)} tokens, not 4")
+    finally:
+        eng.shutdown()
 
 
 def _to_compute(params, dtype: torch.dtype, device: torch.device):

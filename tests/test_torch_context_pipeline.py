@@ -130,14 +130,16 @@ def test_sequence_parallel_forward_matches_jax(ranks, sizes, scheme):
 
 
 def test_collective_grads_match_jax_shard_map(ranks):
-    """The backward of ppermute_ring (shift 1 and -1) and all_to_all over
-    tp of a (fsdp 2, tp 2) mesh against jax.vjp through shard_map."""
+    """The backward of ppermute_ring (shift 1 and -1), all_to_all and
+    all_gather over tp of a (fsdp 2, tp 2) mesh against jax.vjp through
+    shard_map."""
     sizes = {"fsdp": 2, "tp": 2}
     rng = np.random.default_rng(3)
     x = rng.standard_normal((16, 3), dtype=np.float32)
     ops = {"ppermute_ring": lambda v: jcol.ppermute_ring(v, "tp"),
            "ppermute_ring_back": lambda v: jcol.ppermute_ring(v, "tp", shift=-1),
-           "all_to_all": lambda v: jcol.all_to_all(v, "tp", split_dim=0, concat_dim=1)}
+           "all_to_all": lambda v: jcol.all_to_all(v, "tp", split_dim=0, concat_dim=1),
+           "all_gather": lambda v: jcol.all_gather(v, "tp")}
     mesh = _jax_mesh(sizes)
     spec = P(("dp", "fsdp", "ep", "sp", "tp"))
     fns = {name: jax.shard_map(op, mesh=mesh, in_specs=spec, out_specs=spec,

@@ -246,13 +246,18 @@ def test_prefix_digest_matches_jax():
 
 
 def test_unported_options_raise(model):
-    _, _, tcfg, tp = model
+    """The store arena is not ported yet; the paged engine takes no mesh,
+    as the JAX package's takes none (`LLMEngine(mesh=...)` serves
+    tensor-parallel: tests/test_torch_{world_one,distributed}.py)."""
+    jcfg, jp, tcfg, tp = model
     with pytest.raises(NotImplementedError, match="queue A, item 10"):
         KVBlockAllocator(9, 4, store=object())
     with pytest.raises(NotImplementedError, match="queue A, item 10"):
         PagedLLMEngine(tcfg, tp, store=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A, item 12"):
-        LLMEngine(tcfg, tp, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
+        JaxEngine(jcfg, jp, mesh=object())
+    with pytest.raises(TypeError, match="mesh"):
+        PagedLLMEngine(tcfg, tp, mesh=object(), device="cpu")
 
 
 # ---------------------------------------------------------------------------

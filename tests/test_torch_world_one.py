@@ -1,6 +1,7 @@
-"""The sequence-parallel and pipeline paths on a world-1 gloo group in
-this process (what the card runs at world 1), and the optimizers the
-pipeline uses, against the JAX package and the port's own plain path.
+"""The sequence-parallel, pipeline, expert-parallel and tensor-parallel
+serving paths on a world-1 gloo group in this process (what the card runs
+at world 1), the optimizers the pipeline uses and the differentiable
+all_gather, against the JAX package and the port's own plain path.
 
 Each test that starts a group destroys it (the `world` fixture). Inputs
 are numpy from a seed; fp32 throughout: losses 1e-5 relative, grads and
@@ -21,10 +22,12 @@ from ray_tpu.models import configs as jax_configs
 from ray_tpu.parallel import pipeline as jax_pipeline
 from ray_tpu_torch.models import configs, forward, init_params, loss_fn
 from ray_tpu_torch.models.jax_bridge import params_from_jax, params_to_numpy
-from ray_tpu_torch.models.training import SGD, AdamW, make_train_step, tree_leaves
+from ray_tpu_torch.models.training import (
+    SGD, AdamW, default_optimizer, make_train_step, tree_leaves)
 from ray_tpu_torch.ops import flash_attention, ring_attention, ulysses_attention
 from ray_tpu_torch.ops.attention import mha_reference
-from ray_tpu_torch.parallel import MeshConfig, build_mesh
+from ray_tpu_torch.parallel import MeshConfig, build_mesh, collectives
+from ray_tpu_torch.serve import LLMEngine
 from ray_tpu_torch.parallel.pipeline import (
     build_pipeline_mesh, make_pipeline_loss, make_pipeline_train_step, pipeline_shardings)
 
@@ -199,3 +202,59 @@ def test_pipeline_optimizers_match_optax(name):
             assert p.grad is None
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[n]), rtol=1e-5,
                                        atol=1e-7)
+
+
+# --- expert parallelism, tensor-parallel serving, the autograd all_gather ---
+
+MOE_CFG = dataclasses.replace(configs.TINY_MOE, compute_dtype=torch.float32)
+
+
+def test_moe_mesh_step_at_ep_one_equals_plain(world):
+    """TINY_MOE's mesh step on an (fsdp 1, ep 1) mesh, tests/test_moe.py's
+    optimizer: the plain step's losses within 1e-6 over three steps."""
+    opt = default_optimizer(1e-2, warmup=1, total_steps=20)
+    init_plain, step_plain = make_train_step(MOE_CFG, device="cpu", optimizer=opt)
+    plain = init_plain(torch.Generator().manual_seed(0))
+    mesh = build_mesh(MeshConfig(fsdp=-1, ep=1), device_type="cpu")
+    init_mesh, step_mesh = make_train_step(MOE_CFG, mesh, optimizer=opt)
+    state = init_mesh(params=plain.params)
+    assert tuple(state.params["blocks"]["w_gate"].shape) == (2, 4, 64, 128)
+    for s in range(3):
+        tokens = _tokens(s, t=17)
+        plain, want = step_plain(plain, {"tokens": tokens})
+        state, got = step_mesh(state, {"tokens": tokens})
+        assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=1e-6)
+
+
+@pytest.mark.parametrize("cfg", [CFG, MOE_CFG], ids=["tiny", "tiny_moe"])
+def test_tp_engine_at_world_one_is_the_meshless_engine(cfg, world):
+    """`LLMEngine(mesh=...)` over a tp mesh of one rank gives the meshless
+    engine's tokens bit for bit (greedy and sampled, a prefix hit and
+    speculation included)."""
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    mesh = build_mesh(MeshConfig(fsdp=1, tp=1), device_type="cpu")
+    kw = dict(num_slots=2, max_len=64, prefill_buckets=(16,), prefix_cache_size=2,
+              speculation_k=4)
+    prompts = [([1, 2, 3, 1, 2, 3, 1, 2], 0.0), ([1, 2, 3, 1, 2, 3, 1, 2], 0.0),
+               ([7, 9, 11], 0.8)]
+    outs = []
+    for mesh_kw in ({"device": "cpu"}, {"mesh": mesh}):
+        eng = LLMEngine(cfg, params, **kw, **mesh_kw)
+        try:
+            outs.append([eng.generate(p, max_tokens=8, temperature=t) for p, t in prompts])
+        finally:
+            eng.shutdown()
+        assert eng.stats["prefix_hits"] == 1
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_all_gather_backward_at_world_one(dim, world):
+    """The autograd all_gather over a one-rank axis, fp64: the forward is
+    its input, and gradcheck holds the backward to a finite difference."""
+    mesh = build_mesh(MeshConfig(fsdp=1, tp=1), device_type="cpu")
+    x = torch.randn(3, 4, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(3, 4, dtype=torch.float64)
+    assert torch.equal(collectives.all_gather(x, "tp", mesh=mesh, dim=dim), x)
+    assert torch.autograd.gradcheck(
+        lambda t: (collectives.all_gather(t, "tp", mesh=mesh, dim=dim) * w).sum(), (x,))

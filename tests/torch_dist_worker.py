@@ -15,7 +15,7 @@ import torch
 from torch.distributed.tensor import distribute_tensor
 
 from ray_tpu_torch.data import torch_feed
-from ray_tpu_torch.models import configs
+from ray_tpu_torch.models import configs, decoding
 from ray_tpu_torch.models.jax_bridge import params_from_jax, params_to_numpy
 from ray_tpu_torch.models.transformer import forward, param_logical_axes
 from ray_tpu_torch.models.training import (
@@ -23,9 +23,12 @@ from ray_tpu_torch.models.training import (
 from ray_tpu_torch.ops import ring_attention, ulysses_attention
 from ray_tpu_torch.parallel import collectives, pipeline, sharding
 from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh, local_batch_rows
+from ray_tpu_torch.serve.llm import LLMEngine, dryrun_tp_serving
 from ray_tpu_torch.train import TorchBackend
 
 TCFG = dataclasses.replace(configs.TINY, compute_dtype=torch.float32)
+CFGS = {"tiny": TCFG,
+        "tiny_moe": dataclasses.replace(configs.TINY_MOE, compute_dtype=torch.float32)}
 RULES = {"default": sharding.DEFAULT_RULES, "ddp": sharding.DDP_RULES,
          "tp": sharding.TP_RULES}
 _meshes: dict = {}
@@ -56,16 +59,28 @@ def _optimizer(opt: dict):
                              total_steps=opt["total_steps"])
 
 
-def train(sizes, rules, start, batches, opt, feed=False, sp_attention="ring"):
+def train(sizes, rules, start, batches, opt, feed=False, sp_attention="ring",
+          cfg_name="tiny"):
     """`len(batches)` steps from the JAX-drawn `start` params on global
     batches; with `feed`, the batches come through `torch_feed` as
-    DTensors. Returns the metrics, the final params (whole), each leaf's
-    local shape, and the rows fed to this rank."""
+    DTensors. Returns the metrics, the final params (whole), the rows fed
+    to this rank, the local shape of w_gate and, with MoE, the auxiliary
+    losses of `forward` on the first batch before the steps."""
     mesh = mesh_for(sizes)
-    cfg = dataclasses.replace(TCFG, sp_attention=sp_attention)
+    cfg = dataclasses.replace(CFGS[cfg_name], sp_attention=sp_attention)
     init_fn, step_fn = make_train_step(cfg, mesh, rules=RULES[rules],
                                        optimizer=_optimizer(opt))
     state = init_fn(params=params_from_jax(start, cfg, mesh=mesh, rules=RULES[rules]))
+    aux = {}
+    if cfg.n_experts:
+        rows = local_batch_rows(mesh, batches[0].shape[0], ("dp", "fsdp"))
+        tokens = batches[0][rows, :-1]
+        if sizes.get("sp", 1) > 1:
+            tokens = _columns(tokens, mesh)
+        with torch.no_grad():
+            forward(state.params, torch.from_numpy(tokens), cfg, mesh=mesh,
+                    rules=RULES[rules], seq_shards=sizes.get("sp", 1), return_aux=aux)
+    w_gate = tuple(sharding.local_tensor(state.params["blocks"]["w_gate"]).shape)
     source = ({"tokens": b} for b in batches)
     fed_rows, metrics = [], []
     with torch_feed(source, device="cpu", mesh=mesh if feed else None) as stream:
@@ -77,7 +92,8 @@ def train(sizes, rules, start, batches, opt, feed=False, sp_attention="ring"):
             metrics.append({"loss": float(m["loss"]),
                             "grad_norm": float(m["grad_norm"])})
     return {"metrics": metrics, "params": params_to_numpy(state.params),
-            "fed_rows": fed_rows}
+            "fed_rows": fed_rows, "w_gate": w_gate,
+            "aux": {k: float(v) for k, v in aux.items()}}
 
 
 def shapes(sizes, rules):
@@ -233,7 +249,8 @@ def collective_grads(sizes, axis, x, w):
            "ppermute_ring_back": lambda t: collectives.ppermute_ring(
                t, axis, mesh=mesh, shift=-1),
            "all_to_all": lambda t: collectives.all_to_all(
-               t, axis, mesh=mesh, split_dim=0, concat_dim=1)}
+               t, axis, mesh=mesh, split_dim=0, concat_dim=1),
+           "all_gather": lambda t: collectives.all_gather(t, axis, mesh=mesh)}
     out = {}
     for name, op in ops.items():
         local = torch.from_numpy(part(x)).requires_grad_()
@@ -243,27 +260,80 @@ def collective_grads(sizes, axis, x, w):
 
 
 def errors():
-    """What make_train_step raises for layouts the port does not run yet."""
+    """What make_train_step builds or raises for layouts at the edge of what
+    runs: a dense model on an ep mesh and MoE under a data split run; heads
+    or experts that tp or ep does not divide raise ValueError, and MoE in
+    the pipeline NotImplementedError, as in JAX."""
     out = {}
     cases = {"ep": (TCFG, {"fsdp": 2, "ep": 2}),
              "moe": (configs.TINY_MOE, {"fsdp": 4}),
              "heads": (dataclasses.replace(TCFG, n_heads=3, n_kv_heads=3, d_model=96),
-                       {"fsdp": 1, "tp": 4})}
+                       {"fsdp": 1, "tp": 4}),
+             "experts": (dataclasses.replace(configs.TINY_MOE, n_experts=2),
+                         {"fsdp": 1, "ep": 4})}
     for name, (cfg, sizes) in cases.items():
         try:
-            make_train_step(cfg, mesh_for(sizes))
+            make_train_step(cfg, mesh_for(sizes), device="cpu")
             out[name] = "no error"
         except NotImplementedError as e:
             out[name] = "NotImplementedError: " + str(e).split("queue A, ")[-1]
         except ValueError:
             out[name] = "ValueError"
+    try:
+        pipeline.make_pipeline_loss(configs.TINY_MOE, pipeline_mesh_for(2, 1), 2)
+        out["pipeline_moe"] = "no error"
+    except NotImplementedError:
+        out["pipeline_moe"] = "NotImplementedError"
     return out
+
+
+def tp_serve(sizes, cfg_name, start, prompts, max_tokens, prefix_cache_size=0,
+             speculation_k=0, first=None):
+    """`LLMEngine(mesh=...)` from the JAX-drawn `start` params on this
+    rank's tp shard: each prompt's greedy tokens, one request at a time,
+    and the engine's stats. With `first` (a prompt), then `prefill`'s
+    logits of it through the engine's shards and a sharded cache, once the
+    engine has stopped (its loop thread issues the mesh's collectives
+    while it runs). A ValueError's text instead, if the engine raises."""
+    mesh = mesh_for(sizes)
+    cfg = CFGS[cfg_name]
+    try:
+        # The bridge lays the params out by TP_RULES: each rank keeps its shard.
+        params = params_from_jax(start, cfg, mesh=mesh, rules=sharding.TP_RULES)
+        eng = LLMEngine(cfg, params, mesh=mesh,
+                        num_slots=2, max_len=64, prefill_buckets=(16,),
+                        prefix_cache_size=prefix_cache_size, speculation_k=speculation_k)
+    except ValueError as e:
+        return {"error": str(e)}
+    try:
+        out = {"tokens": [eng.generate(p, max_tokens=max_tokens, timeout=60)
+                          for p in prompts]}
+    finally:
+        eng.shutdown()
+    out["stats"] = {k: eng.stats[k] for k in ("prefix_hits", "spec_proposed")}
+    out["wq"] = tuple(eng.params["blocks"]["wq"].shape)
+    if first is not None:
+        cache = decoding.init_cache(cfg, 1, 64, shardings=decoding.cache_shardings(mesh))
+        toks = torch.zeros((1, 16), dtype=torch.int32)
+        toks[0, :len(first)] = torch.tensor(first)
+        with torch.no_grad():
+            _, logits = decoding.prefill(eng.params, cache, toks, 0, len(first), cfg, mesh)
+        out["first_logits"] = logits.numpy()
+        out["cache_k"] = tuple(cache.k.shape)
+    return out
+
+
+def tp_dryrun(tp):
+    """`dryrun_tp_serving` of TINY over the first `tp` ranks."""
+    dryrun_tp_serving(configs.TINY, tp, device_type="cpu", timeout=60)
+    return "ran"
 
 
 CASES = {"train": train, "errors": errors, "shapes": shapes, "adafactor": adafactor,
          "collectives": collective_ops, "cp_attention": cp_attention,
          "sp_forward": sp_forward, "pipeline": pipeline_run,
-         "pipeline_errors": pipeline_errors, "collective_grads": collective_grads}
+         "pipeline_errors": pipeline_errors, "collective_grads": collective_grads,
+         "tp_serve": tp_serve, "tp_dryrun": tp_dryrun}
 
 
 def main(rank: int, world: int, port: int, inbox, outbox) -> None:
