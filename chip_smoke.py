@@ -137,15 +137,33 @@ Run from a checkout of the repository on a machine with a Hopper card
    step, step and host enqueue ms, tokens/s, active MFU, peak memory; (d)
    fp32, card against CPU: TINY_MOE (widened to head dim 64) through the
    mesh path at ep 1 (loss 1e-5, grads 1e-4) and the tp-1 LLMEngine
-   (tokens equal), and `dryrun_tp_serving` at tp 1.
+   (tokens equal), and `dryrun_tp_serving` at tp 1;
+15. the HF import: (a) TINY at fp32 (head_dim 16, which `flash_attention`
+   zero-pads to 64) through the kernels on the card against the plain
+   versions on the CPU: logits and loss within 1e-5, grads within 1e-4,
+   2L / L / L launches; (b) an HF-layout Llama state dict at llama3-8b's
+   widths, imported by `models.hf_convert.from_hf`: (i) 2 layers at fp32
+   drawn on the card, `forward`'s logits within HF_REF_TOL of an
+   independent HF-layout forward (`hf_llama_logits`), fa_fwd launched
+   once a layer; (ii) 32 layers at bf16 held in host memory, as a
+   checkpoint read from disk arrives (import seconds, peak memory),
+   `LLMEngine` answering 4 requests of 16 greedy tokens, held to
+   `forward` as in phase 6 and its first-token logits within
+   HF_SERVE_LOGITS_TOL;
+16. RLlib on the card at the JAX package's defaults: PPO on CartPole for
+   10 iterations (env steps/s, ms a learner update), IMPALA, APPO and DQN
+   updates, SAC on Pendulum for 3 iterations, CQLLearner updates, and one
+   PPO update at fp32 card against CPU within RL_CARD_CPU_TOL.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
 phase 4's steps, of phase 11a's as `launches_mixtral_8x7b_train`, of
 phase 12b's as `launches_bench_1b4_mesh_train`, of phase 13a's pipeline
 steps as `launches_bench_350m_pipeline_train`, of 13b's Ulysses call
-as `launches_ulysses` and of 14a's mesh steps as
-`launches_mixtral_8x7b_mesh_train`), and {"ok": true, "device": {...}}.
+as `launches_ulysses`, of 14a's mesh steps as
+`launches_mixtral_8x7b_mesh_train`, of 15b(i)'s forward as
+`launches_hf_llama3_8b_forward` and of 15a's TINY as
+`launches_tiny_padded`), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -177,7 +195,9 @@ BF16_SHAPES = [("bench-350m", 8, 2048, 2048, 16, 64),
                ("odd-unequal-d64", 1, 257, 300, 4, 64),
                ("odd-unequal-d128", 1, 257, 300, 4, 128)]
 FP32_SHAPES = [("fp32-d64", 1, 300, 300, 4, 64),
-               ("fp32-d128", 1, 200, 200, 2, 128)]
+               ("fp32-d128", 1, 200, 200, 2, 128),
+               # Phase 15a's TINY: head dim 16, zero-padded to 64.
+               ("tiny-padded", 2, 96, 96, 4, 64)]
 # The bf16 wgmma kernels: (kernel, its code for rtt_flash_wgmma_smem).
 # Each block is 384 threads at __launch_bounds__ (384, 1), so ptxas must
 # start it at 65536 / 384 -> 168 registers: the producer warpgroup's
@@ -2280,6 +2300,372 @@ def expert_mesh_phase(torch, models, attention, steps: int, seed: int, card: str
             "reference": check_expert_tp_reference(torch, models, card)}
 
 
+# Phase 15a: TINY's head_dim (16), zero-padded to 64 by `flash_attention`,
+# through the fp32 kernels on the card: logits and loss within 1e-5 and
+# grads within 1e-4 (of each tensor's max) of the plain versions' on the
+# CPU, as phase 3 holds the unpadded models.
+TINY_PADDED_TOL = (1e-5, 1e-4)
+# Phase 15b(i): the port's fp32 logits on the imported weights against an
+# independent HF-layout forward, max |diff| relative to max |logit|.
+HF_REF_TOL = 1e-3
+# Phase 15b(ii): the engine's first-token logits (its prefill's, kept in
+# its prefix cache) against forward's at the same position, max |diff| in
+# units of the logits' std: phase 6's SERVE_LOGITS_TOL, whose logits have
+# unit spread. A fault of the imported weights' serving (a wrong layer,
+# head or position) moves the logits by the order of their spread.
+HF_SERVE_LOGITS_TOL = 0.25
+# Phase 16: a PPO update on the card against the same update on the CPU,
+# from the same weights, batch and permutations: params and metrics within
+# atol + rtol * |CPU's| (as the CPU tests hold the port to JAX).
+RL_CARD_CPU_TOL = (1e-5, 1e-5)
+
+
+def tiny_padded(torch, models, attention, card: str) -> dict:
+    """Phase 15a: TINY at fp32 (head_dim 16) through `flash_attention` on
+    the card, which pads the head dim to 64 and launches the kernels, and
+    on the CPU, which runs their plain versions: forward logits, loss and
+    grads; 2L / L / L launches on the card."""
+    import dataclasses
+    import numpy as np
+
+    cfg = dataclasses.replace(models.configs.TINY, compute_dtype=torch.float32)
+    params = models.init_params(cfg, torch.Generator().manual_seed(15), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (2, 97), dtype=np.int32))
+    attention.reset_launches()
+    with torch.no_grad():
+        logits_gpu = models.forward(_tree_to(params, "cuda"), tokens[:, :-1].cuda(), cfg).cpu()
+    l_gpu, g_gpu = reference_grads(torch, models, cfg, params, tokens, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(attention.launches)
+    with torch.no_grad():
+        logits_cpu = models.forward(params, tokens[:, :-1], cfg)
+    l_cpu, g_cpu = reference_grads(torch, models, cfg, params, tokens, "cpu")
+    logit_diff = float((logits_gpu - logits_cpu).abs().max())
+    worst = worst_grad_diff(g_gpu, g_cpu)
+    padded = attention.padded_head_dim(cfg.head_dim)
+    log(f"15a [{card}]: TINY (head_dim {cfg.head_dim}, padded to {padded}) fp32, kernels "
+        f"on the card vs plain on the CPU: logits max diff {logit_diff:.3g}, loss "
+        f"{l_gpu:.6f} vs {l_cpu:.6f}, worst grad diff {worst:.3g} of its tensor's max; "
+        f"launches {launches}")
+    n = cfg.n_layers
+    if launches != {"fa_fwd": 2 * n, "fa_bwd_dq": n, "fa_bwd_dkv": n}:
+        raise AssertionError(f"15a: TINY's forward and grads launched {launches}")
+    out_tol, grad_tol = TINY_PADDED_TOL
+    if (logit_diff > out_tol or not math.isclose(l_gpu, l_cpu, rel_tol=out_tol)
+            or worst > grad_tol):
+        raise AssertionError("15a: TINY's card results part from the CPU's")
+    return {"head_dim": cfg.head_dim, "padded_head_dim": padded,
+            "logits_max_diff": logit_diff, "loss_card": l_gpu, "loss_cpu": l_cpu,
+            "worst_grad_diff": worst, "launches": launches}
+
+
+def hf_llama_config(models, n_layers: int):
+    """An HF Llama config at `configs.LLAMA3_8B`'s widths with plain RoPE,
+    as a plain attribute object (the card's machine has no transformers)."""
+    import types
+
+    c = models.configs.LLAMA3_8B
+    return types.SimpleNamespace(
+        model_type="llama", vocab_size=c.vocab_size, hidden_size=c.d_model,
+        num_hidden_layers=n_layers, num_attention_heads=c.n_heads,
+        num_key_value_heads=c.n_kv_heads, intermediate_size=c.d_ff,
+        max_position_embeddings=c.max_seq_len, rope_theta=c.rope_theta,
+        rms_norm_eps=c.norm_eps, hidden_act="silu", tie_word_embeddings=False,
+        rope_scaling=None, attention_bias=False, mlp_bias=False)
+
+
+def hf_state_dict(torch, hf, dtype, seed: int, device: str = "cuda") -> dict:
+    """An HF-layout Llama state dict drawn on the card from `seed` and kept
+    on `device` ("cpu": each tensor is copied to pageable host memory as
+    it is drawn): Linear weights [out, in] and embeddings N(0, 0.02^2)
+    (HF's initializer range), norm weights 1 + N(0, 0.1^2)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, hd = hf.hidden_size, hf.hidden_size // hf.num_attention_heads
+    kv, f, v = hf.num_key_value_heads * hd, hf.intermediate_size, hf.vocab_size
+
+    def w(*shape, std=0.02, mean=0.0):
+        t = torch.randn(shape, generator=gen, device="cuda", dtype=dtype) * std + mean
+        return t.to(device)
+
+    sd = {"model.embed_tokens.weight": w(v, d), "model.norm.weight": w(d, std=0.1, mean=1.0),
+          "lm_head.weight": w(v, d)}
+    for i in range(hf.num_hidden_layers):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": w(d, std=0.1, mean=1.0),
+                   p + "self_attn.q_proj.weight": w(d, d),
+                   p + "self_attn.k_proj.weight": w(kv, d),
+                   p + "self_attn.v_proj.weight": w(kv, d),
+                   p + "self_attn.o_proj.weight": w(d, d),
+                   p + "post_attention_layernorm.weight": w(d, std=0.1, mean=1.0),
+                   p + "mlp.gate_proj.weight": w(f, d),
+                   p + "mlp.up_proj.weight": w(f, d),
+                   p + "mlp.down_proj.weight": w(d, f)})
+    return sd
+
+
+def hf_llama_logits(torch, sd: dict, hf, tokens):
+    """An independent Llama forward on the HF layout: y = x @ W.T with W
+    [out, in], RMSNorm w * x / rms(x), rotate-half RoPE from inv_freq =
+    theta^(-2i/hd), kv heads repeated for GQA, causal softmax attention,
+    SiLU-gated MLP, untied head. Computes in the state dict's dtype."""
+    F = torch.nn.functional
+    b, t = tokens.shape
+    d, h, kvh = hf.hidden_size, hf.num_attention_heads, hf.num_key_value_heads
+    hd = d // h
+    inv_freq = 1.0 / (hf.rope_theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32, device="cuda") / hd))
+    ang = torch.arange(t, dtype=torch.float32, device="cuda")[:, None] * inv_freq[None]
+    cos, sin = torch.cat([ang, ang], -1).cos(), torch.cat([ang, ang], -1).sin()
+
+    def rms(x, w):
+        return w * (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + hf.rms_norm_eps))
+
+    def rope(x):
+        x1, x2 = x[..., :hd // 2], x[..., hd // 2:]
+        return x * cos + torch.cat([-x2, x1], -1) * sin
+
+    mask = torch.ones(t, t, dtype=torch.bool, device="cuda").tril()
+    x = sd["model.embed_tokens.weight"][tokens]
+    for i in range(hf.num_hidden_layers):
+        p = f"model.layers.{i}."
+        y = rms(x, sd[p + "input_layernorm.weight"])
+        q = (y @ sd[p + "self_attn.q_proj.weight"].T).view(b, t, h, hd).transpose(1, 2)
+        k = (y @ sd[p + "self_attn.k_proj.weight"].T).view(b, t, kvh, hd).transpose(1, 2)
+        v = (y @ sd[p + "self_attn.v_proj.weight"].T).view(b, t, kvh, hd).transpose(1, 2)
+        q, k = rope(q), rope(k)
+        k, v = k.repeat_interleave(h // kvh, 1), v.repeat_interleave(h // kvh, 1)
+        s = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
+        o = torch.softmax(s.masked_fill(~mask, float("-inf")), -1) @ v
+        x = x + o.transpose(1, 2).reshape(b, t, d) @ sd[p + "self_attn.o_proj.weight"].T
+        y = rms(x, sd[p + "post_attention_layernorm.weight"])
+        x = x + (F.silu(y @ sd[p + "mlp.gate_proj.weight"].T)
+                 * (y @ sd[p + "mlp.up_proj.weight"].T)) @ sd[p + "mlp.down_proj.weight"].T
+    return rms(x, sd["model.norm.weight"]) @ sd["lm_head.weight"].T
+
+
+def hf_import_reference(torch, models, attention, seed: int, card: str) -> dict:
+    """Phase 15b(i): a 2-layer fp32 HF Llama at llama3-8b's widths,
+    imported by `from_hf`: `forward`'s logits against `hf_llama_logits`
+    within HF_REF_TOL; the forward's launches are this path's."""
+    import dataclasses
+    import numpy as np
+
+    from ray_tpu_torch.models.hf_convert import from_hf
+
+    hf = hf_llama_config(models, 2)
+    sd = hf_state_dict(torch, hf, torch.float32, seed + 150)
+    cfg, params = from_hf((hf, sd), name="hf-llama3-8b-2l")
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32, remat=False)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 150).integers(
+        0, hf.vocab_size, (2, 256))).cuda()
+    with torch.no_grad():
+        want = hf_llama_logits(torch, sd, hf, tokens)
+        attention.reset_launches()
+        got = models.forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        launches = dict(attention.launches)
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"15b(i) [{card}]: HF import at llama3-8b widths, 2 layers fp32: forward vs "
+        f"the HF-layout reference, max |diff| {rel:.3g} of max |logit| "
+        f"{float(want.abs().max()):.4f}; launches {launches}")
+    if rel > HF_REF_TOL:
+        raise AssertionError(f"15b(i): imported logits part from the HF layout's by {rel}")
+    if launches != {"fa_fwd": hf.num_hidden_layers, "fa_bwd_dq": 0, "fa_bwd_dkv": 0}:
+        raise AssertionError(f"15b(i): the forward launched {launches}")
+    return {"n_layers": 2, "tokens": list(tokens.shape), "rel_max_diff": rel,
+            "launches": launches}
+
+
+def hf_import_serve(torch, models, attention, seed: int, card: str) -> dict:
+    """Phase 15b(ii): a 32-layer bf16 HF Llama at llama3-8b's widths in
+    host memory, imported onto the card by `from_hf` (seconds and peak
+    memory), then `LLMEngine` answers 4 requests of 16 greedy tokens, held
+    to the teacher-forced `forward` as in phase 6, with each request's
+    first-token logits within HF_SERVE_LOGITS_TOL of forward's."""
+    import numpy as np
+
+    from ray_tpu_torch.models.hf_convert import from_hf
+    from ray_tpu_torch.serve import LLMEngine
+
+    hf = hf_llama_config(models, 32)
+    torch.cuda.empty_cache()
+    sd = hf_state_dict(torch, hf, torch.bfloat16, seed + 151, device="cpu")
+    sd_gib = sum(t.numel() * t.element_size() for t in sd.values()) / 2**30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = from_hf((hf, sd), name="hf-llama3-8b", param_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    peak_import = torch.cuda.max_memory_allocated() / 2**30
+    del sd
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 151)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (17, 60, 100, 128)]
+    engine = LLMEngine(cfg, params, num_slots=4, max_len=256, prefill_buckets=(64, 128),
+                       prefix_cache_size=len(prompts), seed=seed)
+    try:
+        attention.reset_launches()
+        results, run_s = run_streams(engine, prompts, 16)
+        launches = dict(attention.launches)
+    finally:
+        engine.shutdown()
+    if any(launches.values()):
+        raise AssertionError(f"15b(ii): the serving path launched {launches}")
+    firsts = []
+
+    def first_token(i, p, logits):
+        # The engine's prefill logits, kept in its prefix cache.
+        stored = engine._prefix_cache[tuple(p)]["logits"].reshape(-1).float()
+        first = logits[len(p) - 1].float()
+        firsts.append((float((stored - first).abs().max()), float(first.std())))
+
+    agreement = forward_agreement(torch, models, engine.params, cfg, prompts,
+                                  [r[0] for r in results], card, on_logits=first_token)
+    del engine
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+    worst_first = max(diff / std for diff, std in firsts)
+    log(f"15b(ii) [{card}]: 32-layer bf16 import of {sd_gib:.2f} GiB from host memory in "
+        f"{import_s:.2f} s ({sd_gib / import_s:.2f} GiB/s; peak {peak_import:.2f} GiB on "
+        f"the card), LLMEngine answered {len(prompts)} requests of 16 greedy tokens in "
+        f"{run_s:.2f} s; first-token logits vs forward (max |diff|, std) {firsts}, worst "
+        f"{worst_first:.3f} std (at most {HF_SERVE_LOGITS_TOL}); peak {peak:.2f} GiB")
+    if worst_first > HF_SERVE_LOGITS_TOL:
+        raise AssertionError(f"15b(ii): first-token logits part from forward's: {firsts}")
+    return {"n_layers": 32, "checkpoint_gib": sd_gib, "import_s": import_s,
+            "peak_import_gib": peak_import, "requests": len(prompts), "new_tokens": 16,
+            "run_s": run_s, "ttft_ms": [r[1] for r in results], "peak_gib": peak,
+            "first_token_logits": [{"max_abs_diff": d_, "std": s_} for d_, s_ in firsts],
+            "teacher_forced": agreement}
+
+
+def _timed(torch, fn, log_to: list):
+    """`fn`, appending the ms of each call (synchronized) to `log_to`."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log_to.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def rllib_phase(torch, seed: int, card: str) -> dict:
+    """Phase 16: RLlib on the card at the JAX package's defaults (hidden
+    (64, 64), 8 envs x 128 steps, PPO minibatch 256 x 4 epochs): PPO on
+    CartPole for 10 iterations; two updates each of IMPALA and APPO on a
+    CartPole batch and of DQN on prioritized samples of it; SAC on Pendulum
+    for 3 iterations; two CQLLearner updates on a seeded batch; then one
+    PPO update at fp32 on the card against the CPU's from the same
+    weights, batch and permutations (within RL_CARD_CPU_TOL)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import appo, cql, dqn, impala, ppo, sac
+
+    out = {}
+    algo = ppo.PPOConfig().environment("CartPole-v1").debugging(seed=seed).build()
+    update_ms, returns = [], []
+    algo.learner.update = _timed(torch, algo.learner.update, update_ms)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        returns.append(algo.train().get("episode_return_mean"))
+    wall = time.perf_counter() - t0
+    steps = 10 * 8 * 128
+    out["ppo_cartpole"] = {"iterations": 10, "env_steps": steps,
+                           "env_steps_per_s": steps / wall, "update_ms": update_ms,
+                           "episode_return_mean": returns}
+    batch = algo.workers[0].sample(128)["batch"]
+    algo.stop()
+
+    rng = np.random.default_rng(seed)
+    for name, learner in (
+            ("impala", impala.ImpalaLearner(4, 2, impala.ImpalaHyperparams(), seed=seed)),
+            ("appo", appo.AppoLearner(4, 2, appo.AppoHyperparams(), seed=seed))):
+        ms = []
+        for _ in range(2):
+            metrics = _timed(torch, learner.update, ms)(batch)
+        out[name] = {"update_ms": ms, "metrics": metrics}
+    buf = dqn.PrioritizedReplayBuffer(4096, seed=seed)
+    buf.add_batch({"obs": batch["obs"][:, :-1].reshape(-1, 4),
+                   "actions": batch["actions"][:, :-1].reshape(-1),
+                   "rewards": batch["rewards"][:, :-1].reshape(-1),
+                   "next_obs": batch["obs"][:, 1:].reshape(-1, 4),
+                   "terminals": batch["dones"][:, :-1].reshape(-1)})
+    learner, ms = dqn.DQNLearner(4, 2, dqn.DQNHyperparams(), seed=seed), []
+    for _ in range(2):
+        sample = buf.sample(64)
+        loss, td = _timed(torch, learner.update, ms)(sample)
+        buf.update_priorities(sample["batch_indexes"], td)
+    out["dqn"] = {"update_ms": ms, "loss": loss}
+
+    algo = (sac.SACConfig().environment("Pendulum-v1").training(learning_starts=1024)
+            .debugging(seed=seed).build())
+    ms, sac_returns = [], []
+    algo.learner.update = _timed(torch, algo.learner.update, ms)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sac_returns.append(algo.train().get("episode_return_mean"))
+    out["sac_pendulum"] = {"iterations": 3, "updates": len(ms),
+                           "update_ms_median": statistics.median(ms),
+                           "wall_s": time.perf_counter() - t0,
+                           "episode_return_mean": sac_returns}
+    algo.stop()
+
+    learner = cql.CQLLearner(3, 1, sac.SACHyperparams(act_limit=2.0), seed=seed)
+    b = {"obs": rng.normal(size=(256, 3)).astype(np.float32),
+         "actions": rng.uniform(-2, 2, (256, 1)).astype(np.float32),
+         "rewards": rng.normal(size=256).astype(np.float32),
+         "next_obs": rng.normal(size=(256, 3)).astype(np.float32),
+         "terminals": np.zeros(256, np.float32)}
+    ms = []
+    for _ in range(2):
+        metrics = _timed(torch, learner.update, ms)(b)
+    out["cql"] = {"update_ms": ms, "metrics": metrics}
+
+    on = {d: ppo.PPOLearner(4, 2, ppo.PPOHyperparams(), seed=seed, device=d)
+          for d in ("cuda", "cpu")}
+    on["cuda"].set_weights(on["cpu"].get_weights())
+    noise = on["cpu"].draw_noise(batch)
+    got = {d: learner.update(batch, noise) for d, learner in on.items()}
+    w = {d: learner.get_weights() for d, learner in on.items()}
+    worst = max(float(np.max(np.abs(w["cuda"][k] - w["cpu"][k]))) for k in w["cpu"])
+    metric_diff = max(abs(got["cuda"][k] - got["cpu"][k]) for k in got["cpu"])
+    atol, rtol = RL_CARD_CPU_TOL
+    share = max([float(np.max(np.abs(w["cuda"][k] - w["cpu"][k])
+                              / (atol + rtol * np.abs(w["cpu"][k])))) for k in w["cpu"]]
+                + [abs(got["cuda"][k] - got["cpu"][k]) / (atol + rtol * abs(got["cpu"][k]))
+                   for k in got["cpu"]])
+    out["ppo_card_vs_cpu"] = {"params_max_diff": worst, "metrics_max_diff": metric_diff,
+                              "tolerance_share": share}
+    log(f"16 [{card}]: PPO CartPole 10 iterations: {steps / wall:.0f} env steps/s, "
+        f"update {statistics.median(update_ms):.2f} ms median, returns {returns}; "
+        f"IMPALA {out['impala']['update_ms'][-1]:.2f} ms, APPO "
+        f"{out['appo']['update_ms'][-1]:.2f} ms, DQN {out['dqn']['update_ms'][-1]:.2f} ms, "
+        f"SAC {out['sac_pendulum']['update_ms_median']:.2f} ms median over "
+        f"{out['sac_pendulum']['updates']} updates (returns {sac_returns}), CQL "
+        f"{out['cql']['update_ms'][-1]:.2f} ms an update; PPO card vs CPU: params "
+        f"{worst:.3g}, metrics {metric_diff:.3g}, {share:.3g} of the tolerance")
+    finite = [*out["impala"]["metrics"].values(), *out["appo"]["metrics"].values(),
+              *out["cql"]["metrics"].values(), out["dqn"]["loss"]]
+    if not all(math.isfinite(v) for v in finite) or not out["sac_pendulum"]["updates"]:
+        raise AssertionError(f"16: non-finite learner metrics or no SAC update: {out}")
+    if share > 1.0:
+        raise AssertionError(f"16: the PPO update parts card vs CPU: {worst}, {metric_diff}")
+    return out
+
+
+def import_and_rllib_phase(torch, models, attention, seed: int, card: str) -> dict:
+    """Phases 15 and 16."""
+    return {"tiny_padded": tiny_padded(torch, models, attention, card),
+            "hf_reference": hf_import_reference(torch, models, attention, seed, card),
+            "hf_serve": hf_import_serve(torch, models, attention, seed, card),
+            "rllib": rllib_phase(torch, seed, card)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -2344,6 +2730,8 @@ def main() -> int:
     log("pipeline and context parallel: " + json.dumps(piped))
     experts = expert_mesh_phase(torch, models, attention, args.steps, args.seed, card)
     log("14a/d expert parallelism: " + json.dumps(experts))
+    late = import_and_rllib_phase(torch, models, attention, args.seed, card)
+    log("15-16 HF import and RLlib: " + json.dumps(late))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -2363,6 +2751,11 @@ def main() -> int:
             # This slice's main path: phase 14a's mixtral-8x7b mesh steps.
             "launches_mixtral_8x7b_mesh_train":
                 experts["mixtral_8x7b_mesh"]["launches"][name],
+            # This slice's paths: 15b(i)'s forward on the imported llama3-8b
+            # widths (D 128), and 15a's TINY (D 16, padded to 64).
+            "launches_hf_llama3_8b_forward":
+                late["hf_reference"]["launches"][name],
+            "launches_tiny_padded": late["tiny_padded"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

@@ -14,6 +14,11 @@ in `launches`; for CPU tensors it runs the kernel's plain version
 check against JAX and which the kernels are held against on the card.
 Anything else raises: there is no fallback from a CUDA tensor.
 
+`flash_attention` zero-pads a head dim below one of `HEAD_DIMS` up to it
+(`padded_head_dim`), so that a small model (TINY's head dim is 16) runs
+the kernels too; a head dim above 128, another dtype than bf16 or fp32,
+or mixed dtypes raise on the card.
+
 Layout is (B, T, H, D) as in the JAX package; lse and delta are plain
 (B, H, T) fp32 arrays. There is no GQA inside: callers repeat kv heads
 first.
@@ -249,6 +254,12 @@ def fa_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, sm_scale: float):
     return dk, dv
 
 
+def padded_head_dim(d: int) -> int:
+    """The least of HEAD_DIMS that holds head dim `d`; `d` itself when
+    none does (the kernels then refuse it)."""
+    return next((h for h in HEAD_DIMS if h >= d), d)
+
+
 class _FlashAttention(torch.autograd.Function):
     """O = flash attention; the backward runs the dq and dk/dv kernels."""
 
@@ -276,8 +287,17 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
     """Fused attention. q, k, v: (B, T, H, D) -> (B, T, H, D).
 
     CUDA tensors run the kernels; CPU tensors run their plain versions.
-    GQA/MQA: callers repeat kv heads before the call.
+    A head dim below one of HEAD_DIMS is zero-padded up to it: the zero
+    columns add nothing to q.k, so the scores, lse and delta are those of
+    the unpadded inputs, the output's and grads' padded columns are zero,
+    and the result is sliced back. GQA/MQA: callers repeat kv heads
+    before the call.
     """
+    d = q.shape[-1]
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashAttention.apply(q, k, v, causal, sm_scale)
+        sm_scale = 1.0 / math.sqrt(d)
+    pad = padded_head_dim(d) - d
+    if not pad:
+        return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, sm_scale)[..., :d].contiguous()

@@ -140,6 +140,38 @@ def test_no_fallback_off_the_cpu():
         attention.fa_fwd(q, meta[1], v, causal=True, sm_scale=1.0)
 
 
+@pytest.mark.parametrize("d,padded", [
+    (16, 64), (32, 64), (64, 64), (80, 128), (96, 128), (128, 128), (256, 256)])
+def test_padded_head_dim(d, padded):
+    assert attention.padded_head_dim(d) == padded
+
+
+@pytest.mark.parametrize("d", [16, 80])
+def test_flash_attention_pads_head_dim_for_the_kernels(monkeypatch, d):
+    """A head dim below one of HEAD_DIMS reaches all three wrappers padded
+    with zeros to it, and the sliced result is JAX's attention at `d`."""
+    seen = []
+    for name in ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv"):
+        def run(q, *args, _fn=getattr(attention, name), _name=name, **kw):
+            seen.append((_name, q.shape[-1]))
+            return _fn(q, *args, **kw)
+        monkeypatch.setattr(attention, name, run)
+    q, k, v, g = _arrays(6, tq=48, h=2, d=d, n=4)
+    out_j, vjp = jax.vjp(lambda q_, k_, v_: jax_flash(q_, k_, v_, True, None),
+                         q, k, v)
+    grads_j = vjp(jnp.asarray(g))
+    qt, kt, vt = (x.requires_grad_() for x in _t(q, k, v))
+    out_t = attention.flash_attention(qt, kt, vt, True)
+    out_t.backward(torch.from_numpy(g))
+    padded = attention.padded_head_dim(d)
+    assert seen == [("fa_fwd", padded), ("fa_bwd_dq", padded), ("fa_bwd_dkv", padded)]
+    assert out_t.shape == q.shape and out_t.is_contiguous()
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), atol=ATOL_OUT)
+    for got, want in zip((qt.grad, kt.grad, vt.grad), grads_j):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL_GRAD)
+
+
 @pytest.mark.parametrize("dtype,d,contiguous,match", [
     (torch.float16, 64, True, "bf16 or fp32"),
     (torch.bfloat16, 32, True, "head_dim"),

@@ -329,11 +329,45 @@ def tp_dryrun(tp):
     return "ran"
 
 
+def rl_learner_group(kind, start, batches, noises):
+    """A dp LearnerGroup over all ranks (the JAX test group's learner and
+    hyperparams), started from JAX's state, through `batches` with the
+    JAX updates' noise; returns each update's metrics and the state."""
+    from ray_tpu_torch.rllib import cql, dqn, impala, ppo, sac
+    from ray_tpu_torch.rllib.core import LearnerGroup
+
+    kw = dict(seed=0, device="cpu")
+    make = {
+        "ppo": lambda mesh=None: ppo.PPOLearner(
+            4, 2, ppo.PPOHyperparams(minibatch_size=32, num_epochs=2),
+            mesh=mesh, **kw),
+        "impala": lambda mesh=None: impala.ImpalaLearner(
+            4, 2, impala.ImpalaHyperparams(), mesh=mesh, **kw),
+        "dqn": lambda mesh=None: dqn.DQNLearner(
+            4, 2, dqn.DQNHyperparams(), mesh=mesh, **kw),
+        "sac": lambda mesh=None: sac.SACLearner(
+            3, 1, sac.SACHyperparams(act_limit=2.0), mesh=mesh, **kw),
+        "cql": lambda mesh=None: cql.CQLLearner(
+            3, 1, sac.SACHyperparams(act_limit=2.0), cql_n_actions=2,
+            mesh=mesh, **kw),
+    }[kind]
+    group = LearnerGroup(make, num_learners=torch.distributed.get_world_size(),
+                         device_type="cpu")
+    group.set_state(start)
+    metrics = []
+    for batch, noise in zip(batches, noises):
+        out = group.update(batch, noise)
+        metrics.append(out if isinstance(out, dict) else
+                       {"loss": out[0], "td": out[1]})
+    return {"metrics": metrics, "state": group.get_state()}
+
+
 CASES = {"train": train, "errors": errors, "shapes": shapes, "adafactor": adafactor,
          "collectives": collective_ops, "cp_attention": cp_attention,
          "sp_forward": sp_forward, "pipeline": pipeline_run,
          "pipeline_errors": pipeline_errors, "collective_grads": collective_grads,
-         "tp_serve": tp_serve, "tp_dryrun": tp_dryrun}
+         "tp_serve": tp_serve, "tp_dryrun": tp_dryrun,
+         "rl_learner_group": rl_learner_group}
 
 
 def main(rank: int, world: int, port: int, inbox, outbox) -> None:
