@@ -153,7 +153,18 @@ Run from a checkout of the repository on a machine with a Hopper card
 16. RLlib on the card at the JAX package's defaults: PPO on CartPole for
    10 iterations (env steps/s, ms a learner update), IMPALA, APPO and DQN
    updates, SAC on Pendulum for 3 iterations, CQLLearner updates, and one
-   PPO update at fp32 card against CPU within RL_CARD_CPU_TOL.
+   PPO update at fp32 card against CPU within RL_CARD_CPU_TOL;
+17. DreamerV3 and the offline learners on the card, at `DreamerV3Config`'s
+   defaults (8 envs x 64 steps, deter 256, 16x16 latents, 256 units, 41
+   bins, batches 16 x 16, horizon 15, 8 updates an iteration after 256 env
+   steps): (a) CartPole for 8 iterations and (b) Pendulum (dynamics
+   backprop) for 3: env steps/s, ms an update and ms a policy step
+   (medians), every metric finite; (c) one update at fp32 card against CPU
+   from the same state, batch and noise: every tree, Adam moment,
+   return_scale and metric within RL_CARD_CPU_TOL (on a draw whose every
+   sample is decided by more than DREAMER_TIE_GAP); (d) PPO's CartPole
+   rollouts recorded as JSON shards by `record_rollouts`, read back here,
+   and BCLearner and MARWILLearner updates timed on them.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -2314,10 +2325,23 @@ HF_REF_TOL = 1e-3
 # unit spread. A fault of the imported weights' serving (a wrong layer,
 # head or position) moves the logits by the order of their spread.
 HF_SERVE_LOGITS_TOL = 0.25
-# Phase 16: a PPO update on the card against the same update on the CPU,
-# from the same weights, batch and permutations: params and metrics within
-# atol + rtol * |CPU's| (as the CPU tests hold the port to JAX).
+# Phases 16 and 17: a PPO (16) or DreamerV3 (17c) update on the card
+# against the same update on the CPU, from the same weights, batch and
+# noise: params, optimizer moments and metrics within atol + rtol * |CPU's|
+# (as the CPU tests hold the port to JAX).
 RL_CARD_CPU_TOL = (1e-5, 1e-5)
+# Phase 17c: a DreamerV3 update makes ~70,000 categorical draws (argmax of
+# logits + Gumbel noise); where a draw's top two lie closer than the
+# devices' rounding, card and CPU pick different samples and the updates
+# part, which says nothing of the port. So the update held to
+# RL_CARD_CPU_TOL is the first of up to DREAMER_TIE_DRAWS draws of batch
+# and noise whose every sample the CPU decides by a top-2 gap above
+# DREAMER_TIE_GAP. At the defaults about 0.6 draws an update fall below
+# 1e-5 (0.8 per unit of gap near zero, measured on the CPU), so about one
+# update in two is taken; fp32 rounding moves the perturbed logits by
+# ~1e-6.
+DREAMER_TIE_GAP = 1e-5
+DREAMER_TIE_DRAWS = 8
 
 
 def tiny_padded(torch, models, attention, card: str) -> dict:
@@ -2658,6 +2682,171 @@ def rllib_phase(torch, seed: int, card: str) -> dict:
     return out
 
 
+def _finite(metrics) -> bool:
+    return all(math.isfinite(v) for m in metrics for v in m.values())
+
+
+def dreamer_runs(torch, dreamerv3, seed: int, card: str) -> tuple:
+    """Phase 17(a)-(b): DreamerV3 at its config's defaults on CartPole for
+    8 iterations and on Pendulum for 3; returns the readings and the
+    CartPole algorithm (its replay and trained state feed 17c)."""
+    out, algos = {}, {}
+    for name, env, iters in (("cartpole", "CartPole-v1", 8), ("pendulum", "Pendulum-v1", 3)):
+        algo = dreamerv3.DreamerV3Config().environment(env).debugging(seed=seed).build()
+        update_ms, step_ms, metrics = [], [], []
+        algo.learner.update = _timed(torch, algo.learner.update, update_ms)
+        algo._policy_step = _timed(torch, algo._policy_step, step_ms)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            metrics.append(algo.train())
+        wall = time.perf_counter() - t0
+        out[name] = {"iterations": iters, "env_steps": algo._env_steps,
+                     "env_steps_per_s": algo._env_steps / wall, "wall_s": wall,
+                     "updates": len(update_ms),
+                     "update_ms_median": statistics.median(update_ms),
+                     "policy_step_ms_median": statistics.median(step_ms),
+                     "episode_return_mean": [m.get("episode_return_mean") for m in metrics],
+                     "last": metrics[-1]}
+        if not update_ms or not _finite(metrics):
+            raise AssertionError(f"17 {name}: no update or non-finite metrics: {metrics}")
+        log(f"17 [{card}]: DreamerV3 {env} {iters} iterations: "
+            f"{out[name]['env_steps_per_s']:.0f} env steps/s, update "
+            f"{out[name]['update_ms_median']:.2f} ms median over {len(update_ms)}, policy "
+            f"step {out[name]['policy_step_ms_median']:.3f} ms median over {len(step_ms)}")
+        algos[name] = algo
+    return out, algos["cartpole"]
+
+
+def dreamer_card_vs_cpu(torch, dreamerv3, algo, card: str) -> dict:
+    """Phase 17(c): one DreamerV3 update at fp32 on the card against the CPU,
+    from 17a's trained state (its noise generator aside), on a batch of its
+    replay and the same noise (see DREAMER_TIE_GAP)."""
+    import numpy as np
+
+    start = {k: v for k, v in algo.learner.get_state().items() if k != "rng"}
+    hp, spec = algo.learner.hp, algo.act_spec
+    source = dreamerv3.DreamerV3Learner(algo.env.obs_dim, spec, hp, device="cpu")
+
+    def learner(device):
+        out = dreamerv3.DreamerV3Learner(algo.env.obs_dim, spec, hp, device=device)
+        out.set_state(start)
+        return out
+
+    categorical, skipped = dreamerv3._categorical, []
+    for _ in range(DREAMER_TIE_DRAWS):
+        batch = algo.replay.sample(hp.batch_size, hp.batch_length)
+        noise = source.draw_noise(batch)
+        gaps = []
+
+        def recorded(logits, gumbel):
+            top = (logits + gumbel).topk(2, -1).values
+            gaps.append(float((top[..., 0] - top[..., 1]).min().detach()))
+            return categorical(logits, gumbel)
+
+        cpu = learner("cpu")
+        dreamerv3._categorical = recorded
+        try:
+            got_cpu = cpu.update(batch, noise)
+        finally:
+            dreamerv3._categorical = categorical
+        if min(gaps) > DREAMER_TIE_GAP:
+            break
+        skipped.append(min(gaps))
+    else:
+        raise AssertionError(f"17c: every draw had a sample tie: {skipped}")
+    on_card = learner("cuda")
+    got_card = on_card.update(batch, noise)
+    atol, rtol = RL_CARD_CPU_TOL
+    share, worst = 0.0, {}
+
+    def hold(name, got, want):
+        nonlocal share
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        diff = np.abs(got - want)
+        worst[name] = max(worst.get(name, 0.0), float(diff.max()))
+        share = max(share, float((diff / (atol + rtol * np.abs(want))).max()))
+
+    card_state, cpu_state = on_card.get_state(), cpu.get_state()
+    for tree in ("wm_params", "actor_params", "critic_params", "slow_critic"):
+        for k, v in cpu_state[tree].items():
+            hold(tree, card_state[tree][k], v)
+    for opt in ("wm_opt", "actor_opt", "critic_opt"):
+        if card_state[opt]["count"] != cpu_state[opt]["count"]:
+            raise AssertionError(f"17c: {opt} counts part")
+        for moment in ("mu", "nu"):
+            for k, v in cpu_state[opt][moment].items():
+                hold(f"{opt}/{moment}", card_state[opt][moment][k], v)
+    hold("return_scale", card_state["return_scale"], cpu_state["return_scale"])
+    for k, v in got_cpu.items():
+        hold("metrics", got_card[k], v)
+    out = {"draws_skipped_for_ties": skipped, "min_gap": min(gaps),
+           "max_abs_diff": worst, "tolerance_share": share,
+           "metrics_card": got_card, "metrics_cpu": got_cpu}
+    log(f"17c [{card}]: DreamerV3 update card vs CPU: {share:.3g} of the tolerance "
+        f"(worst |diff| {max(worst.values()):.3g}; {len(skipped)} draws skipped for "
+        f"ties, min gap {min(gaps):.3g})")
+    if share > 1.0:
+        raise AssertionError(f"17c: the DreamerV3 update parts card vs CPU: {worst}")
+    return out
+
+
+def offline_learners(torch, seed: int, card: str) -> dict:
+    """Phase 17(d): PPO's CartPole rollouts (4 iterations at its defaults)
+    recorded as JSON shards, read back here, and 10 updates each of
+    BCLearner and MARWILLearner (BCConfig's lr and batch of 256 rows)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch.rllib import offline, ppo
+
+    algo = ppo.PPOConfig().environment("CartPole-v1").debugging(seed=seed).build()
+    path = tempfile.mkdtemp(prefix="rtt_offline_")
+    try:
+        offline.record_rollouts(algo, path, num_iterations=4, fmt="json")
+        rows = []
+        for name in sorted(os.listdir(path)):
+            with open(os.path.join(path, name)) as f:
+                rows += [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+        algo.stop()
+    data = offline._columnar(rows)
+    obs, actions = data["obs"], data["actions"].astype(np.int64)
+    returns = offline.discounted_returns(data["rewards"].astype(np.float32),
+                                         data["dones"].astype(bool), 0.99)
+    cfg = offline.MARWILConfig()
+    rng = np.random.default_rng(seed)
+    bc = offline.BCLearner(4, 2, cfg.lr, seed=seed)
+    marwil = offline.MARWILLearner(4, 2, cfg.lr, beta=cfg.beta, vf_coeff=cfg.vf_coeff,
+                                   seed=seed)
+    bc_ms, marwil_ms, bc_loss, marwil_m = [], [], [], []
+    for _ in range(10):
+        idx = rng.integers(0, len(obs), cfg.train_batch_size)
+        bc_loss.append(_timed(torch, bc.update, bc_ms)(obs[idx], actions[idx]))
+        marwil_m.append(_timed(torch, marwil.update, marwil_ms)(
+            obs[idx], actions[idx], returns[idx]))
+    out = {"rows": len(rows), "bc_update_ms": bc_ms, "marwil_update_ms": marwil_ms,
+           "bc_loss": bc_loss, "marwil_last": marwil_m[-1]}
+    if len(rows) != 4 * 8 * 128 or not _finite(marwil_m + [{"bc": v} for v in bc_loss]):
+        raise AssertionError(f"17d: rows or non-finite offline losses: {out}")
+    log(f"17d [{card}]: {len(rows)} recorded rows; BC update "
+        f"{statistics.median(bc_ms):.2f} ms median, MARWIL "
+        f"{statistics.median(marwil_ms):.2f} ms median (10 each)")
+    return out
+
+
+def dreamer_and_offline_phase(torch, seed: int, card: str) -> dict:
+    """Phase 17: DreamerV3 (a, b), its update card vs CPU (c), and the
+    offline learners on recorded rollouts (d)."""
+    from ray_tpu_torch.rllib import dreamerv3
+
+    runs, algo = dreamer_runs(torch, dreamerv3, seed, card)
+    return {**runs, "card_vs_cpu": dreamer_card_vs_cpu(torch, dreamerv3, algo, card),
+            "offline": offline_learners(torch, seed, card)}
+
+
 def import_and_rllib_phase(torch, models, attention, seed: int, card: str) -> dict:
     """Phases 15 and 16."""
     return {"tiny_padded": tiny_padded(torch, models, attention, card),
@@ -2732,6 +2921,8 @@ def main() -> int:
     log("14a/d expert parallelism: " + json.dumps(experts))
     late = import_and_rllib_phase(torch, models, attention, args.seed, card)
     log("15-16 HF import and RLlib: " + json.dumps(late))
+    dreamer = dreamer_and_offline_phase(torch, args.seed, card)
+    log("17 DreamerV3 and offline learners: " + json.dumps(dreamer))
 
     kernels = []
     for name, replaces in KERNELS.items():

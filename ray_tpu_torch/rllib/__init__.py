@@ -7,11 +7,13 @@ steps vectorized numpy envs and batches each policy step into one call on
 the device; the learner runs each algorithm's whole update (GAE or
 V-trace, every epoch and minibatch, clipping, target nets, temperature)
 in eager torch on the device, optionally over a dp `DeviceMesh`
-(`LearnerGroup`), and computes JAX's update function at fp32.
+(`LearnerGroup`), and computes JAX's update function at fp32. DreamerV3
+collects with its own recurrent loop; BC and MARWIL learn from recorded
+rows.
 
-Not here yet: DreamerV3 and the offline BC/MARWIL learners (the next
-slice); remote env runners, remote learners, the offline reader and the
-usage-stats hook, which need the runtime (ROADMAP queue A, item 10).
+Not here yet: remote env runners, remote learners, the offline reader
+(BC, MARWIL and CQL training on recorded shards) and the usage-stats
+hook, which need the runtime (ROADMAP queue A, item 10).
 """
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.appo import APPO, APPOConfig
@@ -33,8 +35,18 @@ from ray_tpu_torch.rllib.core import (
 )
 from ray_tpu_torch.rllib.cql import CQL, CQLConfig, CQLLearner
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig
+from ray_tpu_torch.rllib.dreamerv3 import DreamerV3, DreamerV3Config
 from ray_tpu_torch.rllib.env import register_env
 from ray_tpu_torch.rllib.impala import IMPALA, ImpalaConfig
+from ray_tpu_torch.rllib.offline import (
+    BC,
+    MARWIL,
+    BCConfig,
+    MARWILConfig,
+    SampleWriter,
+    read_samples,
+    record_rollouts,
+)
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig
 from ray_tpu_torch.rllib.replay_buffer import (
     PrioritizedReplayBuffer,
@@ -70,6 +82,15 @@ __all__ = [
     "CQL",
     "CQLConfig",
     "CQLLearner",
+    "DreamerV3",
+    "DreamerV3Config",
+    "BC",
+    "BCConfig",
+    "MARWIL",
+    "MARWILConfig",
+    "SampleWriter",
+    "read_samples",
+    "record_rollouts",
     "ReplayBuffer",
     "PrioritizedReplayBuffer",
     "register_env",

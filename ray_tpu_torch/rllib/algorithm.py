@@ -265,8 +265,9 @@ class Algorithm:
             device=cfg.learner_device(), **cfg._worker_connectors())]
 
     def _connector_state(self):
-        """Training worker 0's obs-filter state (None when stateless)."""
-        return self.workers[0].get_connector_state()
+        """Training worker 0's obs-filter state (None when stateless or
+        when the algorithm collects without workers, as DreamerV3 does)."""
+        return self.workers[0].get_connector_state() if self.workers else None
 
     def evaluate(self) -> Dict[str, float]:
         """Deterministic episodes on the separate eval worker. Stateful
@@ -321,7 +322,8 @@ class Algorithm:
             state = pickle.load(f)
         self._iteration = state["iteration"]
         self.learner.set_state(state["learner_state"])
-        self.workers[0].set_connector_state(state.get("connector_state"))
+        if self.workers:
+            self.workers[0].set_connector_state(state.get("connector_state"))
         self._broadcast_weights()
 
     def stop(self) -> None:

@@ -1,9 +1,11 @@
-"""Carry RL network weights between the JAX package and the port.
+"""Carry RL network weights and learner state between the JAX package and
+the port.
 
-Both packages name the weights alike (`pi_w0`, `q1_b2`, ...: flat dicts,
-weights [fan_in, fan_out]), so crossing over is a copy of numpy arrays by
-name. Takes and returns numpy only: it imports no JAX (pass
-`jax.device_get` of a JAX tree).
+Both packages name the weights alike (`pi_w0`, `q1_b2`, `gru_wr`, ...: flat
+dicts, weights [fan_in, fan_out]), so crossing over is a copy of numpy
+arrays by name; a learner's optax Adam states become the port's by field
+(`learner_state_from_jax`). Takes and returns numpy only: it imports no
+JAX (pass `jax.device_get` of a JAX tree).
 """
 from __future__ import annotations
 
@@ -39,3 +41,33 @@ def rl_params_to_numpy(params: dict) -> dict:
     never views of the tensors)."""
     return {k: (rl_params_to_numpy(v) if isinstance(v, dict)
                 else v.detach().cpu().numpy().copy()) for k, v in params.items()}
+
+
+def _adam_moments(opt_state: Any) -> Any:
+    """The optax ScaleByAdamState (count, mu, nu) in a state or a chain's
+    tuple of states, found by its fields; None if there is none."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_moments(part)
+            if found is not None:
+                return found
+    return None
+
+
+def learner_state_from_jax(state: dict) -> dict:
+    """A JAX learner's `get_state()` (numpy, `jax.device_get` of it) -> what
+    the port learner's `set_state` takes: param trees and arrays as they
+    are, and every optax Adam state, alone or in a chain, as the port's
+    {"count", "mu", "nu"} (`rllib/optim.py`). The JAX key ("rng") is left
+    out: the port draws its noise from a torch generator."""
+    out = {}
+    for key, value in state.items():
+        if key == "rng":
+            continue
+        moments = _adam_moments(value)
+        out[key] = value if moments is None else {
+            "count": int(np.asarray(moments.count)),
+            "mu": dict(moments.mu), "nu": dict(moments.nu)}
+    return out

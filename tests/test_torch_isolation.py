@@ -19,13 +19,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # config by attribute).
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "ray_tpu", "transformers")
 # Modules the walk must reach (the context-parallel and pipeline slice, the
-# HF import and RLlib).
+# HF import and RLlib, DreamerV3 and the offline learners included).
 REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.collectives",
             "ray_tpu_torch.models.training", "ray_tpu_torch.models.hf_convert",
             "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.core.learner_group",
             "ray_tpu_torch.rllib.ppo", "ray_tpu_torch.rllib.cql",
-            "ray_tpu_torch.rllib.env", "ray_tpu_torch.rllib.rollout_worker")
+            "ray_tpu_torch.rllib.env", "ray_tpu_torch.rllib.rollout_worker",
+            "ray_tpu_torch.rllib.dreamerv3", "ray_tpu_torch.rllib.offline")
 
 _CHECK = r"""
 import importlib, importlib.abc, pkgutil, sys

@@ -23,6 +23,7 @@ from ray_tpu.rllib import appo as jappo
 from ray_tpu.rllib import connectors as jconn
 from ray_tpu.rllib import cql as jcql
 from ray_tpu.rllib import dqn as jdqn
+from ray_tpu.rllib import dreamerv3 as jdreamer
 from ray_tpu.rllib import env as jenv
 from ray_tpu.rllib import impala as jimpala
 from ray_tpu.rllib import models as jmodels
@@ -32,9 +33,13 @@ from ray_tpu.rllib import sac as jsac
 from ray_tpu.rllib.core import LearnerGroup as JaxLearnerGroup
 from ray_tpu.rllib.core import rl_module as jmod
 from ray_tpu_torch.rllib import appo, connectors, cql, dqn, env, impala, models, ppo
-from ray_tpu_torch.rllib import replay_buffer, sac
+from ray_tpu_torch.rllib import dreamerv3, replay_buffer, sac
 from ray_tpu_torch.rllib.core import rl_module
-from ray_tpu_torch.rllib.jax_bridge import rl_params_from_jax, rl_params_to_numpy
+from ray_tpu_torch.rllib.jax_bridge import (
+    learner_state_from_jax,
+    rl_params_from_jax,
+    rl_params_to_numpy,
+)
 from test_torch_distributed import Ranks
 
 TOL = 1e-5
@@ -50,6 +55,8 @@ def _close(got, want, what, tol=TOL):
         for k in want:
             _close(got[k], want[k], f"{what}/{k}", tol)
         return
+    if isinstance(got, torch.Tensor):
+        got = got.detach()
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
                                rtol=tol, err_msg=what)
 
@@ -247,6 +254,31 @@ def test_bridge_checks_names_and_shapes():
         rl_params_from_jax({"w": np.ones((3, 2))}, "cpu", like=like)
     np.testing.assert_array_equal(rl_params_to_numpy({"a": {"w": out["w"]}})["a"]["w"],
                                   np.ones((2, 3)))
+
+    # DreamerV3's state: three trees, the slow critic, three optax Adam
+    # chains and return_scale, by name into the port's learner.
+    hp_kw = dict(deter_dim=8, num_categoricals=2, num_classes=3, units=8, num_bins=5)
+    jl = jdreamer.DreamerV3Learner(3, 2, jdreamer.DreamerV3Hyperparams(**hp_kw))
+    jstate = _np(jl.get_state())
+    jstate["wm_opt"] = jl._wm_tx.update(jstate["wm_params"], jstate["wm_opt"])[1]
+    jstate["return_scale"] = np.float32(1.5)
+    state = learner_state_from_jax(jstate)
+    assert "rng" not in state and state["wm_opt"]["count"] == 1
+    tl = dreamerv3.DreamerV3Learner(3, 2, dreamerv3.DreamerV3Hyperparams(**hp_kw),
+                                    device="cpu")
+    tl.set_state(state)
+    got = tl.get_state()
+    for name in ("wm_params", "actor_params", "critic_params", "slow_critic"):
+        _close(got[name], jstate[name], name, tol=0)
+    for name in ("wm_opt", "actor_opt", "critic_opt"):
+        _close_opt(got[name], jstate[name], name)
+    assert got["return_scale"] == np.float32(1.5)
+    assert tl.wm_params["gru_wr"].requires_grad
+    for tree, key, value in (("wm_params", "gru_wx", np.zeros((16, 8))),
+                             ("actor_params", "actor_w0", np.zeros((3, 8)))):
+        bad = dict(state, **{tree: dict(state[tree], **{key: value})})
+        with pytest.raises(ValueError, match="keys" if key == "gru_wx" else "shape"):
+            tl.set_state(bad)
 
 
 # -- one update of each learner ----------------------------------------------

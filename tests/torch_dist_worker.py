@@ -362,12 +362,28 @@ def rl_learner_group(kind, start, batches, noises):
     return {"metrics": metrics, "state": group.get_state()}
 
 
+def rl_dreamer(kind, hp_kw, obs_dim, start, bins, batches, noises):
+    """A DreamerV3Learner on a dp mesh over all ranks (two actions, limit
+    2), started from JAX's state and bins, through `batches` with the JAX
+    updates' noise; returns each update's metrics and the state."""
+    from ray_tpu_torch.rllib import dreamerv3
+
+    mesh = mesh_for({"dp": torch.distributed.get_world_size(), "fsdp": 1})
+    learner = dreamerv3.DreamerV3Learner(
+        obs_dim, dreamerv3.ActSpec(kind, 2, 2.0),
+        dreamerv3.DreamerV3Hyperparams(**hp_kw), mesh=mesh, device="cpu")
+    learner.set_state(start)
+    learner.bins = torch.from_numpy(bins)
+    metrics = [learner.update(b, n) for b, n in zip(batches, noises)]
+    return {"metrics": metrics, "state": learner.get_state()}
+
+
 CASES = {"train": train, "errors": errors, "shapes": shapes, "adafactor": adafactor,
          "collectives": collective_ops, "cp_attention": cp_attention,
          "sp_forward": sp_forward, "pipeline": pipeline_run,
          "pipeline_errors": pipeline_errors, "collective_grads": collective_grads,
          "tp_serve": tp_serve, "tp_dryrun": tp_dryrun,
-         "rl_learner_group": rl_learner_group}
+         "rl_learner_group": rl_learner_group, "rl_dreamer": rl_dreamer}
 
 
 def main(rank: int, world: int, port: int, inbox, outbox) -> None:
