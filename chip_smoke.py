@@ -164,7 +164,23 @@ Run from a checkout of the repository on a machine with a Hopper card
    return_scale and metric within RL_CARD_CPU_TOL (on a draw whose every
    sample is decided by more than DREAMER_TIE_GAP); (d) PPO's CartPole
    rollouts recorded as JSON shards by `record_rollouts`, read back here,
-   and BCLearner and MARWILLearner updates timed on them.
+   and BCLearner and MARWILLearner updates timed on them;
+18. the task/actor core (`ray_tpu_torch.init(local_mode=True)`): (a) this
+   slice's main path: phase 4's bench-350m train step (its config, batches
+   and optimizer, from the same seed) inside a `@remote(num_gpus=1)` actor,
+   in turns with the direct step on a state of its own (direct, actor;
+   actor, direct; ...): every step's loss bit-equal, 2L / L / L launches a
+   step through the actor, median step and host ms of each and the ms the
+   runtime adds a step; (b) the actor's 468 M fp32 params fetched from it,
+   then `put` and `get` (ms and GiB/s of each), bit-equal on cuda:0; (c)
+   `detect_node_resources()` and its time-boxed GPU probe: GPU 1.0 and an
+   `accelerator_type:` key naming the card, the probe's seconds; (d) PPO on
+   CartPole at the JAX defaults with 2 remote env runners and 2 remote
+   learner actors, in turns with phase 16's local PPO, 5 iterations each
+   (env steps/s, ms an iteration), then the remote learners' update of one
+   sampled batch under the same per-actor permutations and its broadcast,
+   card against CPU, within RL_CARD_CPU_TOL (weights, metrics, Adam
+   moments), and the remote evaluation runner's greedy returns equal.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -173,8 +189,9 @@ phase 12b's as `launches_bench_1b4_mesh_train`, of phase 13a's pipeline
 steps as `launches_bench_350m_pipeline_train`, of 13b's Ulysses call
 as `launches_ulysses`, of 14a's mesh steps as
 `launches_mixtral_8x7b_mesh_train`, of 15b(i)'s forward as
-`launches_hf_llama3_8b_forward` and of 15a's TINY as
-`launches_tiny_padded`), and {"ok": true, "device": {...}}.
+`launches_hf_llama3_8b_forward`, of 15a's TINY as
+`launches_tiny_padded` and of 18a's actor steps as
+`launches_bench_350m_actor_train`), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -510,6 +527,14 @@ def check_reference(torch, models, label: str = "reference", **overrides) -> dic
             "card_grads": g_gpu}
 
 
+def bench_train_step(models, cfg, device: str):
+    """Phase 4's train step for `cfg`: AdamW at 3e-4 with 10 warmup steps
+    (bench.py's), remat "full"."""
+    return models.training.make_train_step(
+        cfg, device=device,
+        optimizer=models.training.default_optimizer(3e-4, warmup=10, total_steps=1000))
+
+
 def main_path(torch, models, attention, steps: int, seed: int) -> dict:
     """Phase 4: the bench-350m train step, as a user drives it."""
     import numpy as np
@@ -518,9 +543,7 @@ def main_path(torch, models, attention, steps: int, seed: int) -> dict:
 
     cfg = models.configs.BENCH_350M
     batch, seq = 8, 2048
-    init_fn, step_fn = models.training.make_train_step(
-        cfg, device="cuda",
-        optimizer=models.training.default_optimizer(3e-4, warmup=10, total_steps=1000))
+    init_fn, step_fn = bench_train_step(models, cfg, "cuda")
     state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
     corpus = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (steps, batch, seq + 1), dtype=np.int32)
@@ -2847,6 +2870,289 @@ def dreamer_and_offline_phase(torch, seed: int, card: str) -> dict:
             "offline": offline_learners(torch, seed, card)}
 
 
+def _sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+class Bench350mTrainer:
+    """Phase 18a's actor (made remote with num_gpus=1): phase 4's train step
+    on a state of its own, initialised from the same seed as the direct one."""
+
+    def __init__(self, cfg, seed: int, device: str):
+        import torch
+
+        from ray_tpu_torch import models
+
+        init_fn, self._step = bench_train_step(models, cfg, device)
+        self.state = init_fn(torch.Generator(device=device).manual_seed(seed))
+
+    def step(self, tokens) -> tuple:
+        """(loss, ms to enqueue the step on this actor's thread)."""
+        t0 = time.perf_counter()
+        self.state, metrics = self._step(self.state, {"tokens": tokens})
+        host_ms = (time.perf_counter() - t0) * 1e3
+        return float(metrics["loss"]), host_ms
+
+    def params(self) -> dict:
+        return self.state.params
+
+
+def actor_train_turns(torch, models, attention, rt, steps: int, seed: int, card: str,
+                      cfg=None, batch: int = 8, seq: int = 2048,
+                      device: str = "cuda") -> tuple:
+    """Phase 18a: phase 4's train step inside a num_gpus=1 actor, in turns
+    with the direct step on a state of its own from the same seed, on phase
+    4's batches. Returns (results, the actor)."""
+    import numpy as np
+
+    cfg = cfg or models.configs.BENCH_350M
+    init_fn, step_fn = bench_train_step(models, cfg, device)
+    state = init_fn(torch.Generator(device=device).manual_seed(seed))
+    actor = rt.remote(num_gpus=1)(Bench350mTrainer).remote(cfg, seed, device)
+    corpus = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (steps, batch, seq + 1), dtype=np.int32))
+    if device == "cuda":
+        corpus = corpus.pin_memory()
+    per_step = 1 if device == "cuda" else 0  # the plain versions count nothing
+    expected = {"fa_fwd": 2 * cfg.n_layers * per_step,
+                "fa_bwd_dq": cfg.n_layers * per_step, "fa_bwd_dkv": cfg.n_layers * per_step}
+
+    def direct(tokens) -> tuple:
+        nonlocal state
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        host_ms = (time.perf_counter() - t0) * 1e3
+        return float(metrics["loss"]), host_ms
+
+    def via_actor(tokens) -> tuple:
+        return rt.get(actor.step.remote(tokens))
+
+    runs = {who: {"losses": [], "step_ms": [], "host_ms": [], "launches_per_step": []}
+            for who in ("direct", "actor")}
+    attention.reset_launches()
+    for i in range(steps):
+        tokens = corpus[i].to(device)
+        for who in (("direct", "actor") if i % 2 == 0 else ("actor", "direct")):
+            seen = dict(attention.launches)
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            loss, host_ms = (direct if who == "direct" else via_actor)(tokens)
+            _sync(torch, device)
+            run = runs[who]
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["host_ms"].append(host_ms)
+            run["losses"].append(loss)
+            run["launches_per_step"].append(
+                {n: attention.launches[n] - seen[n] for n in seen})
+        d, a = runs["direct"], runs["actor"]
+        log(f"18a step {i}: loss {d['losses'][i]:.6f} direct {d['step_ms'][i]:.1f} ms "
+            f"(host {d['host_ms'][i]:.1f}), actor {a['step_ms'][i]:.1f} ms (host "
+            f"{a['host_ms'][i]:.1f}); actor launches {a['launches_per_step'][i]}")
+        if a["losses"][i] != d["losses"][i] or not math.isfinite(d["losses"][i]):
+            raise AssertionError(f"18a step {i}: the actor's loss {a['losses'][i]!r} is "
+                                 f"not the direct step's {d['losses'][i]!r}")
+        for who, run in runs.items():
+            if run["launches_per_step"][i] != expected:
+                raise AssertionError(f"18a step {i}: {who} launches "
+                                     f"{run['launches_per_step'][i]} != {expected}")
+    total = dict(attention.launches)
+    out = {"config": cfg.name, "batch": batch, "seq": seq, "steps": steps, **runs}
+    for who, run in runs.items():
+        run["launches"] = {n: sum(c[n] for c in run["launches_per_step"]) for n in total}
+        run["median_step_ms"] = statistics.median(run["step_ms"][1:] or run["step_ms"])
+        run["median_host_ms"] = statistics.median(run["host_ms"][1:] or run["host_ms"])
+    if total != {n: runs["direct"]["launches"][n] + runs["actor"]["launches"][n]
+                 for n in total}:
+        raise AssertionError(f"18a: launches outside the steps: {total}")
+    pairs = [a - d for a, d in zip(runs["actor"]["step_ms"][1:], runs["direct"]["step_ms"][1:])]
+    out["launches"] = runs["actor"]["launches"]
+    out["runtime_adds_ms"] = runs["actor"]["median_step_ms"] - runs["direct"]["median_step_ms"]
+    out["runtime_adds_ms_paired_median"] = statistics.median(pairs) if pairs else None
+    log(f"18a [{card}]: {cfg.name} {batch} x {seq}, {steps} steps in turns, losses "
+        f"bit-equal: direct {runs['direct']['median_step_ms']:.2f} ms median (host "
+        f"{runs['direct']['median_host_ms']:.2f}), actor {runs['actor']['median_step_ms']:.2f} "
+        f"ms (host {runs['actor']['median_host_ms']:.2f}); the runtime adds "
+        f"{out['runtime_adds_ms']:.3f} ms a step (paired median "
+        f"{out['runtime_adds_ms_paired_median']}); actor launches {out['launches']}")
+    return out, actor
+
+
+def put_get_params(torch, models, rt, actor, card: str, device: str = "cuda") -> dict:
+    """Phase 18b: the actor's params fetched from it (through the store),
+    then `put` and `get` in this process; bit-equal, on the card's device 0."""
+    from ray_tpu_torch.core import serialization
+
+    t0 = time.perf_counter()
+    params = rt.get(actor.params.remote())
+    _sync(torch, device)
+    fetch_s = time.perf_counter() - t0
+    leaves = models.training.tree_leaves(params)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    t0 = time.perf_counter()
+    ref = rt.put(params)
+    put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = rt.get(ref)
+    _sync(torch, device)
+    get_s = time.perf_counter() - t0
+    want = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    got = models.training.tree_leaves(back)
+    bad = [i for i, (g, p) in enumerate(zip(got, leaves))
+           if g.device != want or g.dtype != p.dtype or not torch.equal(g, p)]
+    del back, ref
+    # The put's two parts: pickling (each tensor's copy to the host) and
+    # the store's one contiguous payload.
+    t0 = time.perf_counter()
+    meta, buffers = serialization.serialize(params)
+    serialize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serialization.concat(meta, buffers)
+    concat_s = time.perf_counter() - t0
+    del buffers
+    gib = nbytes / 2**30
+    out = {"params": sum(t.numel() for t in leaves), "bytes": nbytes, "leaves": len(leaves),
+           "fetch_s": fetch_s, "put_s": put_s, "get_s": get_s,
+           "put_gib_per_s": gib / put_s, "get_gib_per_s": gib / get_s,
+           "put_serialize_s": serialize_s, "put_concat_s": concat_s}
+    log(f"18b [{card}]: {out['params'] / 1e6:.1f} M params ({gib:.3f} GiB, {len(leaves)} "
+        f"tensors): fetched from the actor in {fetch_s * 1e3:.1f} ms, put "
+        f"{put_s * 1e3:.1f} ms ({out['put_gib_per_s']:.2f} GiB/s; apart: pickling with "
+        f"the host copies {serialize_s * 1e3:.1f} ms, the payload {concat_s * 1e3:.1f} ms), "
+        f"get {get_s * 1e3:.1f} ms ({out['get_gib_per_s']:.2f} GiB/s), bit-equal on {want}")
+    if bad or len(got) != len(leaves):
+        raise AssertionError(f"18b: {len(bad)} tensors came back changed or elsewhere")
+    return out
+
+
+def gpu_resources(torch, card: str) -> dict:
+    """Phase 18c: the node's resources as the multi-process runtime's node
+    daemon will read them, through the time-boxed GPU probe."""
+    from ray_tpu_torch.core.distributed import resources
+
+    t0 = time.perf_counter()
+    res = resources.detect_node_resources()
+    probe_s = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    types = [k.split(":", 1)[1] for k in res if k.startswith("accelerator_type:")]
+    out = {"resources": res, "probe_s": probe_s, "probe": resources.probe_gpus(),
+           "device_name": name}
+    log(f"18c [{card}]: detect_node_resources() {res} in {probe_s:.2f} s (the probe's "
+        f"child process)")
+    if res.get("GPU") != 1.0 or len(types) != 1 or types[0] not in name:
+        raise AssertionError(f"18c: resources {res} do not show one {name}")
+    return out
+
+
+def _tolerance_share(got: dict, want: dict, tol) -> float:
+    """The largest share of atol + rtol*|want| any element of two flat
+    dicts of arrays (or floats) takes."""
+    import numpy as np
+
+    atol, rtol = tol
+    return max(float(np.max(np.abs(np.asarray(got[k]) - np.asarray(want[k]))
+                            / (atol + rtol * np.abs(np.asarray(want[k])))))
+               for k in want)
+
+
+def remote_ppo(torch, rt, seed: int, card: str, device: str = "cuda",
+               iterations: int = 5) -> dict:
+    """Phase 18d: PPO on CartPole at the JAX defaults, 2 remote env runners
+    and 2 remote learner actors, in turns with phase 16's local PPO; then
+    one remote-learner update card against CPU."""
+    from ray_tpu_torch.rllib import ppo
+
+    def config(dev: str, remote: bool, **evaluation):
+        c = (ppo.PPOConfig().environment("CartPole-v1").debugging(seed=seed)
+             .resources(device=dev))
+        if remote:
+            c = c.env_runners(num_env_runners=2).learners(num_learners=2,
+                                                          remote_learners=True)
+        return c.evaluation(**evaluation)
+
+    algos = {"local": config(device, False).build(), "remote": config(device, True).build()}
+    ms = {who: [] for who in algos}
+    returns = {who: [] for who in algos}
+    for i in range(iterations):
+        for who in (("local", "remote") if i % 2 == 0 else ("remote", "local")):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            m = algos[who].train()
+            _sync(torch, device)
+            ms[who].append((time.perf_counter() - t0) * 1e3)
+            returns[who].append(m.get("episode_return_mean"))
+            if not all(math.isfinite(v) for k, v in m.items() if "loss" in k):
+                raise AssertionError(f"18d: {who} PPO metrics not finite: {m}")
+    out = {}
+    for who, algo in algos.items():
+        cfg = algo.config
+        steps = max(1, cfg.num_env_runners) * cfg.num_envs_per_env_runner * \
+            cfg.rollout_fragment_length
+        out[who] = {"iterations": iterations, "env_steps_per_iteration": steps,
+                    "iteration_ms": ms[who], "median_iteration_ms": statistics.median(ms[who]),
+                    "env_steps_per_s": steps * iterations / (sum(ms[who]) / 1e3),
+                    "episode_return_mean": returns[who]}
+        algo.stop()
+
+    # Card against CPU: the CPU algorithm's runners sample one batch; both
+    # learner groups update on it under the same permutations for each
+    # actor's shard, then broadcast; greedy evaluation on the remote
+    # evaluation runner must return the same episodes.
+    pair = {d: config(d, True, evaluation_num_env_runners=1, evaluation_duration=4).build()
+            for d in (device, "cpu")}
+    pair[device].set_weights(pair["cpu"].get_weights())
+    batch, _ = pair["cpu"]._sample_rollouts()
+    drawer = ppo.PPOLearner(4, 2, pair["cpu"].config.hyperparams(), seed=seed, device="cpu")
+    noise = [drawer.draw_noise(shard) for shard in pair["cpu"].learner._split(batch)]
+    metrics = {d: algo.learner.update(batch, noise) for d, algo in pair.items()}
+    for algo in pair.values():
+        algo._broadcast_weights()
+    state = {d: algo.learner.get_state() for d, algo in pair.items()}
+    evals = {d: algo.evaluate() for d, algo in pair.items()}
+    for algo in pair.values():
+        algo.stop()
+    dev, cpu = state[device], state["cpu"]
+    share = max(_tolerance_share(dev["params"], cpu["params"], RL_CARD_CPU_TOL),
+                _tolerance_share(dev["opt_state"]["mu"], cpu["opt_state"]["mu"],
+                                 RL_CARD_CPU_TOL),
+                _tolerance_share(dev["opt_state"]["nu"], cpu["opt_state"]["nu"],
+                                 RL_CARD_CPU_TOL),
+                _tolerance_share(metrics[device], metrics["cpu"], RL_CARD_CPU_TOL))
+    worst = max(float(abs(dev["params"][k] - cpu["params"][k]).max()) for k in cpu["params"])
+    out["card_vs_cpu"] = {"tolerance_share": share, "params_max_diff": worst,
+                          "metrics": metrics, "evaluation": evals,
+                          "batch_rows": int(batch["rewards"].size)}
+    log(f"18d [{card}]: PPO CartPole, {iterations} iterations each in turns: local "
+        f"{out['local']['env_steps_per_s']:.0f} env steps/s, "
+        f"{out['local']['median_iteration_ms']:.1f} ms an iteration; 2 remote runners + 2 "
+        f"remote learners {out['remote']['env_steps_per_s']:.0f} env steps/s, "
+        f"{out['remote']['median_iteration_ms']:.1f} ms an iteration; remote update card "
+        f"vs CPU {share:.3g} of RL_CARD_CPU_TOL (params {worst:.3g}), greedy returns "
+        f"{evals[device]} / {evals['cpu']}")
+    if share > 1.0 or dev["opt_state"]["count"] != cpu["opt_state"]["count"]:
+        raise AssertionError(f"18d: the remote update parts card vs CPU: {share}")
+    if evals[device] != evals["cpu"]:
+        raise AssertionError(f"18d: greedy evaluation parts card vs CPU: {evals}")
+    return out
+
+
+def runtime_phase(torch, models, attention, steps: int, seed: int, card: str) -> dict:
+    """Phase 18: the task/actor core on the card (a-d), on the in-process
+    engine, shut down at the end."""
+    import ray_tpu_torch as rt
+
+    rt.init(local_mode=True)
+    try:
+        train, actor = actor_train_turns(torch, models, attention, rt, steps, seed, card)
+        store = put_get_params(torch, models, rt, actor, card)
+        rt.kill(actor)
+        return {"actor_train": train, "put_get": store,
+                "resources": gpu_resources(torch, card),
+                "ppo": remote_ppo(torch, rt, seed, card)}
+    finally:
+        rt.shutdown()
+
+
 def import_and_rllib_phase(torch, models, attention, seed: int, card: str) -> dict:
     """Phases 15 and 16."""
     return {"tiny_padded": tiny_padded(torch, models, attention, card),
@@ -2923,6 +3229,9 @@ def main() -> int:
     log("15-16 HF import and RLlib: " + json.dumps(late))
     dreamer = dreamer_and_offline_phase(torch, args.seed, card)
     log("17 DreamerV3 and offline learners: " + json.dumps(dreamer))
+    t0 = time.perf_counter()
+    runtime = runtime_phase(torch, models, attention, args.steps, args.seed, card)
+    log(f"18 task/actor core ({time.perf_counter() - t0:.1f} s): " + json.dumps(runtime))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -2947,6 +3256,9 @@ def main() -> int:
             "launches_hf_llama3_8b_forward":
                 late["hf_reference"]["launches"][name],
             "launches_tiny_padded": late["tiny_padded"]["launches"][name],
+            # This slice's main path: 18a's steps inside the num_gpus=1 actor.
+            "launches_bench_350m_actor_train":
+                runtime["actor_train"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

@@ -1,9 +1,9 @@
-"""The serving knobs of the port (counterpart of the serving plane of
-`ray_tpu/core/config.py`).
+"""The knobs of the port (counterpart of `ray_tpu/core/config.py`).
 
 Same names, defaults and environment variables as the JAX package: each
 knob can be overridden with `RAY_TPU_<NAME>`, parsed to the declared type.
-Only the knobs the serving engines read are here.
+Only the knobs the port reads are here: the cluster address `init` joins,
+and the serving engines'.
 """
 from __future__ import annotations
 
@@ -28,6 +28,9 @@ def _env_override(name: str, default: Any) -> Any:
 
 @dataclasses.dataclass
 class Config:
+    # Cluster address `init()` joins when given none (RAY_TPU_ADDRESS,
+    # exported to submitted jobs); "" starts a new cluster.
+    address: str = ""
     # Tokens per KV block. Small blocks waste less memory on short tails
     # but deepen block tables; 16 matches the vLLM default.
     kv_block_size: int = 16

@@ -11,9 +11,11 @@ in eager torch on the device, optionally over a dp `DeviceMesh`
 collects with its own recurrent loop; BC and MARWIL learn from recorded
 rows.
 
-Not here yet: remote env runners, remote learners, the offline reader
-(BC, MARWIL and CQL training on recorded shards) and the usage-stats
-hook, which need the runtime (ROADMAP queue A, item 10).
+Remote env runners, remote evaluation runners and remote learner actors
+run on the task/actor core (`ray_tpu_torch.init(local_mode=True)` hosts
+them in-process). Not here yet: the offline reader (BC, MARWIL and CQL
+training on recorded shards, ROADMAP queue A, item 10b) and the
+usage-stats hook (item 10d).
 """
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.appo import APPO, APPOConfig

@@ -1,16 +1,20 @@
 """Algorithm + AlgorithmConfig: the RL training loop, counterpart of
-`ray_tpu/rllib/algorithm.py` in its local mode.
+`ray_tpu/rllib/algorithm.py`.
 
 ref: rllib/algorithms/algorithm.py:196 (Algorithm, a Tune Trainable),
-algorithm_config.py (a config of chained setters). The Algorithm owns one local
-rollout worker and one Learner (or a dp LearnerGroup); `train()` runs one
-iteration and returns a metrics dict. The learner and the worker's policy
-steps run on `device` ("cuda" by default; `.resources(device="cpu")` runs
-both on the CPU), or on the learner mesh's device type.
+algorithm_config.py (a config of chained setters). The Algorithm owns N
+rollout workers (one local object, or `num_env_runners` ray_tpu_torch
+actors) and one Learner (or a LearnerGroup); `train()` runs one iteration
+and returns a metrics dict. The learner and the workers' policy steps run on
+`device` ("cuda" by default; `.resources(device="cpu")` runs both on the
+CPU), or on the learner mesh's device type.
 
-Remote env runners and remote evaluation runners are ray_tpu actors in the
-JAX package; the port has no runtime yet (ROADMAP queue A, item 10), so
-`num_env_runners > 0` and `evaluation_num_env_runners > 0` raise.
+Remote env runners, remote evaluation runners and remote learners are
+actors of the runtime: as in the JAX package, building such an algorithm
+calls `init(ignore_reinit_error=True)` when the runtime is down, which
+raises until the multi-process runtime is ported (ROADMAP queue A, item
+10a-ii); run `ray_tpu_torch.init(local_mode=True)` first to host them in
+this process.
 """
 from __future__ import annotations
 
@@ -21,8 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
-_NEEDS_RUNTIME = ("need the ray_tpu_torch runtime, which is not ported yet "
-                  "(ROADMAP queue A, item 10)")
+import ray_tpu_torch
 
 
 class AlgorithmConfig:
@@ -32,6 +35,7 @@ class AlgorithmConfig:
         self.num_env_runners = 0
         self.num_envs_per_env_runner = 8
         self.rollout_fragment_length = 128
+        self.num_cpus_per_env_runner = 1.0
         self.seed = 0
         self.model_hidden: Tuple[int, ...] = (64, 64)
         self.device = "cuda"      # learner and policy steps
@@ -57,6 +61,7 @@ class AlgorithmConfig:
     def env_runners(self, *, num_env_runners: Optional[int] = None,
                     num_envs_per_env_runner: Optional[int] = None,
                     rollout_fragment_length: Optional[int] = None,
+                    num_cpus_per_env_runner: Optional[float] = None,
                     env_to_module_connector: Optional[Callable] = None,
                     module_to_env_connector: Optional[Callable] = None,
                     learner_connector: Optional[Callable] = None
@@ -67,6 +72,8 @@ class AlgorithmConfig:
             self.num_envs_per_env_runner = num_envs_per_env_runner
         if rollout_fragment_length is not None:
             self.rollout_fragment_length = rollout_fragment_length
+        if num_cpus_per_env_runner is not None:
+            self.num_cpus_per_env_runner = num_cpus_per_env_runner
         if env_to_module_connector is not None:
             self.env_to_module_connector = env_to_module_connector
         if module_to_env_connector is not None:
@@ -120,8 +127,8 @@ class AlgorithmConfig:
                  ) -> "AlgorithmConfig":
         """Data-parallel learner group (ref: AlgorithmConfig.learners /
         core/learner/learner_group.py:60): num_learners>0 builds a
-        LearnerGroup, a dp mesh over that many ranks of the process
-        group; remote_learners=True raises (the runtime is not ported)."""
+        LearnerGroup, by default a dp mesh over that many ranks of the
+        process group; remote_learners=True uses N learner actors."""
         if num_learners is not None:
             self.num_learners = num_learners
         if remote_learners is not None:
@@ -169,29 +176,32 @@ class AlgorithmConfig:
 
 
 class Algorithm:
-    """One learner + one local rollout worker; subclasses provide
+    """One learner + N rollout workers; subclasses provide
     `_setup_learner` and `training_step` (ref: algorithm.py:1490)."""
 
     def __init__(self, config: AlgorithmConfig):
         from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
 
-        if config.num_env_runners > 0:
-            raise NotImplementedError(
-                f"num_env_runners={config.num_env_runners}: remote env "
-                f"runners {_NEEDS_RUNTIME}; use num_env_runners=0")
-        if config.evaluation_num_env_runners > 0:
-            raise NotImplementedError(
-                f"evaluation_num_env_runners="
-                f"{config.evaluation_num_env_runners}: remote evaluation "
-                f"runners {_NEEDS_RUNTIME}; use 0 (evaluate locally)")
         self.config = config
         self._iteration = 0
+        self._remote = config.num_env_runners > 0
         gamma = getattr(config, "gamma", 0.99)
-        self.workers = [RolloutWorker(
-            config.env, num_envs=config.num_envs_per_env_runner,
-            seed=config.seed, bootstrap_gamma=gamma,
-            device=config.learner_device(), **config._worker_connectors())]
-        self.space_info = self.workers[0].get_space_info()
+        device = config.learner_device()
+        if self._remote:
+            cls = _remote_runner_class(config)
+            self.workers = [
+                cls.remote(config.env, num_envs=config.num_envs_per_env_runner,
+                           seed=config.seed + 1000 * (i + 1),
+                           bootstrap_gamma=gamma, device=device,
+                           **config._worker_connectors())
+                for i in range(config.num_env_runners)]
+            self.space_info = ray_tpu_torch.get(self.workers[0].get_space_info.remote())
+        else:
+            self.workers = [RolloutWorker(
+                config.env, num_envs=config.num_envs_per_env_runner,
+                seed=config.seed, bootstrap_gamma=gamma, device=device,
+                **config._worker_connectors())]
+            self.space_info = self.workers[0].get_space_info()
         self._spaces = (self.space_info["obs_dim"],
                         self.space_info["num_actions"])
         self._eval_workers: List[Any] = []
@@ -231,13 +241,37 @@ class Algorithm:
         raise NotImplementedError
 
     # -- shared machinery ---------------------------------------------------
+    def _on_workers(self, method: str, *args, **kwargs) -> list:
+        """`method` of every training worker: remote runners in parallel,
+        the local worker inline."""
+        if self._remote:
+            return ray_tpu_torch.get([getattr(w, method).remote(*args, **kwargs)
+                                      for w in self.workers], timeout=600)
+        return [getattr(self.workers[0], method)(*args, **kwargs)]
+
     def _broadcast_weights(self) -> None:
-        self.workers[0].set_weights(self.learner.get_weights())
+        weights = self.learner.get_weights()
+        if self._remote:
+            # put() once; workers resolve the shared ref (serialize the
+            # weights once per iteration, not once per worker).
+            ref = ray_tpu_torch.put(weights)
+            ray_tpu_torch.get([w.set_weights.remote(ref) for w in self.workers])
+        else:
+            self.workers[0].set_weights(weights)
+
+    def _collect(self, method: str, *args, **kwargs
+                 ) -> Tuple[Dict[str, np.ndarray], List[float]]:
+        """`method` (a sampler) of every training worker, the batches
+        concatenated on axis 0 and the episode returns joined."""
+        outs = self._on_workers(method, *args, **kwargs)
+        batch = {k: np.concatenate([o["batch"][k] for o in outs], axis=0)
+                 for k in outs[0]["batch"]}
+        return batch, [r for o in outs for r in o["episode_returns"]]
 
     def _sample_rollouts(self) -> Tuple[Dict[str, np.ndarray], List[float]]:
-        out = self.workers[0].sample(self.config.rollout_fragment_length)
-        return (self._apply_learner_connector(out["batch"]),
-                list(out["episode_returns"]))
+        batch, episode_returns = self._collect(
+            "sample", self.config.rollout_fragment_length)
+        return self._apply_learner_connector(batch), episode_returns
 
     def _apply_learner_connector(self, batch):
         """The batch transform before the learner update (ref:
@@ -259,27 +293,67 @@ class Algorithm:
         from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
 
         cfg = self.config
-        self._eval_workers = [RolloutWorker(
-            cfg.env, num_envs=cfg.num_envs_per_env_runner,
-            seed=cfg.seed + 9000, bootstrap_gamma=getattr(cfg, "gamma", 0.99),
-            device=cfg.learner_device(), **cfg._worker_connectors())]
+        n = cfg.evaluation_num_env_runners
+        gamma = getattr(cfg, "gamma", 0.99)
+        kw = dict(num_envs=cfg.num_envs_per_env_runner, bootstrap_gamma=gamma,
+                  device=cfg.learner_device())
+        if n > 0:
+            cls = _remote_runner_class(cfg)
+            self._eval_workers = [
+                cls.remote(cfg.env, seed=cfg.seed + 9000 + i,
+                           **kw, **cfg._worker_connectors())
+                for i in range(n)]
+        else:
+            self._eval_workers = [RolloutWorker(
+                cfg.env, seed=cfg.seed + 9000, **kw,
+                **cfg._worker_connectors())]
 
     def _connector_state(self):
-        """Training worker 0's obs-filter state (None when stateless or
+        """Training worker 0's obs-filter state (None when stateless, or
         when the algorithm collects without workers, as DreamerV3 does)."""
-        return self.workers[0].get_connector_state() if self.workers else None
+        if self.config.env_to_module_connector is None or not self.workers:
+            return None     # no filter: skip the remote round-trip
+        m = self.workers[0].get_connector_state
+        return ray_tpu_torch.get(m.remote(), timeout=60) if hasattr(m, "remote") else m()
+
+    @staticmethod
+    def _push_connector_state(workers, state) -> None:
+        if state is None:
+            return
+        refs = []
+        for w in workers:
+            m = w.set_connector_state
+            if hasattr(m, "remote"):
+                refs.append(m.remote(state))
+            else:
+                m(state)
+        if refs:
+            ray_tpu_torch.get(refs, timeout=60)
 
     def evaluate(self) -> Dict[str, float]:
-        """Deterministic episodes on the separate eval worker. Stateful
-        obs filters sync from training worker 0 first — the policy must
-        be evaluated on the observation space it was trained on, not a
-        fresh count=0 filter."""
+        """Deterministic episodes on the separate eval worker set.
+        Stateful obs filters sync from training worker 0 first — the
+        policy must be evaluated on the observation space it was trained
+        on, not a fresh count=0 filter."""
         self._ensure_eval_workers()
-        w = self._eval_workers[0]
-        w.set_connector_state(self._connector_state())
-        w.set_weights(self.learner.get_weights())
-        returns = w.evaluate(max(1, self.config.evaluation_duration),
-                             mode=self._eval_mode)
+        cfg = self.config
+        self._push_connector_state(self._eval_workers, self._connector_state())
+        weights = self.learner.get_weights()
+        episodes = max(1, cfg.evaluation_duration)
+        if cfg.evaluation_num_env_runners > 0:
+            ref = ray_tpu_torch.put(weights)
+            ray_tpu_torch.get([w.set_weights.remote(ref) for w in self._eval_workers])
+            n = len(self._eval_workers)
+            per = [episodes // n + (1 if i < episodes % n else 0)
+                   for i in range(n)]
+            outs = ray_tpu_torch.get([w.evaluate.remote(p, mode=self._eval_mode)
+                                      for w, p in zip(self._eval_workers, per) if p],
+                                     timeout=600)
+            returns = [r for o in outs for r in o]
+        else:
+            w = self._eval_workers[0]
+            w.set_weights(weights)
+            returns = w.evaluate(episodes, mode=self._eval_mode)
         return {
             "evaluation/episode_return_mean": float(np.mean(returns)),
             "evaluation/num_episodes": float(len(returns)),
@@ -322,10 +396,26 @@ class Algorithm:
             state = pickle.load(f)
         self._iteration = state["iteration"]
         self.learner.set_state(state["learner_state"])
-        if self.workers:
-            self.workers[0].set_connector_state(state.get("connector_state"))
+        self._push_connector_state(self.workers, state.get("connector_state"))
         self._broadcast_weights()
 
     def stop(self) -> None:
+        if ray_tpu_torch.is_initialized():  # else the actors are gone
+            for w in self.workers + self._eval_workers:
+                if isinstance(w, ray_tpu_torch.ActorHandle):
+                    ray_tpu_torch.kill(w)
+        if hasattr(self.learner, "shutdown"):
+            self.learner.shutdown()
         self.workers = []
         self._eval_workers = []
+
+
+def _remote_runner_class(config: AlgorithmConfig):
+    """RolloutWorker as an actor class, starting the runtime as the JAX
+    package does when it is down (which raises until the multi-process
+    runtime is ported: run `init(local_mode=True)` first)."""
+    from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
+
+    if not ray_tpu_torch.is_initialized():
+        ray_tpu_torch.init(ignore_reinit_error=True)
+    return ray_tpu_torch.remote(num_cpus=config.num_cpus_per_env_runner)(RolloutWorker)

@@ -8,8 +8,8 @@ and policy actions minus Q of the dataset actions. Its noise adds the
 random actions and the policy's standard-normal draws for them.
 
 The `CQL` algorithm trains from offline shards that the JAX package reads
-through `ray_tpu.data`; the port's data executor comes with the runtime
-(ROADMAP queue A, item 10), so building it raises. The learner runs on
+through `ray_tpu.data`; the port's data executor is ROADMAP queue A, item
+10b, so building it raises. The learner runs on
 any batch of transitions.
 """
 from __future__ import annotations
@@ -95,11 +95,11 @@ class CQLConfig(SACConfig):
 
 class CQL(Algorithm):
     """The JAX package's CQL trains on offline shards read through its
-    data executor; that reader needs the port's runtime."""
+    data executor; that reader is not ported yet (item 10b)."""
 
     def _setup_learner(self, obs_dim: int, num_actions: int) -> CQLLearner:
         raise NotImplementedError(
             "CQL reads its offline data through the data executor "
-            "(read_samples), which is part of the ray_tpu_torch runtime, "
-            "not ported yet (ROADMAP queue A, item 10); train a CQLLearner "
+            "(read_samples), which is not ported yet (ROADMAP queue A, "
+            "item 10b); train a CQLLearner "
             "on batches of transitions instead")

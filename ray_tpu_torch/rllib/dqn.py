@@ -193,8 +193,8 @@ class DQN(Algorithm):
     def training_step(self) -> Dict[str, float]:
         cfg: DQNConfig = self.config
         eps = self._epsilon()
-        out = self.workers[0].sample_transitions(cfg.rollout_fragment_length, eps)
-        batch, episode_returns = out["batch"], out["episode_returns"]
+        batch, episode_returns = self._collect(
+            "sample_transitions", cfg.rollout_fragment_length, eps)
         self.replay.add_batch(batch)
         self._env_steps += len(batch["rewards"])
 

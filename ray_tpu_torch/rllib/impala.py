@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.core.learner import Learner
 from ray_tpu_torch.rllib.models import apply_mlp_policy, init_mlp_policy
@@ -120,15 +121,17 @@ class ImpalaConfig(AlgorithmConfig):
         self.vf_loss_coeff = 0.5
         self.entropy_coeff = 0.01
         self.grad_clip = 40.0
+        self.queue_depth = 2          # in-flight sample batches per worker
         self.broadcast_interval = 1   # learner updates between weight syncs
 
     def training(self, *, lr=None, gamma=None, rho_clip=None, c_clip=None,
                  vf_loss_coeff=None, entropy_coeff=None, grad_clip=None,
-                 broadcast_interval=None,
+                 queue_depth=None, broadcast_interval=None,
                  **kwargs) -> "ImpalaConfig":
         for k, v in dict(lr=lr, gamma=gamma, rho_clip=rho_clip,
                          c_clip=c_clip, vf_loss_coeff=vf_loss_coeff,
                          entropy_coeff=entropy_coeff, grad_clip=grad_clip,
+                         queue_depth=queue_depth,
                          broadcast_interval=broadcast_interval).items():
             if v is not None:
                 setattr(self, k, v)
@@ -142,10 +145,11 @@ class ImpalaConfig(AlgorithmConfig):
 
 
 class IMPALA(Algorithm):
-    """training_step: consume the oldest sample batch (collected under
-    stale weights — V-trace corrects), update, sample the next one,
-    broadcast weights on the configured cadence (the JAX package's local
-    mode; its in-flight queue over remote workers needs the runtime)."""
+    """training_step: consume a sample batch (collected under stale
+    weights — V-trace corrects), update, broadcast weights on the
+    configured cadence. With remote runners `queue_depth` batches per
+    runner stay in flight, refilled round-robin, and the first one done is
+    consumed; locally, the oldest of one."""
 
     _learner_cls = ImpalaLearner   # APPO swaps in AppoLearner
 
@@ -153,6 +157,7 @@ class IMPALA(Algorithm):
         cfg: ImpalaConfig = self.config
         self._pending: List[Any] = []
         self._updates_since_broadcast = 0
+        self._next_worker = 0
         cls, hp = self._learner_cls, cfg.hyperparams()
         seed, hidden, device = cfg.seed, cfg.model_hidden, cfg.device
 
@@ -163,14 +168,32 @@ class IMPALA(Algorithm):
         return self._build_learner(factory)
 
     def _refill(self) -> None:
-        while len(self._pending) < 1:
-            self._pending.append(
-                self.workers[0].sample(self.config.rollout_fragment_length))
+        cfg: ImpalaConfig = self.config
+        T = cfg.rollout_fragment_length
+        if self._remote:
+            while len(self._pending) < cfg.queue_depth * len(self.workers):
+                # Persistent round-robin: resetting per call would pile
+                # all steady-state refills onto worker 0 and starve the
+                # rest.
+                w = self.workers[self._next_worker % len(self.workers)]
+                self._next_worker += 1
+                self._pending.append(w.sample.remote(T))
+        else:
+            while len(self._pending) < 1:
+                self._pending.append(self.workers[0].sample(T))
 
     def training_step(self) -> Dict[str, float]:
         cfg: ImpalaConfig = self.config
         self._refill()
-        out = self._pending.pop(0)
+        if self._remote:
+            done, self._pending = ray_tpu_torch.wait(
+                self._pending, num_returns=1, timeout=600)
+            if not done:
+                raise TimeoutError(
+                    "no rollout worker produced a sample batch within 600s")
+            out = ray_tpu_torch.get(done[0])
+        else:
+            out = self._pending.pop(0)
         batch = out["batch"]
         metrics = self.learner.update(batch)
         self._updates_since_broadcast += 1

@@ -10,7 +10,7 @@ the port's Adam.
 
 The JAX package reads the shards back through its data executor
 (`read_samples`, and `BC`/`MARWIL` training on what it reads); the port's
-executor comes with the runtime (ROADMAP queue A, item 10), so those raise.
+executor is ROADMAP queue A, item 10b, so those raise.
 The learners train on any arrays of rows.
 """
 from __future__ import annotations
@@ -31,8 +31,7 @@ from ray_tpu_torch.rllib.models import apply_mlp_policy, init_mlp_policy
 from ray_tpu_torch.rllib.optim import Adam
 
 _NEEDS_EXECUTOR = ("reads offline shards through the data executor, which is "
-                   "part of the ray_tpu_torch runtime, not ported yet (ROADMAP "
-                   "queue A, item 10)")
+                   "not ported yet (ROADMAP queue A, item 10b)")
 
 
 class SampleWriter:

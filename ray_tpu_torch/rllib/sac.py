@@ -221,10 +221,10 @@ class SAC(Algorithm):
     def training_step(self) -> Dict[str, float]:
         cfg: SACConfig = self.config
         warmup = self._env_steps < cfg.learning_starts
-        out = self.workers[0].sample_transitions_continuous(
-            cfg.rollout_fragment_length, uniform=warmup)
-        batch = self._apply_learner_connector(out["batch"])
-        episode_returns = out["episode_returns"]
+        batch, episode_returns = self._collect(
+            "sample_transitions_continuous", cfg.rollout_fragment_length,
+            uniform=warmup)
+        batch = self._apply_learner_connector(batch)
         self.replay.add_batch(batch)
         self._env_steps += len(batch["rewards"])
 

@@ -13,8 +13,8 @@ Block 0 is the reserved NULL block: never allocated, every unused table
 entry points at it, so the gather/scatter is always in bounds.
 
 Pure Python, the same behaviour as the JAX package's allocator. Not ported
-yet: the object-store arena (`store=`), which needs the port's own object
-store (ROADMAP queue A, item 10).
+yet: the object-store arena (`store=`), which comes with the serve control
+plane on the port's own object store (ROADMAP queue A, item 10c).
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ class KVBlockAllocator:
         if store is not None:
             raise NotImplementedError(
                 "the object-store arena (store=) is not ported yet: "
-                "ROADMAP queue A, item 10")
+                "ROADMAP queue A, item 10c")
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null block)")
         self.num_blocks = num_blocks

@@ -31,9 +31,9 @@ one engine on its tp shard of the weights and the cache, the ranks' ticks
 in lockstep (`dryrun_tp_serving` drives it once).
 
 Not ported yet, raising NotImplementedError where a caller could ask for
-it: the object-store arena (`store=`, ROADMAP queue A, item 10). Serving
+it: the object-store arena (`store=`, ROADMAP queue A, item 10c). Serving
 spans and histograms, `LLMDeployment` and `serve/disagg.py` come with
-item 10.
+item 10c.
 """
 from __future__ import annotations
 
@@ -637,7 +637,7 @@ class PagedLLMEngine(_EngineBase):
         if store is not None:
             raise NotImplementedError(
                 "the object-store arena (store=) is not ported yet: "
-                "ROADMAP queue A, item 10")
+                "ROADMAP queue A, item 10c")
         self.device = resolve_device(device)
         self.cfg = cfg
         # The JAX step casts the fp32 masters to the compute dtype inside

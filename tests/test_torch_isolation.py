@@ -19,14 +19,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # config by attribute).
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "ray_tpu", "transformers")
 # Modules the walk must reach (the context-parallel and pipeline slice, the
-# HF import and RLlib, DreamerV3 and the offline learners included).
+# HF import and RLlib, DreamerV3 and the offline learners, and the task/actor
+# core with its GPU resource primitives included).
 REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.collectives",
             "ray_tpu_torch.models.training", "ray_tpu_torch.models.hf_convert",
             "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.core.learner_group",
             "ray_tpu_torch.rllib.ppo", "ray_tpu_torch.rllib.cql",
             "ray_tpu_torch.rllib.env", "ray_tpu_torch.rllib.rollout_worker",
-            "ray_tpu_torch.rllib.dreamerv3", "ray_tpu_torch.rllib.offline")
+            "ray_tpu_torch.rllib.dreamerv3", "ray_tpu_torch.rllib.offline",
+            "ray_tpu_torch.api", "ray_tpu_torch.actor", "ray_tpu_torch.remote_function",
+            "ray_tpu_torch.runtime_context", "ray_tpu_torch.exceptions",
+            "ray_tpu_torch.core.ids", "ray_tpu_torch.core.object_ref",
+            "ray_tpu_torch.core.serialization", "ray_tpu_torch.core.task_spec",
+            "ray_tpu_torch.core.streaming", "ray_tpu_torch.core.local_engine",
+            "ray_tpu_torch.util.placement_group", "ray_tpu_torch.util.scheduling_strategies",
+            "ray_tpu_torch.util.actor_pool", "ray_tpu_torch.util.queue",
+            "ray_tpu_torch.core.distributed.resources",
+            "ray_tpu_torch.core.distributed.accelerators")
 
 _CHECK = r"""
 import importlib, importlib.abc, pkgutil, sys

@@ -127,10 +127,10 @@ def test_record_rollouts_writes_a_port_ppo_rollouts(fmt, tmp_path):
 
 
 def test_what_reads_offline_shards_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10b"):
         offline.read_samples(str(tmp_path))
     for config in (offline.BCConfig(), offline.MARWILConfig()):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 10b"):
             config.environment("CartPole-v1").offline_data(
                 input_path=str(tmp_path)).resources(device="cpu").build()
     config = offline.MARWILConfig().training(beta=0.5, gamma=0.9, lr=3e-4)

@@ -569,20 +569,142 @@ def test_obs_normalizer_state_survives_save_restore(tmp_path):
 
 
 def test_what_needs_the_runtime_raises():
+    """Remote runners and learners are actors: with the runtime down the
+    algorithm calls `init()`, which refuses (the multi-process runtime is
+    item 10a-ii) rather than fall back to local mode; CQL's offline reader
+    is item 10b."""
+    import ray_tpu_torch
+
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
     base = lambda: ppo.PPOConfig().environment("CartPole-v1").resources(device="cpu")  # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 10a-ii"):
         base().env_runners(num_env_runners=2).build()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        base().evaluation(evaluation_num_env_runners=1).build()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    algo = base().evaluation(evaluation_num_env_runners=1).build()
+    with pytest.raises(NotImplementedError, match="item 10a-ii"):
+        algo.evaluate()
+    with pytest.raises(NotImplementedError, match="item 10a-ii"):
         base().learners(num_learners=2, remote_learners=True).build()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    assert not ray_tpu_torch.is_initialized()
+    with pytest.raises(NotImplementedError, match="item 10b"):
         cql.CQLConfig().environment("Pendulum-v1").offline_data(
             input_path="unused").resources(device="cpu").build()
     with pytest.raises(ValueError, match="remote_learners"):
         base().learners(remote_learners=True).build()
     with pytest.raises(ValueError, match="continuous"):
         sac.SACConfig().environment("CartPole-v1").resources(device="cpu").build()
+
+
+# -- remote runners and learner actors against JAX's, both in local mode -----
+
+@pytest.fixture
+def local_runtimes():
+    """Both runtimes in local mode, shut down whatever happens."""
+    import ray_tpu
+    import ray_tpu_torch
+
+    for rt in (ray_tpu, ray_tpu_torch):
+        if rt.is_initialized():
+            rt.shutdown()
+    try:
+        ray_tpu.init(local_mode=True)
+        ray_tpu_torch.init(local_mode=True)
+        yield ray_tpu, ray_tpu_torch
+    finally:
+        ray_tpu.shutdown()
+        ray_tpu_torch.shutdown()
+
+
+def _actor_instances(rt, cls) -> list:
+    """The instances of `cls` hosted by `rt`'s local engine, in creation order."""
+    return [a.instance for a in rt.api._worker._actors.values()
+            if isinstance(a.instance, cls)]
+
+
+def _sample_with_jax_draws(monkeypatch):
+    """The port's rollout workers draw JAX's actions: each keeps the JAX
+    worker's key chain (PRNGKey(seed + 1), split once a step) and samples
+    argmax(logits + Gumbel) as jax.random.categorical does."""
+    from ray_tpu_torch.rllib import rollout_worker
+    from ray_tpu_torch.rllib.models import apply_mlp_policy
+
+    init = rollout_worker.RolloutWorker.__init__
+
+    def __init__(self, env, num_envs=8, seed=0, **kw):
+        init(self, env, num_envs=num_envs, seed=seed, **kw)
+        self._jax_key = jax.random.PRNGKey(seed + 1)
+
+    @torch.no_grad()
+    def _policy_step(self, obs):
+        self._jax_key, key = jax.random.split(self._jax_key)
+        logits, value = apply_mlp_policy(self._params, self._dev(obs))
+        gumbel = _t(jax.random.gumbel(key, tuple(logits.shape)))
+        actions = torch.argmax(logits + gumbel, -1)
+        logp = torch.log_softmax(logits, -1).gather(1, actions[:, None])[:, 0]
+        return actions, logp, value
+
+    monkeypatch.setattr(rollout_worker.RolloutWorker, "__init__", __init__)
+    monkeypatch.setattr(rollout_worker.RolloutWorker, "_policy_step", _policy_step)
+
+
+@pytest.mark.parametrize("case", ["env_runners", "evaluation", "remote_learners"])
+def test_remote_ppo_matches_jax(local_runtimes, monkeypatch, case):
+    """PPO with 2 remote env runners, with 1 remote evaluation runner, and
+    with 2 remote learner actors (behind 3 remote runners): two iterations
+    from JAX's weights, under JAX's action draws and permutations, agree
+    with JAX's in metrics, weights and (learner actors) the averaged Adam
+    state at 1e-5."""
+    from ray_tpu.rllib.core import learner_group as jlg
+    from ray_tpu_torch.rllib.core import learner_group as tlg
+
+    jrt, trt = local_runtimes
+    _sample_with_jax_draws(monkeypatch)
+
+    # The learners' case splits 3 runners x 3 envs into shards of 5 and 4
+    # envs, so the average's row weights matter.
+    runners, envs = {"env_runners": (2, 4), "evaluation": (0, 4),
+                     "remote_learners": (3, 3)}[case]
+
+    def configure(config):
+        config = (config.environment("CartPole-v1")
+                  .env_runners(num_env_runners=runners, num_envs_per_env_runner=envs,
+                               rollout_fragment_length=16)
+                  .training(minibatch_size=32, num_epochs=2).debugging(seed=0))
+        if case == "evaluation":
+            config = config.evaluation(evaluation_interval=1, evaluation_num_env_runners=1,
+                                       evaluation_duration=3)
+        if case == "remote_learners":
+            config = config.learners(num_learners=2, remote_learners=True)
+        return config
+
+    jalgo = configure(jppo.PPOConfig()).build()
+    talgo = configure(ppo.PPOConfig().resources(device="cpu")).build()
+    talgo.set_weights(_np(jalgo.get_weights()))
+    if case == "remote_learners":
+        jactors = _actor_instances(jrt, jlg._LearnerActor)
+        tactors = _actor_instances(trt, tlg._LearnerActor)
+        assert [a.index for a in jactors] == [a.index for a in tactors] == [0, 1]
+        learners = [(j.learner, t.learner) for j, t in zip(jactors, tactors)]
+    else:
+        learners = [(jalgo.learner, talgo.learner)]
+    for jl, tl in learners:
+        # The port's update draws, before JAX's runs, JAX's permutations
+        # for the same shard.
+        tl.draw_noise = lambda batch, jl=jl: _ppo_noise(jl, batch)
+    for it in range(2):
+        tm = talgo.train()
+        jm = jalgo.train()
+        _close(tm, jm, f"iteration {it} metrics")
+        _close(talgo.get_weights(), _np(jalgo.get_weights()), f"iteration {it} weights")
+        if case == "remote_learners":
+            got, want = talgo.learner.get_state(), jalgo.learner.get_state()
+            _close_opt(got["opt_state"], want["opt_state"], f"iteration {it} adam")
+            for jl, tl in learners:  # every actor holds the average
+                _close(tl.get_weights(), _np(jl.params), f"iteration {it} actor params")
+    if case == "evaluation":
+        assert "evaluation/episode_return_mean" in tm
+    talgo.stop()
+    jalgo.stop()
 
 
 def test_learner_group_of_one_is_the_learner():

@@ -34,7 +34,7 @@ from ray_tpu_torch.serve import (
     KVBlockAllocator, LLMEngine, PagedLLMEngine, prefix_digest)
 
 WAIT_S = 120
-KNOBS = ("kv_block_size", "kv_block_count", "kv_block_prefix_sharing",
+KNOBS = ("address", "kv_block_size", "kv_block_count", "kv_block_prefix_sharing",
          "serve_prefill_chunk", "serve_stream_queue_max",
          "serve_speculation_k", "serve_speculation_ngram")
 
@@ -250,9 +250,9 @@ def test_unported_options_raise(model):
     as the JAX package's takes none (`LLMEngine(mesh=...)` serves
     tensor-parallel: tests/test_torch_{world_one,distributed}.py)."""
     jcfg, jp, tcfg, tp = model
-    with pytest.raises(NotImplementedError, match="queue A, item 10"):
+    with pytest.raises(NotImplementedError, match="queue A, item 10c"):
         KVBlockAllocator(9, 4, store=object())
-    with pytest.raises(NotImplementedError, match="queue A, item 10"):
+    with pytest.raises(NotImplementedError, match="queue A, item 10c"):
         PagedLLMEngine(tcfg, tp, store=object(), device="cpu")
     with pytest.raises(TypeError, match="mesh"):
         JaxEngine(jcfg, jp, mesh=object())
