@@ -180,7 +180,24 @@ Run from a checkout of the repository on a machine with a Hopper card
    (env steps/s, ms an iteration), then the remote learners' update of one
    sampled batch under the same per-actor permutations and its broadcast,
    card against CPU, within RL_CARD_CPU_TOL (weights, metrics, Adam
-   moments), and the remote evaluation runner's greedy returns equal.
+   moments), and the remote evaluation runner's greedy returns equal;
+19. the multi-process runtime on one host (`ray_tpu_torch.init()`): (a)
+   the cluster's start (GCS, node daemon with its time-boxed GPU probe,
+   the worker zygote) in seconds, and `cluster_resources()` with GPU 1.0
+   and an `accelerator_type:` key naming the card; (b) this slice's main
+   path: phase 4's bench-350m train step inside a `@remote(num_gpus=1)`
+   actor in a worker process, in turns with the direct step here for
+   CLUSTER_STEPS steps: every loss bit-equal, 2L / L / L launches a step
+   counted by the worker itself, median step and host ms of each, the ms
+   the runtime adds, whether the zygote forked the worker (with torch
+   loaded) or it was cold-spawned, and the seconds until the actor was
+   ready; (c) the actor's params `put` in the worker and `get`
+   here, then the reverse (GiB/s each way), bit-equal on cuda:0 at both
+   ends; (d) the round trip of a no-op task and of an actor call, median
+   and p99 microseconds over 1,000 of each, beside the in-process
+   engine's; (e) phase 18d's PPO with its runners and learners in worker
+   processes, in turns with local PPO, and the remote learners' update
+   card against CPU within RL_CARD_CPU_TOL.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -190,8 +207,10 @@ steps as `launches_bench_350m_pipeline_train`, of 13b's Ulysses call
 as `launches_ulysses`, of 14a's mesh steps as
 `launches_mixtral_8x7b_mesh_train`, of 15b(i)'s forward as
 `launches_hf_llama3_8b_forward`, of 15a's TINY as
-`launches_tiny_padded` and of 18a's actor steps as
-`launches_bench_350m_actor_train`), and {"ok": true, "device": {...}}.
+`launches_tiny_padded`, of 18a's actor steps as
+`launches_bench_350m_actor_train` and of 19b's worker-process actor steps
+as `launches_bench_350m_cluster_actor_train`), and {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -2353,6 +2372,8 @@ HF_SERVE_LOGITS_TOL = 0.25
 # noise: params, optimizer moments and metrics within atol + rtol * |CPU's|
 # (as the CPU tests hold the port to JAX).
 RL_CARD_CPU_TOL = (1e-5, 1e-5)
+# Phase 19b: steps a turn of the worker actor and the direct step.
+CLUSTER_STEPS = 10
 # Phase 17c: a DreamerV3 update makes ~70,000 categorical draws (argmax of
 # logits + Gumbel noise); where a draw's top two lie closer than the
 # devices' rounding, card and CPU pick different samples and the updates
@@ -3056,7 +3077,7 @@ def _tolerance_share(got: dict, want: dict, tol) -> float:
 
 
 def remote_ppo(torch, rt, seed: int, card: str, device: str = "cuda",
-               iterations: int = 5) -> dict:
+               iterations: int = 5, label: str = "18d") -> dict:
     """Phase 18d: PPO on CartPole at the JAX defaults, 2 remote env runners
     and 2 remote learner actors, in turns with phase 16's local PPO; then
     one remote-learner update card against CPU."""
@@ -3082,7 +3103,7 @@ def remote_ppo(torch, rt, seed: int, card: str, device: str = "cuda",
             ms[who].append((time.perf_counter() - t0) * 1e3)
             returns[who].append(m.get("episode_return_mean"))
             if not all(math.isfinite(v) for k, v in m.items() if "loss" in k):
-                raise AssertionError(f"18d: {who} PPO metrics not finite: {m}")
+                raise AssertionError(f"{label}: {who} PPO metrics not finite: {m}")
     out = {}
     for who, algo in algos.items():
         cfg = algo.config
@@ -3091,6 +3112,10 @@ def remote_ppo(torch, rt, seed: int, card: str, device: str = "cuda",
         out[who] = {"iterations": iterations, "env_steps_per_iteration": steps,
                     "iteration_ms": ms[who], "median_iteration_ms": statistics.median(ms[who]),
                     "env_steps_per_s": steps * iterations / (sum(ms[who]) / 1e3),
+                    # The first iteration also starts the actors (in
+                    # worker processes: CUDA and the imports).
+                    "env_steps_per_s_after_first":
+                        steps * (iterations - 1) / (sum(ms[who][1:]) / 1e3),
                     "episode_return_mean": returns[who]}
         algo.stop()
 
@@ -3122,7 +3147,7 @@ def remote_ppo(torch, rt, seed: int, card: str, device: str = "cuda",
     out["card_vs_cpu"] = {"tolerance_share": share, "params_max_diff": worst,
                           "metrics": metrics, "evaluation": evals,
                           "batch_rows": int(batch["rewards"].size)}
-    log(f"18d [{card}]: PPO CartPole, {iterations} iterations each in turns: local "
+    log(f"{label} [{card}]: PPO CartPole, {iterations} iterations each in turns: local "
         f"{out['local']['env_steps_per_s']:.0f} env steps/s, "
         f"{out['local']['median_iteration_ms']:.1f} ms an iteration; 2 remote runners + 2 "
         f"remote learners {out['remote']['env_steps_per_s']:.0f} env steps/s, "
@@ -3130,9 +3155,9 @@ def remote_ppo(torch, rt, seed: int, card: str, device: str = "cuda",
         f"vs CPU {share:.3g} of RL_CARD_CPU_TOL (params {worst:.3g}), greedy returns "
         f"{evals[device]} / {evals['cpu']}")
     if share > 1.0 or dev["opt_state"]["count"] != cpu["opt_state"]["count"]:
-        raise AssertionError(f"18d: the remote update parts card vs CPU: {share}")
+        raise AssertionError(f"{label}: the remote update parts card vs CPU: {share}")
     if evals[device] != evals["cpu"]:
-        raise AssertionError(f"18d: greedy evaluation parts card vs CPU: {evals}")
+        raise AssertionError(f"{label}: greedy evaluation parts card vs CPU: {evals}")
     return out
 
 
@@ -3151,6 +3176,366 @@ def runtime_phase(torch, models, attention, steps: int, seed: int, card: str) ->
                 "ppo": remote_ppo(torch, rt, seed, card)}
     finally:
         rt.shutdown()
+
+
+class WorkerBench350mTrainer(Bench350mTrainer):
+    """Phase 19b's actor: Bench350mTrainer in a worker process of the
+    cluster, counting its own kernel launches and timing the store from its
+    side."""
+
+    def reset_launches(self) -> None:
+        from ray_tpu_torch.ops import attention
+
+        attention.reset_launches()
+
+    def launches(self) -> dict:
+        from ray_tpu_torch.ops import attention
+
+        return dict(attention.launches)
+
+    def step_counted(self, tokens) -> tuple:
+        """(loss, host ms, this step's launches in this process)."""
+        from ray_tpu_torch.ops import attention
+
+        seen = dict(attention.launches)
+        loss, host_ms = self.step(tokens)
+        return loss, host_ms, {n: attention.launches[n] - seen[n] for n in seen}
+
+    def whereabouts(self) -> dict:
+        import torch
+
+        from ray_tpu_torch import models
+        from ray_tpu_torch.core.distributed import worker_main
+
+        leaves = models.training.tree_leaves(self.state.params)
+        return {"pid": os.getpid(), "started_by": worker_main.STARTED_BY,
+                "torch_at_boot": worker_main.TORCH_AT_BOOT,
+                "device": str(leaves[0].device) if leaves else None,
+                "cuda_devices": torch.cuda.device_count(),
+                "foreign_modules": sorted(m for m in sys.modules if m.split(".")[0]
+                                          in ("jax", "jaxlib", "ray_tpu"))}
+
+    def put_params(self) -> tuple:
+        """([a ref to the params], the put's seconds) from this process."""
+        import torch
+
+        import ray_tpu_torch as rt
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = rt.put(self.state.params)
+        return [ref], time.perf_counter() - t0
+
+    def get_params(self, refs) -> tuple:
+        """(the get's seconds, tensors that differ from this actor's own
+        params or lie elsewhere) for params another process put."""
+        import torch
+
+        import ray_tpu_torch as rt
+        from ray_tpu_torch import models
+
+        t0 = time.perf_counter()
+        got = rt.get(refs[0])
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        get_s = time.perf_counter() - t0
+        mine = models.training.tree_leaves(self.state.params)
+        back = models.training.tree_leaves(got)
+        bad = sum(1 for g, p in zip(back, mine)
+                  if g.device != p.device or g.dtype != p.dtype or not torch.equal(g, p))
+        return get_s, bad + abs(len(back) - len(mine))
+
+
+def cluster_train_turns(torch, models, attention, rt, steps: int, seed: int, card: str,
+                        cfg=None, batch: int = 8, seq: int = 2048,
+                        device: str = "cuda") -> tuple:
+    """Phase 19b: phase 4's train step inside a num_gpus=1 actor in a worker
+    process, in turns with the direct step here on a state of its own from
+    the same seed, on phase 4's batches. The worker's launch counters are
+    its own and come back from the actor. Returns (results, the actor, the
+    direct step's state)."""
+    import numpy as np
+
+    cfg = cfg or models.configs.BENCH_350M
+    init_fn, step_fn = bench_train_step(models, cfg, device)
+    state = init_fn(torch.Generator(device=device).manual_seed(seed))
+    t0 = time.perf_counter()
+    actor = rt.remote(num_gpus=1)(WorkerBench350mTrainer).remote(cfg, seed, device)
+    where = rt.get(actor.whereabouts.remote(), timeout=600)
+    where["ready_s"] = time.perf_counter() - t0
+    corpus = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (steps, batch, seq + 1), dtype=np.int32))
+    if device == "cuda":
+        corpus = corpus.pin_memory()
+    per_step = 1 if device == "cuda" else 0  # the plain versions count nothing
+    expected = {"fa_fwd": 2 * cfg.n_layers * per_step,
+                "fa_bwd_dq": cfg.n_layers * per_step, "fa_bwd_dkv": cfg.n_layers * per_step}
+
+    def direct(tokens) -> tuple:
+        nonlocal state
+        seen = dict(attention.launches)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        host_ms = (time.perf_counter() - t0) * 1e3
+        loss = float(metrics["loss"])
+        return loss, host_ms, {n: attention.launches[n] - seen[n] for n in seen}
+
+    def via_actor(tokens) -> tuple:
+        return rt.get(actor.step_counted.remote(tokens))
+
+    runs = {who: {"losses": [], "step_ms": [], "host_ms": [], "launches_per_step": []}
+            for who in ("direct", "actor")}
+    attention.reset_launches()
+    rt.get(actor.reset_launches.remote())
+    for i in range(steps):
+        tokens = corpus[i].to(device)
+        for who in (("direct", "actor") if i % 2 == 0 else ("actor", "direct")):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            loss, host_ms, launched = (direct if who == "direct" else via_actor)(tokens)
+            _sync(torch, device)
+            run = runs[who]
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            run["host_ms"].append(host_ms)
+            run["losses"].append(loss)
+            run["launches_per_step"].append(launched)
+        d, a = runs["direct"], runs["actor"]
+        log(f"19b step {i}: loss {d['losses'][i]:.6f} direct {d['step_ms'][i]:.1f} ms "
+            f"(host {d['host_ms'][i]:.1f}), worker actor {a['step_ms'][i]:.1f} ms (host "
+            f"{a['host_ms'][i]:.1f}); worker launches {a['launches_per_step'][i]}")
+        if a["losses"][i] != d["losses"][i] or not math.isfinite(d["losses"][i]):
+            raise AssertionError(f"19b step {i}: the worker actor's loss {a['losses'][i]!r} "
+                                 f"is not the direct step's {d['losses'][i]!r}")
+        for who, run in runs.items():
+            if run["launches_per_step"][i] != expected:
+                raise AssertionError(f"19b step {i}: {who} launches "
+                                     f"{run['launches_per_step'][i]} != {expected}")
+    totals = {"direct": dict(attention.launches), "actor": rt.get(actor.launches.remote())}
+    out = {"config": cfg.name, "batch": batch, "seq": seq, "steps": steps,
+           "worker": where, **runs}
+    for who, run in runs.items():
+        run["launches"] = {n: sum(c[n] for c in run["launches_per_step"])
+                           for n in totals[who]}
+        if totals[who] != run["launches"]:
+            raise AssertionError(f"19b: {who} launches outside the steps: {totals[who]}")
+        run["median_step_ms"] = statistics.median(run["step_ms"][1:] or run["step_ms"])
+        run["median_host_ms"] = statistics.median(run["host_ms"][1:] or run["host_ms"])
+    pairs = [a - d for a, d in zip(runs["actor"]["step_ms"][1:], runs["direct"]["step_ms"][1:])]
+    out["launches"] = runs["actor"]["launches"]
+    out["runtime_adds_ms"] = runs["actor"]["median_step_ms"] - runs["direct"]["median_step_ms"]
+    out["runtime_adds_ms_paired_median"] = statistics.median(pairs) if pairs else None
+    if where["foreign_modules"] or where["device"] != (
+            "cuda:0" if device == "cuda" else "cpu"):
+        raise AssertionError(f"19b: the worker actor is not what it should be: {where}")
+    log(f"19b [{card}]: {cfg.name} {batch} x {seq}, {steps} steps in turns, the actor in "
+        f"worker process {where['pid']} ({where['started_by']}: "
+        f"{'forked by the zygote' if where['started_by'] == 'zygote' else 'cold-spawned'}, "
+        f"torch loaded at boot: {where['torch_at_boot']}; ready in "
+        f"{where['ready_s']:.2f} s), "
+        f"losses bit-equal: direct {runs['direct']['median_step_ms']:.2f} ms median (host "
+        f"{runs['direct']['median_host_ms']:.2f}), worker actor "
+        f"{runs['actor']['median_step_ms']:.2f} ms (host "
+        f"{runs['actor']['median_host_ms']:.2f}); the runtime adds "
+        f"{out['runtime_adds_ms']:.3f} ms a step (paired median "
+        f"{out['runtime_adds_ms_paired_median']}); worker launches {out['launches']}")
+    return out, actor, state
+
+
+def cluster_put_get(torch, models, rt, actor, direct_params, card: str,
+                    device: str = "cuda") -> dict:
+    """Phase 19c: the worker actor's params `put` in its process and `get`
+    here, then `put` here and `get` there; each end bit-equal (here to the
+    direct step's params, which the same steps made; there to the actor's
+    own), on cuda:0."""
+    refs, worker_put_s = rt.get(actor.put_params.remote())
+    t0 = time.perf_counter()
+    params = rt.get(refs[0])
+    _sync(torch, device)
+    get_s = time.perf_counter() - t0
+    leaves = models.training.tree_leaves(params)
+    want = models.training.tree_leaves(direct_params)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    dev = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    bad_here = sum(1 for g, p in zip(leaves, want)
+                   if g.device != dev or g.dtype != p.dtype or not torch.equal(g, p))
+    del refs
+    t0 = time.perf_counter()
+    ref = rt.put(params)
+    put_s = time.perf_counter() - t0
+    worker_get_s, bad_there = rt.get(actor.get_params.remote([ref]))
+    del ref, params
+    gib = nbytes / 2**30
+    out = {"params": sum(t.numel() for t in leaves), "bytes": nbytes, "leaves": len(leaves),
+           "worker_put_s": worker_put_s, "driver_get_s": get_s,
+           "driver_put_s": put_s, "worker_get_s": worker_get_s,
+           "worker_to_driver": {"put_gib_per_s": gib / worker_put_s,
+                                "get_gib_per_s": gib / get_s},
+           "driver_to_worker": {"put_gib_per_s": gib / put_s,
+                                "get_gib_per_s": gib / worker_get_s}}
+    log(f"19c [{card}]: {out['params'] / 1e6:.1f} M params ({gib:.3f} GiB, {len(leaves)} "
+        f"tensors): worker put {worker_put_s * 1e3:.1f} ms "
+        f"({out['worker_to_driver']['put_gib_per_s']:.2f} GiB/s), get here "
+        f"{get_s * 1e3:.1f} ms ({out['worker_to_driver']['get_gib_per_s']:.2f} GiB/s); put "
+        f"here {put_s * 1e3:.1f} ms ({out['driver_to_worker']['put_gib_per_s']:.2f} GiB/s), "
+        f"worker get {worker_get_s * 1e3:.1f} ms "
+        f"({out['driver_to_worker']['get_gib_per_s']:.2f} GiB/s); bit-equal on {dev}")
+    if bad_here or bad_there or len(leaves) != len(want):
+        raise AssertionError(f"19c: {bad_here} tensors here and {bad_there} in the worker "
+                             f"came back changed or elsewhere")
+    return out
+
+
+class _Echo:
+    """Phase 19d's actor: one method that does nothing."""
+
+    def ping(self):
+        return None
+
+
+def _noop():
+    return None
+
+
+def round_trips(rt, n: int = 1000) -> dict:
+    """Phase 19d: the median round trip (submit and get) of a task and of an
+    actor call that do nothing, in microseconds, over `n` of each."""
+    task = rt.remote(_noop)
+    actor = rt.remote(_Echo).remote()
+    out = {}
+    for what, call in (("task_us", lambda: task.remote()),
+                       ("actor_call_us", lambda: actor.ping.remote())):
+        for _ in range(20):
+            rt.get(call())
+        us = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            rt.get(call())
+            us.append((time.perf_counter() - t0) * 1e6)
+        out[what] = statistics.median(us)
+        out[what.replace("_us", "_p99_us")] = sorted(us)[int(0.99 * (n - 1))]
+    rt.kill(actor)
+    return out
+
+
+def _host_state(torch) -> dict:
+    """This process's threads, the container's pids and memory, and the
+    card's free memory: what a runtime's fresh processes start with."""
+    import threading
+
+    out = {"threads": threading.active_count(),
+           "os_threads": len(os.listdir("/proc/self/task"))}
+    for name in ("pids.current", "pids.max", "memory.current", "memory.max"):
+        for root in ("/sys/fs/cgroup", "/sys/fs/cgroup/pids", "/sys/fs/cgroup/memory"):
+            try:
+                with open(os.path.join(root, name)) as f:
+                    out[name] = f.read().strip()
+                break
+            except OSError:
+                continue
+    try:
+        import psutil
+
+        vm = psutil.virtual_memory()
+        out["host_available_gib"] = vm.available / 2**30
+    except ImportError:
+        pass
+    if torch.cuda.is_available():
+        free, total = torch.cuda.mem_get_info()
+        out["card_free_gib"] = free / 2**30
+    return out
+
+
+def _dump_node_logs(rt, lines: int = 25) -> None:
+    """The tail of every log file of this cluster's node (the zygote's, the
+    workers'), and its processes, printed for a failure."""
+    import subprocess
+
+    from ray_tpu_torch.util.profiling import node_log_dir
+
+    try:
+        node_ids = [rt.api._worker.node_id]
+    except Exception:  # noqa: BLE001 the runtime may be gone
+        node_ids = []
+    log_root = os.path.dirname(node_log_dir("x" * 12))
+    if os.path.isdir(log_root) and not node_ids:
+        node_ids = os.listdir(log_root)
+    for node_id in node_ids:
+        d = node_log_dir(node_id)
+        for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+            if name.endswith((".log", ".err", ".out")):
+                with open(os.path.join(d, name), errors="replace") as f:
+                    tail = f.readlines()[-lines:]
+                log(f"--- {d}/{name} (last {len(tail)} lines)\n" + "".join(tail))
+    ps = subprocess.run(["ps", "-eo", "pid,ppid,stat,etime,rss,nlwp,args"],
+                        capture_output=True, text=True).stdout
+    log("--- processes\n" + "\n".join(l for l in ps.splitlines()
+                                        if "ray_tpu_torch.core" in l or "PID" in l))
+
+
+def cluster_phase(torch, models, attention, steps: int, seed: int, card: str,
+                  cfg=None, batch: int = 8, seq: int = 2048, device: str = "cuda",
+                  num_cpus: int = 16, trips: int = 1000) -> dict:
+    """Phase 19: the multi-process runtime on one host (a-e), shut down at
+    the end; then 19d's round trips on the in-process engine beside it.
+    `num_cpus` is the logical CPU count: 19e's card-vs-CPU pair holds ten
+    actors of one CPU at once."""
+    import ray_tpu_torch as rt
+
+    host = _host_state(torch)
+    log(f"19 [{card}]: host before init: {host}")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=num_cpus, num_gpus=None if device == "cuda" else 1)
+    init_s = time.perf_counter() - t0
+    out = {"host": host}
+    try:
+        res = rt.cluster_resources()
+        types = [k.split(":", 1)[1] for k in res if k.startswith("accelerator_type:")]
+        out["init"] = {"seconds": init_s, "cluster_resources": res,
+                       "nodes": len(rt.nodes())}
+        log(f"19a [{card}]: ray_tpu_torch.init(num_cpus={num_cpus}) {init_s:.2f} s (GCS, "
+            f"node daemon with its GPU probe, zygote), cluster_resources() {res}")
+        if res.get("GPU") != 1.0 or (device == "cuda" and (
+                len(types) != 1 or types[0] not in torch.cuda.get_device_name(0))):
+            raise AssertionError(f"19a: cluster_resources {res} do not show one card")
+        train, actor, state = cluster_train_turns(torch, models, attention, rt, steps, seed,
+                                                  card, cfg=cfg, batch=batch, seq=seq,
+                                                  device=device)
+        out["actor_train"] = train
+        out["put_get"] = cluster_put_get(torch, models, rt, actor, state.params, card,
+                                         device=device)
+        rt.kill(actor)
+        del state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["round_trips"] = {"cluster": round_trips(rt, trips)}
+        out["ppo"] = remote_ppo(torch, rt, seed, card, device=device, label="19e")
+    except BaseException:
+        log(f"19 [{card}]: failed; host now: {_host_state(torch)}")
+        _dump_node_logs(rt)
+        raise
+    finally:
+        rt.shutdown()
+    rt.init(local_mode=True)
+    try:
+        out["round_trips"]["local"] = round_trips(rt, trips)
+    finally:
+        rt.shutdown()
+    c, loc = out["round_trips"]["cluster"], out["round_trips"]["local"]
+    log(f"19d [{card}]: round trip of a no-op task {c['task_us']:.0f} us median (p99 "
+        f"{c['task_p99_us']:.0f}) across processes vs {loc['task_us']:.0f} us in process; "
+        f"of an actor call {c['actor_call_us']:.0f} us (p99 {c['actor_call_p99_us']:.0f}) "
+        f"vs {loc['actor_call_us']:.0f} us")
+    p = out["ppo"]
+    log(f"19e [{card}]: PPO CartPole in worker processes: 2 remote runners + 2 remote "
+        f"learners {p['remote']['env_steps_per_s']:.0f} env steps/s "
+        f"({p['remote']['env_steps_per_s_after_first']:.0f} after the first iteration, "
+        f"which starts the actors: {p['remote']['iteration_ms'][0]:.0f} ms), "
+        f"{p['remote']['median_iteration_ms']:.1f} ms an iteration; local "
+        f"{p['local']['env_steps_per_s']:.0f} env steps/s "
+        f"({p['local']['env_steps_per_s_after_first']:.0f}), "
+        f"{p['local']['median_iteration_ms']:.1f} ms")
+    return out
 
 
 def import_and_rllib_phase(torch, models, attention, seed: int, card: str) -> dict:
@@ -3232,6 +3617,11 @@ def main() -> int:
     t0 = time.perf_counter()
     runtime = runtime_phase(torch, models, attention, args.steps, args.seed, card)
     log(f"18 task/actor core ({time.perf_counter() - t0:.1f} s): " + json.dumps(runtime))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cluster = cluster_phase(torch, models, attention, CLUSTER_STEPS, args.seed, card)
+    log(f"19 multi-process runtime ({time.perf_counter() - t0:.1f} s): "
+        + json.dumps(cluster))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -3259,6 +3649,10 @@ def main() -> int:
             # This slice's main path: 18a's steps inside the num_gpus=1 actor.
             "launches_bench_350m_actor_train":
                 runtime["actor_train"]["launches"][name],
+            # This slice's main path: 19b's steps inside the num_gpus=1
+            # actor in a worker process, counted by that process.
+            "launches_bench_350m_cluster_actor_train":
+                cluster["actor_train"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

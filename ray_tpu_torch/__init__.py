@@ -15,13 +15,19 @@ decoding and KV import/export, and the block allocator), `rllib` (imported
 on its own) and the task/actor core: `init(local_mode=True)` runs tasks
 and actors on the in-process engine (`core/local_engine.py`), with
 `remote`, `get`, `put`, `wait`, named actors, placement-group records,
-`util` (ActorPool, Queue, placement groups, scheduling strategies) and the
-GPU resource primitives of `core/distributed/` (`resources.py`,
-`accelerators.py`). The multi-process runtime (ROADMAP queue A, item
-10a-ii) and the layers above it (10b-10d) are not ported yet: `init()`
-without `local_mode` raises.
+`util` (ActorPool, Queue, placement groups, scheduling strategies, metrics,
+tracing, profiling) and the single-host multi-process runtime of
+`core/distributed/` (GCS, node daemon, zygote-forked workers, the
+shared-memory object store): `init()` starts such a cluster and
+`init(address=...)` joins one. Multi-node clusters and the client
+(ROADMAP queue A, item 10a-iii) and the layers above the runtime
+(10b-10d) are not ported yet.
+
+A bare `import ray_tpu_torch` stays light, as `import ray_tpu` does: the
+subpackages (`models`, `ops`, `serve`, ...) import on first touch, so the
+control-plane processes never import them.
 """
-from ray_tpu_torch import core, data, exceptions, models, ops, parallel, serve, train
+from ray_tpu_torch import exceptions
 from ray_tpu_torch.actor import ActorClass, ActorHandle, method
 from ray_tpu_torch.api import (
     available_resources,
@@ -43,6 +49,22 @@ from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.streaming import ObjectRefGenerator
 from ray_tpu_torch.remote_function import RemoteFunction
 from ray_tpu_torch.runtime_context import get_runtime_context
+
+_SUBPACKAGES = ("core", "data", "models", "ops", "parallel", "rllib", "serve",
+                "train", "util")
+
+
+def __getattr__(name):
+    """Lazy subpackage access: `ray_tpu_torch.models`, `.ops`, ... import on
+    first touch."""
+    if name in _SUBPACKAGES:
+        import importlib
+
+        mod = importlib.import_module(f"ray_tpu_torch.{name}")
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
+
 
 __all__ = [
     "core", "data", "models", "ops", "parallel", "serve", "train",

@@ -1,11 +1,12 @@
 """Top-level API: init/shutdown/remote/get/put/wait and friends,
 counterpart of `ray_tpu/api.py`.
 
-Only the in-process engine is ported: `init(local_mode=True)` builds the
-port's `LocalCoreWorker`. Connecting to or starting a cluster (an address,
-`RAY_TPU_ADDRESS`, or none) and the `ray-tpu://` client raise: they are
-ROADMAP item 10a-ii, and never fall back to local mode. `shutdown` writes
-no usage snapshot yet (item 10d, with `util/usage_stats`).
+`init(local_mode=True)` builds the in-process `LocalCoreWorker`; `init()`
+starts a single-host cluster (GCS, node daemon, zygote workers, shared-memory
+store) through `core/distributed/driver.py`, and `init(address=...)` or
+`RAY_TPU_ADDRESS` joins a running ray_tpu_torch cluster. The `ray-tpu://`
+client and `register_cross_lang` raise: they are ROADMAP item 10a-iii.
+`shutdown` writes no usage snapshot yet (item 10d, with `util/usage_stats`).
 
 Analogue of the reference driver API (ref: python/ray/_private/worker.py —
 init :1217, get :2574, put :2686, wait :2751, remote :3144, shutdown :1795).
@@ -43,8 +44,8 @@ def _set_global_worker(worker) -> None:
     _worker = worker
 
 
-_NOT_PORTED = ("the multi-process runtime of ray_tpu_torch is not ported yet "
-               "(ROADMAP queue A, item 10a-ii)")
+_NOT_PORTED = ("ray_tpu_torch has not ported it yet (ROADMAP queue A, "
+               "item 10a-iii)")
 
 
 def init(
@@ -64,11 +65,12 @@ def init(
 ):
     """Connect to or start a cluster.
 
-    - ``local_mode=True``: run everything in-process.
     - ``address=None``: start a new local cluster (head + node daemon +
-      workers) and connect to it; ``address="host:port"`` connects to an
-      existing head; ``address="ray-tpu://..."`` drives one through its
-      client proxy. These raise NotImplementedError: ROADMAP item 10a-ii.
+      workers) and connect to it.
+    - ``address="host:port"``: connect to an existing ray_tpu_torch head.
+    - ``local_mode=True``: run everything in-process (debugging).
+    - ``address="ray-tpu://..."`` drives a cluster through its client
+      proxy: raises NotImplementedError (ROADMAP item 10a-iii).
     """
     global _worker
     if address is None:
@@ -86,17 +88,31 @@ def init(
                 "ignore_reinit_error=True to ignore.")
         if address is not None and address.startswith("ray-tpu://"):
             raise NotImplementedError(
-                f"init({address!r}): the ray-tpu:// client drives a cluster, "
-                f"and {_NOT_PORTED}")
-        if not local_mode:
-            what = ("would start a cluster" if address is None
-                    else f"would connect to {address!r}")
-            raise NotImplementedError(
-                f"init() {what}: {_NOT_PORTED}; run in-process with "
-                f"init(local_mode=True)")
-        from ray_tpu_torch.core.local_engine import LocalCoreWorker
+                f"init({address!r}): the ray-tpu:// client proxy: "
+                f"{_NOT_PORTED}")
+        if local_mode:
+            from ray_tpu_torch.core.local_engine import LocalCoreWorker
 
-        _worker = LocalCoreWorker(num_cpus=num_cpus)
+            _worker = LocalCoreWorker(num_cpus=num_cpus)
+        else:
+            from ray_tpu_torch.core.distributed.driver import (
+                connect_or_start_cluster as connect_or_start,
+            )
+
+            _worker = connect_or_start(
+                address=address,
+                num_cpus=num_cpus,
+                num_gpus=num_gpus,
+                resources=resources,
+                namespace=namespace,
+                object_store_memory=object_store_memory,
+                log_to_driver=log_to_driver,
+            )
+        if runtime_env and hasattr(_worker, "job_runtime_env"):
+            # Job-level default env: tasks/actors without an explicit
+            # runtime_env inherit it (ref: job-level runtime_env in
+            # ray.init; per-call specs override wholesale).
+            _worker.job_runtime_env = dict(runtime_env)
         return _worker
 
 
@@ -185,11 +201,11 @@ def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
 
 def register_cross_lang(name: str, func) -> None:
     """Expose a Python function to non-Python clients by name (ref: the
-    reference's cross-language function registry). Raises: the registry
-    lives in the control plane's KV of the multi-process runtime."""
+    reference's cross-language function registry). Raises: the C++ client
+    that resolves it is ROADMAP item 10a-iii."""
     raise NotImplementedError(
-        f"register_cross_lang({name!r}): the registry lives in the control "
-        f"plane's KV, and {_NOT_PORTED}")
+        f"register_cross_lang({name!r}): the cross-language registry: "
+        f"{_NOT_PORTED}")
 
 
 def cluster_resources() -> dict:

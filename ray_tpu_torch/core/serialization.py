@@ -11,7 +11,9 @@ dense tensor travels as one out-of-band buffer of its bytes instead, with
 its dtype, shape, device and requires_grad. A CUDA tensor goes through a
 host copy and comes back on its saved device, as a `jax.Array` comes back
 as an array: there is no device-resident store. A non-leaf tensor that
-requires grad is refused, as torch's own pickling refuses it.
+requires grad is refused, as torch's own pickling refuses it. torch is
+imported only where a tensor is met: a process that has not imported it
+(the control plane) holds no tensor, and pickles with the plain picklers.
 
 Wire format (the same bytes as the JAX package's):
 
@@ -30,10 +32,11 @@ import copyreg
 import io
 import pickle
 import struct
+import sys
 import warnings
 from typing import Any, List, Tuple
 
-import torch
+import cloudpickle
 
 MAGIC = 0x52545055
 _HEADER = struct.Struct("<IBBHQ")
@@ -46,8 +49,9 @@ def _align(n: int) -> int:
     return (n + ALIGN - 1) & ~(ALIGN - 1)
 
 
-def _rebuild_tensor(buf, dtype: torch.dtype, shape: tuple, device: torch.device,
-                    requires_grad: bool) -> torch.Tensor:
+def _rebuild_tensor(buf, dtype, shape: tuple, device, requires_grad: bool):
+    import torch
+
     view = memoryview(buf).cast("B")
     out = torch.empty(view.nbytes, dtype=torch.uint8, device=device)
     if view.nbytes:
@@ -59,7 +63,9 @@ def _rebuild_tensor(buf, dtype: torch.dtype, shape: tuple, device: torch.device,
     return out.view(dtype).reshape(shape).requires_grad_(requires_grad)
 
 
-def _reduce_tensor(t: torch.Tensor):
+def _reduce_tensor(t):
+    import torch
+
     if t.layout != torch.strided or t.is_quantized or t.device.type == "meta":
         return t.__reduce_ex__(5)
     if t.requires_grad and not t.is_leaf:
@@ -72,25 +78,34 @@ def _reduce_tensor(t: torch.Tensor):
                               t.device, t.requires_grad))
 
 
-class _Pickler(pickle.Pickler):
-    dispatch_table = {**copyreg.dispatch_table, torch.Tensor: _reduce_tensor}
+_TENSOR_PICKLERS = None
 
 
-def _cloudpickle_dumps(obj: Any, buffer_callback) -> bytes:
-    import cloudpickle
+def _picklers() -> tuple:
+    """(pickler, cloudpickler) classes: with the tensor reducer once torch
+    is imported in this process, else the plain ones."""
+    global _TENSOR_PICKLERS
+    if _TENSOR_PICKLERS is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return pickle.Pickler, cloudpickle.CloudPickler
 
-    class _CloudPickler(cloudpickle.CloudPickler):
-        dispatch_table = {**cloudpickle.CloudPickler.dispatch_table,
-                          torch.Tensor: _reduce_tensor}
+        class _TensorPickler(pickle.Pickler):
+            dispatch_table = {**copyreg.dispatch_table,
+                              torch.Tensor: _reduce_tensor}
 
-    f = io.BytesIO()
-    _CloudPickler(f, protocol=5, buffer_callback=buffer_callback).dump(obj)
-    return f.getvalue()
+        class _TensorCloudPickler(cloudpickle.CloudPickler):
+            dispatch_table = {**cloudpickle.CloudPickler.dispatch_table,
+                              torch.Tensor: _reduce_tensor}
+
+        _TENSOR_PICKLERS = (_TensorPickler, _TensorCloudPickler)
+    return _TENSOR_PICKLERS
 
 
 def serialize(obj: Any, *, is_error: bool = False) -> Tuple[bytes, List[memoryview]]:
     """Serialize to (header+pickle bytes, out-of-band buffers)."""
     buffers: List[pickle.PickleBuffer] = []
+    plain, cloud = _picklers()
     try:
         # Plain pickle first: the C pickler is ~10x cloudpickle and
         # handles the common case (task args/results are data, not
@@ -100,13 +115,15 @@ def serialize(obj: Any, *, is_error: bool = False) -> Tuple[bytes, List[memoryvi
         # in a worker process, where cloudpickle's by-value pickling is
         # required (same split cloudpickle itself makes).
         f = io.BytesIO()
-        _Pickler(f, protocol=5, buffer_callback=buffers.append).dump(obj)
+        plain(f, protocol=5, buffer_callback=buffers.append).dump(obj)
         pkl = f.getvalue()
         if b"__main__" in pkl or b"__mp_main__" in pkl:
             raise ValueError("main-module reference")
     except Exception:  # noqa: BLE001
         buffers.clear()
-        pkl = _cloudpickle_dumps(obj, buffers.append)
+        f = io.BytesIO()
+        cloud(f, protocol=5, buffer_callback=buffers.append).dump(obj)
+        pkl = f.getvalue()
     views = [b.raw() for b in buffers]
     flags = FLAG_ERROR if is_error else 0
     head = _HEADER.pack(MAGIC, 1, flags, len(views), len(pkl))
@@ -194,3 +211,9 @@ def deserialize(data) -> Any:
     if flags & FLAG_ERROR:
         raise obj
     return obj
+
+
+def is_error_payload(data) -> bool:
+    view = memoryview(data)
+    _, _, flags, _, _ = _HEADER.unpack_from(view, 0)
+    return bool(flags & FLAG_ERROR)

@@ -7,8 +7,8 @@ the caller can iterate BEFORE the task finishes — the substrate its Data
 and Serve streaming paths build on.
 
 The local engine hands out a `LocalRefGenerator`; `ObjectRefGenerator` is
-the multi-process engine's (ROADMAP item 10a-ii), which this package does
-not have yet. Divergence from the reference there: the reference streams
+the multi-process engine's (`core/distributed/core_worker.py`). Divergence
+from the reference there: the reference streams
 items through the owner's report RPC; here drivers are not RPC servers (`caller_address` is an
 opaque owner id), so in-flight items are discovered through the object
 directory — the worker stores each yielded value and registers its

@@ -12,9 +12,8 @@ CPU), or on the learner mesh's device type.
 Remote env runners, remote evaluation runners and remote learners are
 actors of the runtime: as in the JAX package, building such an algorithm
 calls `init(ignore_reinit_error=True)` when the runtime is down, which
-raises until the multi-process runtime is ported (ROADMAP queue A, item
-10a-ii); run `ray_tpu_torch.init(local_mode=True)` first to host them in
-this process.
+starts a single-host cluster whose worker processes host them; run
+`ray_tpu_torch.init(local_mode=True)` first to host them in this process.
 """
 from __future__ import annotations
 
@@ -411,9 +410,8 @@ class Algorithm:
 
 
 def _remote_runner_class(config: AlgorithmConfig):
-    """RolloutWorker as an actor class, starting the runtime as the JAX
-    package does when it is down (which raises until the multi-process
-    runtime is ported: run `init(local_mode=True)` first)."""
+    """RolloutWorker as an actor class, starting the runtime (a single-host
+    cluster) as the JAX package does when it is down."""
     from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
 
     if not ray_tpu_torch.is_initialized():

@@ -4,9 +4,10 @@
 Analogue of the reference API (ref: python/ray/util/placement_group.py —
 placement_group() :145, PlacementGroup handle :41; strategies
 PACK/SPREAD/STRICT_PACK/STRICT_SPREAD). The local engine keeps records and
-creates a group at once. The slice-atomic gang (`tpu_slice_placement_group`
-in the JAX package) and its GPU counterpart wait for a scheduler that
-honours them (ROADMAP queue A, item 10a-ii).
+creates a group at once; the multi-process runtime reserves the bundles
+through the GCS. The slice-atomic gang (`tpu_slice_placement_group` in the
+JAX package) and its GPU counterpart, a host-local GPU gang, are ROADMAP
+queue A, item 10a-iii.
 """
 from __future__ import annotations
 

@@ -1,0 +1,162 @@
+"""Distributed tracing: spans with cross-task context propagation.
+
+The port's copy of `ray_tpu/util/tracing.py`,
+importing `ray_tpu_torch` only.
+
+Analogue of the reference's OpenTelemetry tracing hooks
+(ref: python/ray/util/tracing/tracing_helper.py — _OpenTelemetryProxy
+:34, `_DictPropagator` :165 injecting the span context into the
+TaskSpec, extracted around task execution in _raylet.pyx). Here the span
+model is self-contained (no opentelemetry dependency in a zero-egress
+image): spans carry trace_id/span_id/parent_id, the current context
+propagates via a contextvar, `inject()/extract()` move it through task
+specs, and finished spans flush into the GCS TaskEvents sink (kind
+"span"). An OTLP-shaped exporter can be plugged via `set_exporter`.
+The serving- and train-plane spans of the JAX package wait for ROADMAP
+queue A, items 10c and 10d.
+
+Opt-in: RAY_TPU_TRACING_ENABLED=1 (ref: ray.init(_tracing_startup_hook)).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import threading
+import time
+import uuid
+from typing import Any, Callable, Dict, List, Optional
+
+from ray_tpu_torch.core.config import get_config
+
+_current: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar(
+    "ray_tpu_span", default=None)
+_buffer: List[dict] = []
+_buffer_lock = threading.Lock()
+_exporter: Optional[Callable[[List[dict]], None]] = None
+MAX_BUFFER = 10000
+# Which node this process runs on (set by the core worker at init):
+# stamped onto finished spans so the timeline can place them under the
+# emitting node/worker rows instead of a synthetic trace_id process.
+_node_id: Optional[str] = None
+
+
+def set_node_context(node_id: str) -> None:
+    global _node_id
+    _node_id = node_id
+
+
+def enabled() -> bool:
+    return get_config().tracing_enabled
+
+
+class Span:
+    __slots__ = ("trace_id", "span_id", "parent_id", "name", "attrs",
+                 "start", "end")
+
+    def __init__(self, name: str, trace_id: str, parent_id: Optional[str],
+                 attrs: Optional[Dict[str, Any]] = None):
+        self.trace_id = trace_id
+        self.span_id = uuid.uuid4().hex[:16]
+        self.parent_id = parent_id
+        self.name = name
+        self.attrs = attrs or {}
+        self.start = time.time()
+        self.end: Optional[float] = None
+
+    def finish(self, end_ts: Optional[float] = None) -> dict:
+        import os
+
+        self.end = time.time() if end_ts is None else end_ts
+        record = {
+            "kind": "span",
+            "name": self.name,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "start_ts": self.start,
+            "end_ts": self.end,
+            "node_id": _node_id,
+            "pid": os.getpid(),
+            "attrs": self.attrs,
+        }
+        with _buffer_lock:
+            _buffer.append(record)
+            if len(_buffer) > MAX_BUFFER:
+                del _buffer[:MAX_BUFFER // 2]
+        return record
+
+
+@contextlib.contextmanager
+def span(name: str, **attrs):
+    """Open a span under the current context (no-op when tracing is
+    off). Usage: `with tracing.span("preprocess", rows=n): ...`"""
+    if not enabled():
+        yield None
+        return
+    parent = _current.get()
+    s = Span(name,
+             trace_id=(parent.trace_id if parent else uuid.uuid4().hex),
+             parent_id=(parent.span_id if parent else None),
+             attrs=attrs)
+    token = _current.set(s)
+    try:
+        yield s
+    finally:
+        _current.reset(token)
+        s.finish()
+
+
+def inject() -> Optional[Dict[str, str]]:
+    """Serialize the current span context for a TaskSpec (ref:
+    _DictPropagator.inject_current_context)."""
+    if not enabled():
+        return None
+    cur = _current.get()
+    if cur is None:
+        return None
+    return {"trace_id": cur.trace_id, "span_id": cur.span_id}
+
+
+@contextlib.contextmanager
+def extract_and_span(ctx: Optional[Dict[str, str]], name: str, **attrs):
+    """Open an execution-side span whose parent is the submitted
+    context (ref: the execute-side wrapper in _raylet.pyx)."""
+    if not enabled() or ctx is None:
+        yield None
+        return
+    s = Span(name, trace_id=ctx["trace_id"],
+             parent_id=ctx.get("span_id"), attrs=attrs)
+    token = _current.set(s)
+    try:
+        yield s
+    finally:
+        _current.reset(token)
+        s.finish()
+
+
+def drain() -> List[dict]:
+    """Take all finished spans (the worker's event flusher ships them to
+    the GCS TaskEvents sink)."""
+    global _buffer
+    with _buffer_lock:
+        out, _buffer = _buffer, []
+    if _exporter is not None and out:
+        try:
+            _exporter(out)
+        except Exception:  # noqa: BLE001 exporter must not break flushing
+            pass
+    return out
+
+
+def has_pending() -> bool:
+    """Cheap liveness probe for the flush loop's idle backoff: a parked
+    worker that suddenly mints spans must wake within one flush period,
+    not sit out a backed-off sleep."""
+    return bool(_buffer)
+
+
+def set_exporter(fn: Optional[Callable[[List[dict]], None]]) -> None:
+    """Install an exporter invoked with each drained span batch (e.g. an
+    OTLP forwarder); pass None to remove."""
+    global _exporter
+    _exporter = fn

@@ -10,7 +10,8 @@ Around them: every exception class pickles as JAX's does, `TaskOptions`
 asks for "GPU" where JAX asks for "TPU", `resources.py`'s set math and
 detection (probe stubbed) match JAX's under the override knobs, a tensor
 comes back from the store as it went in, a task runs under its caller's
-grad and inference mode, and what needs the multi-process runtime raises.
+grad and inference mode, what the port has not ported yet raises, and
+`init()` starts a multi-process cluster that an address joins.
 
 Every run shuts its runtime down in `finally`, and a runtime left up by an
 earlier test file is shut down first: a leaked `init` poisons the xdist
@@ -635,37 +636,33 @@ def test_a_ref_inside_a_stored_object_keeps_its_object():
 
 
 def test_what_needs_the_multiprocess_runtime_raises(monkeypatch):
+    """What the port has not ported raises and names its ROADMAP item: the
+    ray-tpu:// client and the cross-language registry (10a-iii), DAG nodes
+    (10c). `init()` and an implicit init start a cluster instead
+    (`test_init_starts_a_cluster_and_an_address_joins_it`)."""
     for runtime in RUNTIMES:
         if runtime.is_initialized():
             runtime.shutdown()
     try:
-        with pytest.raises(NotImplementedError, match="item 10a-ii"):
-            ray_tpu_torch.init()
-        with pytest.raises(NotImplementedError, match="item 10a-ii"):
-            ray_tpu_torch.init("10.0.0.1:6379", num_gpus=1)
-        with pytest.raises(NotImplementedError, match="item 10a-ii"):
+        with pytest.raises(NotImplementedError, match="item 10a-iii"):
             ray_tpu_torch.init("ray-tpu://head:10001")
-        monkeypatch.setenv("RAY_TPU_ADDRESS", "head:6379")
+        monkeypatch.setenv("RAY_TPU_ADDRESS", "ray-tpu://head:10001")
         reset_config()
-        with pytest.raises(NotImplementedError, match="'head:6379'.*item 10a-ii"):
+        with pytest.raises(NotImplementedError, match="'ray-tpu://head:10001'.*item 10a-iii"):
             ray_tpu_torch.init()
         monkeypatch.delenv("RAY_TPU_ADDRESS")
         reset_config()
+        assert not ray_tpu_torch.is_initialized()
 
         @ray_tpu_torch.remote
         def f():
             return 1
 
-        # An implicit init is the same refusal, not local mode.
-        with pytest.raises(NotImplementedError, match="item 10a-ii"):
-            f.remote()
-        assert not ray_tpu_torch.is_initialized()
-
         ray_tpu_torch.init(local_mode=True)
         with pytest.raises(RuntimeError, match="already been called"):
             ray_tpu_torch.init(local_mode=True)
         assert ray_tpu_torch.init(local_mode=True, ignore_reinit_error=True) is not None
-        with pytest.raises(NotImplementedError, match="item 10a-ii"):
+        with pytest.raises(NotImplementedError, match="item 10a-iii"):
             ray_tpu_torch.register_cross_lang("f", lambda: 1)
 
         @ray_tpu_torch.remote
@@ -677,6 +674,56 @@ def test_what_needs_the_multiprocess_runtime_raises(monkeypatch):
             with pytest.raises(NotImplementedError, match="item 10c"):
                 bind()
         assert ray_tpu_torch.get_runtime_context().get_node_id() == "local"
+    finally:
+        ray_tpu_torch.shutdown()
+        reset_config()
+
+
+_JOIN_BY_ENV = (
+    "import sys; sys.path.insert(0, %r); import ray_tpu_torch as rt; "
+    "rt.init(); print('JOINED', rt.get(rt.remote(lambda: 6 * 7).remote()), "
+    "len(rt.nodes())); rt.shutdown()")
+
+
+def test_init_starts_a_cluster_and_an_address_joins_it():
+    """`init()` starts a single-host cluster (no local-mode fallback), as an
+    implicit init does; a process with RAY_TPU_ADDRESS set joins it, and
+    `init` with an address that no ray_tpu_torch head answers raises."""
+    import os
+    import subprocess
+    import sys
+
+    from ray_tpu_torch.core.distributed.core_worker import DistributedCoreWorker
+
+    for runtime in RUNTIMES:
+        if runtime.is_initialized():
+            runtime.shutdown()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        with pytest.raises(RuntimeError, match="is not a ray_tpu_torch head"):
+            ray_tpu_torch.init("127.0.0.1:1")
+        assert not ray_tpu_torch.is_initialized()
+
+        @ray_tpu_torch.remote
+        def f():
+            return 1
+
+        assert ray_tpu_torch.get(f.remote()) == 1   # an implicit init
+        assert isinstance(ray_tpu_torch.api._worker, DistributedCoreWorker)
+        ray_tpu_torch.shutdown()
+
+        worker = ray_tpu_torch.init(num_cpus=2, num_gpus=1)
+        assert isinstance(worker, DistributedCoreWorker)
+        assert ray_tpu_torch.cluster_resources()["GPU"] == 1.0
+        assert ray_tpu_torch.get_runtime_context().get_node_id() != "local"
+        with pytest.raises(RuntimeError, match="already been called"):
+            ray_tpu_torch.init()
+        env = dict(os.environ, RAY_TPU_ADDRESS=worker.gcs_address)
+        joined = subprocess.run([sys.executable, "-c", _JOIN_BY_ENV % repo],
+                                capture_output=True, text=True, timeout=120,
+                                env=env, cwd=repo)
+        assert joined.returncode == 0, joined.stdout + joined.stderr
+        assert "JOINED 42 1" in joined.stdout
     finally:
         ray_tpu_torch.shutdown()
         reset_config()

@@ -19,8 +19,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # config by attribute).
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "ray_tpu", "transformers")
 # Modules the walk must reach (the context-parallel and pipeline slice, the
-# HF import and RLlib, DreamerV3 and the offline learners, and the task/actor
-# core with its GPU resource primitives included).
+# HF import and RLlib, DreamerV3 and the offline learners, the task/actor
+# core with its GPU resource primitives, and the multi-process runtime
+# included).
 REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.collectives",
             "ray_tpu_torch.models.training", "ray_tpu_torch.models.hf_convert",
@@ -36,7 +37,15 @@ REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             "ray_tpu_torch.util.placement_group", "ray_tpu_torch.util.scheduling_strategies",
             "ray_tpu_torch.util.actor_pool", "ray_tpu_torch.util.queue",
             "ray_tpu_torch.core.distributed.resources",
-            "ray_tpu_torch.core.distributed.accelerators")
+            "ray_tpu_torch.core.distributed.accelerators",
+            "ray_tpu_torch.core.object_store", "ray_tpu_torch.core.store_build",
+            "ray_tpu_torch.runtime_env", "ray_tpu_torch.util.metrics",
+            "ray_tpu_torch.util.tracing", "ray_tpu_torch.util.profiling",
+            *(f"ray_tpu_torch.core.distributed.{m}" for m in (
+                "wire", "protocol", "rpc", "scheduler", "gcs_storage", "syncer",
+                "task_events", "log_monitor", "transfer", "pull_manager",
+                "runtime_env_agent", "gcs_server", "worker_zygote", "worker_main",
+                "core_worker", "node_daemon", "driver")))
 
 _CHECK = r"""
 import importlib, importlib.abc, pkgutil, sys

@@ -569,23 +569,15 @@ def test_obs_normalizer_state_survives_save_restore(tmp_path):
 
 
 def test_what_needs_the_runtime_raises():
-    """Remote runners and learners are actors: with the runtime down the
-    algorithm calls `init()`, which refuses (the multi-process runtime is
-    item 10a-ii) rather than fall back to local mode; CQL's offline reader
-    is item 10b."""
+    """What the port has not ported raises: CQL's offline reader is item
+    10b, and configs that contradict themselves are errors. Remote runners
+    and learners no longer raise: with the runtime down, building them
+    starts a cluster (`test_remote_ppo_across_processes_matches_jax`)."""
     import ray_tpu_torch
 
     if ray_tpu_torch.is_initialized():
         ray_tpu_torch.shutdown()
     base = lambda: ppo.PPOConfig().environment("CartPole-v1").resources(device="cpu")  # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 10a-ii"):
-        base().env_runners(num_env_runners=2).build()
-    algo = base().evaluation(evaluation_num_env_runners=1).build()
-    with pytest.raises(NotImplementedError, match="item 10a-ii"):
-        algo.evaluate()
-    with pytest.raises(NotImplementedError, match="item 10a-ii"):
-        base().learners(num_learners=2, remote_learners=True).build()
-    assert not ray_tpu_torch.is_initialized()
     with pytest.raises(NotImplementedError, match="item 10b"):
         cql.CQLConfig().environment("Pendulum-v1").offline_data(
             input_path="unused").resources(device="cpu").build()
@@ -593,6 +585,122 @@ def test_what_needs_the_runtime_raises():
         base().learners(remote_learners=True).build()
     with pytest.raises(ValueError, match="continuous"):
         sac.SACConfig().environment("CartPole-v1").resources(device="cpu").build()
+    assert not ray_tpu_torch.is_initialized()
+
+
+# -- remote runners and learner actors in worker processes -------------------
+
+def _gumbel_by_seed(seeds, num_envs, num_actions, draws=96):
+    """Each JAX rollout worker's action noise: its key chain (PRNGKey(seed +
+    1), split once a policy step) drawing Gumbel as jax.random.categorical
+    does; numpy arrays, so the port's workers need no JAX."""
+    out = {}
+    for seed in seeds:
+        key, noise = jax.random.PRNGKey(seed + 1), []
+        for _ in range(draws):
+            key, sub = jax.random.split(key)
+            noise.append(np.asarray(jax.random.gumbel(sub, (num_envs, num_actions))))
+        out[seed] = noise
+    return out
+
+
+def _jax_draw_runner(gumbel_by_seed):
+    """A port RolloutWorker that samples with JAX's Gumbel draws. Defined in a
+    function, so cloudpickle ships it by value to the worker processes."""
+    from ray_tpu_torch.rllib import rollout_worker
+    from ray_tpu_torch.rllib.models import apply_mlp_policy
+
+    class JaxDrawRunner(rollout_worker.RolloutWorker):
+        def __init__(self, env, num_envs=8, seed=0, **kw):
+            super().__init__(env, num_envs=num_envs, seed=seed, **kw)
+            self._gumbel = list(gumbel_by_seed[seed])
+
+        def _policy_step(self, obs):
+            with torch.no_grad():
+                logits, value = apply_mlp_policy(self._params, self._dev(obs))
+                gumbel = torch.as_tensor(self._gumbel.pop(0), dtype=logits.dtype,
+                                         device=logits.device)
+                actions = torch.argmax(logits + gumbel, -1)
+                logp = torch.log_softmax(logits, -1).gather(1, actions[:, None])[:, 0]
+            return actions, logp, value
+
+    return JaxDrawRunner
+
+
+def test_remote_ppo_across_processes_matches_jax(monkeypatch):
+    """PPO with 2 remote env runners and 2 remote learner actors, each in a
+    worker process of its runtime's cluster, which building the algorithm
+    starts (one runtime at a time). JAX's run records its weights, metrics,
+    averaged Adam state and each learner actor's permutations (drawn from
+    the actor's key, read before each update); the port's, from JAX's
+    weights, under JAX's action draws and permutations, agrees at 1e-5."""
+    import types
+
+    import ray_tpu
+    import ray_tpu_torch
+    from ray_tpu.core.distributed.core_worker import DistributedCoreWorker as JaxWorker
+    from ray_tpu_torch.core.distributed.core_worker import DistributedCoreWorker
+    from ray_tpu_torch.rllib import algorithm as talgorithm
+
+    for rt in (ray_tpu, ray_tpu_torch):
+        if rt.is_initialized():
+            rt.shutdown()
+
+    def configure(config):
+        return (config.environment("CartPole-v1")
+                .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                             rollout_fragment_length=16)
+                .training(minibatch_size=32, num_epochs=2).debugging(seed=0)
+                .learners(num_learners=2, remote_learners=True))
+
+    record = {"metrics": [], "weights": [], "adam": [], "noise": []}
+    try:
+        jalgo = configure(jppo.PPOConfig()).build()
+        assert isinstance(ray_tpu.api._worker, JaxWorker)
+        start = _np(jalgo.get_weights())
+        group, update = jalgo.learner, jalgo.learner.update
+
+        def recorded_update(batch):
+            states = ray_tpu.get([a.get_state.remote() for a in group._actors])
+            record["noise"].append([
+                _ppo_noise(types.SimpleNamespace(_rng=st["rng"], hp=types.SimpleNamespace(
+                    num_epochs=2)), shard)
+                for st, shard in zip(states, group._split(batch))])
+            return update(batch)
+
+        group.update = recorded_update
+        for _ in range(2):
+            record["metrics"].append(jalgo.train())
+            record["weights"].append(_np(jalgo.get_weights()))
+            record["adam"].append(group.get_state()["opt_state"])
+        jalgo.stop()
+    finally:
+        ray_tpu.shutdown()
+
+    gumbel = _gumbel_by_seed([1000, 2000], num_envs=4, num_actions=2)
+    runner = _jax_draw_runner(gumbel)
+    make_class = talgorithm._remote_runner_class
+
+    def remote_runner_class(config):
+        make_class(config)     # starts the runtime, as the algorithm does
+        return ray_tpu_torch.remote(num_cpus=config.num_cpus_per_env_runner)(runner)
+
+    monkeypatch.setattr(talgorithm, "_remote_runner_class", remote_runner_class)
+    try:
+        talgo = configure(ppo.PPOConfig().resources(device="cpu")).build()
+        assert isinstance(ray_tpu_torch.api._worker, DistributedCoreWorker)
+        talgo.set_weights(start)
+        update = talgo.learner.update
+        noises = iter(record["noise"])
+        talgo.learner.update = lambda batch, noise=None: update(batch, next(noises))
+        for it in range(2):
+            _close(talgo.train(), record["metrics"][it], f"iteration {it} metrics")
+            _close(talgo.get_weights(), record["weights"][it], f"iteration {it} weights")
+            _close_opt(talgo.learner.get_state()["opt_state"], record["adam"][it],
+                       f"iteration {it} adam")
+        talgo.stop()
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 # -- remote runners and learner actors against JAX's, both in local mode -----

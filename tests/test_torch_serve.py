@@ -11,6 +11,8 @@ The engine tests named in `test_tiny_moe_engines_match_jax` run again on
 TINY_MOE (4 experts, top 2), whose MLPs route dropless in both packages.
 """
 import dataclasses
+import pathlib
+import re
 import threading
 
 import jax
@@ -34,9 +36,47 @@ from ray_tpu_torch.serve import (
     KVBlockAllocator, LLMEngine, PagedLLMEngine, prefix_digest)
 
 WAIT_S = 120
+# The port's whole knob registry: the serving engines' knobs, `address`,
+# and those the multi-process runtime reads, each one of JAX's.
 KNOBS = ("address", "kv_block_size", "kv_block_count", "kv_block_prefix_sharing",
          "serve_prefill_chunk", "serve_stream_queue_max",
-         "serve_speculation_k", "serve_speculation_ngram")
+         "serve_speculation_k", "serve_speculation_ngram",
+         # control plane and node daemon
+         "gcs_storage", "gcs_fsync", "health_check_initial_delay_ms",
+         "health_check_period_ms", "health_check_failure_threshold",
+         "syncer_enabled", "syncer_report_interval_ms", "syncer_keepalive_ms",
+         "syncer_broadcast_interval_ms", "syncer_heartbeat_fallback_factor",
+         "heartbeat_backoff_cap_s", "scheduler_spread_threshold",
+         "actor_schedule_concurrency", "actor_creation_timeout_s",
+         "pg_prepare_ttl_s", "pg_prewarm_enabled",
+         # worker pool and zygote
+         "num_workers_soft_limit", "worker_lease_timeout_ms",
+         "idle_worker_killing_time_threshold_ms", "worker_register_timeout_s",
+         "zygote_enabled", "zygote_max", "zygote_preload",
+         "zygote_boot_wait_s", "worker_prestart_enabled",
+         "zygote_prestart_watermark", "zygote_warm_pool_cap",
+         "task_lane_enabled", "task_lane_min_calls", "task_lane_max_inflight",
+         "task_lane_idle_s",
+         # objects and transfers
+         "object_store_memory", "max_inline_object_size", "put_direct_min_bytes",
+         "lineage_pinning_enabled", "max_lineage_bytes", "store_lib",
+         "object_transfer_chunk_bytes", "transfer_window_bytes",
+         "transfer_per_source_inflight", "transfer_chunk_timeout_s",
+         "transfer_partial_ttl_s", "transfer_broadcast_fanout",
+         "transfer_push_pipeline", "transfer_raw_frames",
+         # observability and diagnosis
+         "metrics_export_port", "metrics_gcs_export_port", "metrics_rpc_enabled",
+         "metrics_loop_probe_ms", "metrics_sync_interval_ms",
+         "task_events_enabled", "task_events_flush_ms", "task_events_max_buffer",
+         "task_events_profile", "task_events_max_per_job",
+         "task_events_finished_job_ttl_s", "task_events_resources",
+         "task_events_device_mem", "tracing_enabled", "stack_dump_enabled",
+         "hang_threshold_s", "hang_poll_interval_s", "hang_dump_max_bytes",
+         "hang_dump_min_interval_s", "memory_monitor_refresh_ms",
+         "memory_usage_threshold", "gcs_attribution_enabled",
+         "gcs_slow_handler_ms", "gcs_loop_audit_ms",
+         "gcs_flight_recorder_enabled", "gcs_flight_max_events",
+         "log_dir", "log_to_driver")
 
 
 @pytest.fixture(scope="module")
@@ -118,9 +158,16 @@ def _concurrently(eng, jobs):
 # ---------------------------------------------------------------------------
 def test_knobs_match_the_jax_registry(monkeypatch):
     port, ref = torch_config.Config(), jax_config.Config()
+    assert len(set(KNOBS)) == len(KNOBS)
     assert {f.name for f in dataclasses.fields(port)} == set(KNOBS)
     for name in KNOBS:
         assert getattr(port, name) == getattr(ref, name), name
+    # Every knob is read somewhere in the port besides its registry.
+    root = pathlib.Path(torch_config.__file__).parents[1]
+    sources = "\n".join(p.read_text() for p in root.rglob("*.py")
+                        if p.name != "config.py" and "_build" not in p.parts)
+    unread = [n for n in KNOBS if not re.search(rf"\b{n}\b", sources)]
+    assert not unread, unread
     monkeypatch.setenv("RAY_TPU_KV_BLOCK_SIZE", "32")
     monkeypatch.setenv("RAY_TPU_KV_BLOCK_PREFIX_SHARING", "0")
     torch_config.reset_config()
