@@ -197,7 +197,28 @@ Run from a checkout of the repository on a machine with a Hopper card
    and p99 microseconds over 1,000 of each, beside the in-process
    engine's; (e) phase 18d's PPO with its runners and learners in worker
    processes, in turns with local PPO, and the remote learners' update
-   card against CPU within RL_CARD_CPU_TOL.
+   card against CPU within RL_CARD_CPU_TOL;
+20. the serve control plane on that runtime (`serve_plane_phase`): (a)
+   `serve.run(serve.deployment(LLMDeployment).options(ray_actor_options=
+   {"num_gpus": 1}).bind("llama3-8b", num_slots=8, max_len=2048,
+   seed=--seed), _http=True, route_prefix="/llm")` at full width and
+   depth with the knob defaults, and the seconds until `serve.status()`
+   shows it ready; (b) phase 6's eight requests at once, four streamed
+   over HTTP as JSONL and four through the handle: all finish, the
+   replica's own counters show no attention launch, every stream rides
+   the rails (shared-memory rings; the replica's lane counts them); client
+   TTFT and decode tokens/s a request beside phase 6's in-process ones;
+   (c) the KV pool's arena (bytes, whether in the store), and the store's
+   used bytes and objects back at their baseline once the deployment goes
+   and after `serve.shutdown()`; (d) a `disagg=True` deployment: one fresh
+   1900-token greedy prompt must be prefilled by the prefill actor
+   (`disagg_prefills` 1) and give the unified deployment's tokens for it
+   served alone; the card's peak memory over every process; (e) the
+   median round trip of a 1-token request over the handle and over HTTP
+   beside phase 6's `engine.generate`. After the cluster is down, the
+   greedy tokens (and the alone prompt's) are held to `forward`
+   teacher-forced as in phase 6, on weights remade from the seed whose
+   `params_digest` must equal the replica's `weights_digest()`.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -208,8 +229,9 @@ as `launches_ulysses`, of 14a's mesh steps as
 `launches_mixtral_8x7b_mesh_train`, of 15b(i)'s forward as
 `launches_hf_llama3_8b_forward`, of 15a's TINY as
 `launches_tiny_padded`, of 18a's actor steps as
-`launches_bench_350m_actor_train` and of 19b's worker-process actor steps
-as `launches_bench_350m_cluster_actor_train`), and {"ok": true,
+`launches_bench_350m_actor_train`, of 19b's worker-process actor steps
+as `launches_bench_350m_cluster_actor_train` and of phase 20's replica as
+`launches_llama3_8b_serve_replica`), and {"ok": true,
 "device": {...}}.
 """
 from __future__ import annotations
@@ -723,7 +745,7 @@ def reprefill_teacher(torch, models, params, seq, cfg):
 
 def forward_agreement(torch, models, params, cfg, prompts, outs, card: str,
                       on_logits=None, teacher=forward_teacher, margin=SERVE_MARGIN,
-                      max_beyond_share=0.0) -> dict:
+                      max_beyond_share=0.0, device: str = "cuda") -> dict:
     """Greedy outputs against `teacher` (default `forward`) teacher-forced at
     the compute dtype over prompt + output: at each generated position the
     output must be the teacher's argmax wherever its top-2 gap exceeds
@@ -733,7 +755,7 @@ def forward_agreement(torch, models, params, cfg, prompts, outs, card: str,
     checks = []
     with torch.no_grad():
         for i, (p, out) in enumerate(zip(prompts, outs)):
-            seq = torch.tensor(p + out[:-1], dtype=torch.long, device="cuda")
+            seq = torch.tensor(p + out[:-1], dtype=torch.long, device=device)
             logits = teacher(torch, models, params, seq, cfg)
             top = logits[len(p) - 1:].float().topk(2, dim=-1)
             gap = (top.values[:, 0] - top.values[:, 1]).cpu()
@@ -839,12 +861,20 @@ def decode_burst_profile(torch, models, engine, cfg, card: str,
     return {"live_tokens": live, "full_width": full, "narrow": narrow}
 
 
-def run_streams(engine, prompts, new_tokens: int, temps=None, waits=None):
+def run_streams(engine, prompts, new_tokens: int, temps=None, waits=None,
+                streams=None):
     """Stream every prompt from a thread of its own, `new_tokens` each, at
-    `temps` (greedy by default). Request i of `waits` {i: j} is sent once
-    request j has its first token. Returns ([(tokens, TTFT ms)], wall s);
+    `temps` (greedy by default): through `engine.generate_stream`, or
+    `streams(i, prompt, max_tokens, temperature)`, an iterator of request
+    i's tokens. Request i of `waits` {i: j} is sent once request j has its
+    first token. Returns ([(tokens, TTFT ms, last token ms)], wall s);
     raises if a request failed, ended short or did not end."""
     import threading
+
+    if streams is None:
+        def streams(i, prompt, max_tokens, temperature):
+            return engine.generate_stream(prompt, max_tokens=max_tokens,
+                                          temperature=temperature, timeout=600)
 
     temps = temps or [0.0] * len(prompts)
     waits = waits or {}
@@ -859,13 +889,13 @@ def run_streams(engine, prompts, new_tokens: int, temps=None, waits=None):
         t_sub = time.perf_counter()
         out, t_first = [], None
         try:
-            for tok in engine.generate_stream(prompts[i], max_tokens=new_tokens,
-                                              temperature=temps[i], timeout=600):
+            for tok in streams(i, prompts[i], new_tokens, temps[i]):
                 if t_first is None:
                     t_first = time.perf_counter()
                     first[i].set()
                 out.append(tok)
-            results[i] = (out, (t_first - t_sub) * 1e3)
+            results[i] = (out, (t_first - t_sub) * 1e3,
+                          (time.perf_counter() - t_sub) * 1e3)
         except BaseException as e:  # noqa: BLE001 - reported below
             results[i] = e
         first[i].set()
@@ -883,6 +913,26 @@ def run_streams(engine, prompts, new_tokens: int, temps=None, waits=None):
     if any(len(r[0]) != new_tokens for r in results):
         raise AssertionError(f"serve: lengths {[len(r[0]) for r in results]}")
     return results, run_s
+
+
+def stream_decode_rates(results) -> list:
+    """Each streamed request's decode rate, tokens/s after its first token,
+    from run_streams' (tokens, TTFT ms, last token ms)."""
+    return [(len(out) - 1) / ((last - first) / 1e3) for out, first, last in results]
+
+
+def one_token_round_trips(call, rng, cfg, n: int = 20) -> float:
+    """Median ms of `call(prompt)` for a 1-token request on one 16-token
+    prompt, over `n` calls after a first (which prefills it; the rest hit
+    its registered prefix, as a repeated short request does)."""
+    prompt = rng.integers(0, cfg.vocab_size, 16).tolist()
+    call(prompt)
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call(prompt)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
 
 
 def serve_traffic(rng, cfg):
@@ -979,8 +1029,10 @@ def serve_main_path(torch, models, attention, seed: int, card: str, cfg=None,
                 and mixed_stats["cow_copies"] > 0):
             raise AssertionError(f"serve: the shared prefix was not reused: {mixed_stats}")
         ttft = [round(r[1], 3) for r in results]
+        mixed_decode = stream_decode_rates(results)
         log(f"serve [{card}]: 8 requests (prompts {[len(p) for p in prompts]}, "
-            f"temps {temps}) done in {run_s:.2f} s; TTFT ms {ttft}; prefix_hits "
+            f"temps {temps}) done in {run_s:.2f} s; TTFT ms {ttft}; decode tokens/s "
+            f"a request {[round(r, 1) for r in mixed_decode]}; prefix_hits "
             f"{mixed_stats['prefix_hits']} reuse_hits {mixed_stats['reuse_hits']} "
             f"cow_copies {mixed_stats['cow_copies']}; attention kernel launches "
             f"{kernel_launches}")
@@ -1102,6 +1154,10 @@ def serve_main_path(torch, models, attention, seed: int, card: str, cfg=None,
         log(f"serve [{card}]: prefill round, 1900 tokens alone: TTFT "
             f"{prefill_ms:.1f} ms, {prefill_tok_s:.0f} tokens/s; peak memory "
             f"{peak_gib:.2f} GiB; allocator {json.dumps(snapshot)}")
+        one_token_ms = one_token_round_trips(
+            lambda p: engine.generate(p, max_tokens=1, timeout=600), rng, cfg)
+        log(f"serve [{card}]: 1-token request in process (engine.generate): median "
+            f"{one_token_ms:.2f} ms")
     finally:
         engine.shutdown()
     return engine.params, {
@@ -1111,6 +1167,8 @@ def serve_main_path(torch, models, attention, seed: int, card: str, cfg=None,
             "weights_gib": weights_gib, "kv_pool_gib": pool_gib, "build_s": build_s,
             "prompts": [len(p) for p in prompts], "temperatures": temps,
             "ttft_ms": ttft, "mixed_run_s": run_s, "mixed_stats": mixed_stats,
+            "mixed_decode_tokens_per_s": mixed_decode,
+            "one_token_round_trip_ms": one_token_ms,
             "teacher_forced": {**agreement,
                                "first_token_logits_max_abs_diff": first_diff,
                                "decode_logits_max_abs_diff": decode_diff,
@@ -3538,6 +3596,295 @@ def cluster_phase(torch, models, attention, steps: int, seed: int, card: str,
     return out
 
 
+def _http_token_stream(port: int, body: dict, rid: str):
+    """Tokens of one request streamed by the proxy as chunked JSONL; the
+    response must echo the request id."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/llm?stream=1&method=stream",
+        data=json.dumps(body).encode(), headers={"X-Request-Id": rid})
+    with urllib.request.urlopen(req, timeout=900) as r:
+        if r.headers.get("X-Request-Id") != rid:
+            raise AssertionError(f"20: the proxy answered {rid} with "
+                                 f"{r.headers.get('X-Request-Id')}")
+        for line in r:
+            item = json.loads(line)
+            if "token" not in item:
+                raise AssertionError(f"20: stream {rid} sent {item}")
+            yield item["token"]
+
+
+def _http_json(port: int, body: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/llm",
+                                 data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=900) as r:
+        return json.loads(r.read())
+
+
+class _CardMemory:
+    """The card's peak memory in use by every process (the replica, the
+    prefill actor, this one), sampled every 0.1 s from `mem_get_info`."""
+
+    def __init__(self, torch):
+        import threading
+
+        self.peak = 0
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.1):
+                free, total = torch.cuda.mem_get_info()
+                self.peak = max(self.peak, total - free)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> float:
+        self._stop.set()
+        self._thread.join()
+        return self.peak / 2**30
+
+
+def _wait_ready(serve, app: str, timeout: float = 900) -> None:
+    """Until `serve.status()` shows a replica of `app` ready (constructed
+    and past a health probe)."""
+    deadline = time.perf_counter() + timeout
+    while serve.status().get(app, {}).get("ready", 0) < 1:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"20: {app} not ready in {timeout} s: {serve.status()}")
+        time.sleep(0.2)
+
+
+def _wait_store(store, want: tuple, timeout: float = 60) -> tuple:
+    """The store's (used bytes, objects) once they are `want`, or as they
+    are at the timeout."""
+    deadline = time.perf_counter() + timeout
+    while (store.used, store.num_objects) != want and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    return store.used, store.num_objects
+
+
+def serve_plane_phase(torch, models, attention, seed: int, card: str, phase6=None,
+                      cfg=None, device: str = "cuda", num_cpus: int = 16,
+                      num_slots: int = 8, max_len: int = 2048,
+                      new_tokens: int = 64) -> dict:
+    """Phase 20: llama3-8b (`cfg`) deployed with the port's serve plane on
+    its one-host cluster, the replica a `num_gpus=1` actor in a worker
+    process: (a) `serve.run` until `serve.status()` shows it ready; (b)
+    phase 6's eight requests at once, four streamed over HTTP as JSONL and
+    four through the handle, with the transport of each; (e) the median
+    round trip of a 1-token request over the handle and over HTTP; (c) the
+    store arena, and the store back at its baseline once the deployment
+    goes; (d) a `disagg=True` deployment whose 1900-token prompt must be
+    prefilled by the prefill actor and give the unified deployment's
+    tokens. After the cluster is down, the greedy tokens are held to
+    `forward` on weights remade from the seed, whose digest must be the
+    replica's. `phase6`: phase 6's results, printed beside these. Passing
+    `cfg` (a TransformerConfig) and `device="cpu"` rehearses it on the
+    CPU."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import LLMDeployment
+    from ray_tpu_torch.serve.llm import _to_compute, params_digest
+
+    cuda = device == "cuda"
+    cfg = cfg or models.configs.LLAMA3_8B
+    # The registry name, as a user binds it; a rehearsal's own config as is.
+    cfg_arg = cfg.name if cfg is models.configs.LLAMA3_8B else cfg
+    kw = {"num_slots": num_slots, "max_len": max_len, "seed": seed, "device": device}
+    rng = np.random.default_rng(seed)
+    prompts, temps, waits = serve_traffic(rng, cfg)
+    alone = rng.integers(0, cfg.vocab_size, 1900).tolist()
+    if cuda:
+        torch.cuda.empty_cache()
+    out = {"config": cfg.name, "num_slots": num_slots, "max_len": max_len}
+    rt.init(num_cpus=num_cpus, num_gpus=None if cuda else 1)
+    try:
+        store = rt.api._global_worker().store
+        baseline = (store.used, store.num_objects)
+        deployment = serve.deployment(LLMDeployment).options(
+            ray_actor_options={"num_gpus": 1})
+        t0 = time.perf_counter()
+        serve.run(deployment.bind(cfg_arg, **kw), name="llm", _http=True,
+                  route_prefix="/llm")
+        _wait_ready(serve, "llm")
+        out["ready_s"] = time.perf_counter() - t0
+        h = serve.get_app_handle("llm")
+        t0 = time.perf_counter()
+        h.options(method_name="warmup").remote().result(timeout=900)
+        out["warmup_s"] = time.perf_counter() - t0
+        controller = rt.get_actor("serve:controller")
+        replica = rt.get_actor(rt.get(controller.get_routing.remote("llm"))["replicas"][0])
+        log(f"20a [{card}]: serve.run of {cfg.name}'s LLMDeployment (num_gpus=1, "
+            f"{num_slots} slots, max_len {max_len}) ready in {out['ready_s']:.1f} s "
+            f"(serve.status); warmup {out['warmup_s']:.1f} s")
+
+        # (b) phase 6's traffic: even requests over HTTP, odd through the handle.
+        port = serve.http_port()
+        handle_streams = {}
+
+        def streams(i, prompt, max_tokens, temperature):
+            body = {"tokens": prompt, "max_tokens": max_tokens,
+                    "temperature": temperature}
+            if i % 2 == 0:
+                return _http_token_stream(port, body, f"phase20-{i}")
+            resp = h.options(method_name="stream").remote_streaming(body)
+            handle_streams[i] = resp
+            return (item["token"] for item in resp)
+
+        lane0 = rt.get(replica.stats.remote(), timeout=60).get("rails", {})
+        results, run_s = run_streams(None, prompts, new_tokens, temps=temps,
+                                     waits=waits, streams=streams)
+        lane = rt.get(replica.stats.remote(), timeout=60)["rails"]
+        attached = lane["attached_total"] - lane0.get("attached_total", 0)
+        spilled = lane["spilled_total"] - lane0.get("spilled_total", 0)
+        on_rails = {i: r.rails_used for i, r in handle_streams.items()}
+        # The replica's lane counts every stream it pinned to a ring: the
+        # handle's four say which they are, the proxy's are the rest.
+        http_rails = attached - sum(on_rails.values())
+        transport = ["rails" if (on_rails[i] if i in on_rails else http_rails == 4)
+                     else "rpc" for i in range(len(prompts))]
+        launches = h.options(method_name="stats").remote().result(
+            timeout=60)["kernel_launches"]
+        ttft = [r[1] for r in results]
+        decode = stream_decode_rates(results)
+        out["traffic"] = {"prompts": [len(p) for p in prompts], "temperatures": temps,
+                          "via": ["http" if i % 2 == 0 else "handle"
+                                  for i in range(len(prompts))],
+                          "transport": transport, "rails_attached": attached,
+                          "rails_spilled": spilled, "run_s": run_s, "ttft_ms": ttft,
+                          "decode_tokens_per_s": decode,
+                          "tokens_per_s": len(prompts) * new_tokens / run_s,
+                          "replica_kernel_launches": launches}
+        log(f"20b [{card}]: 8 requests (prompts {[len(p) for p in prompts]}, temps "
+            f"{temps}; even over HTTP JSONL, odd through the handle) done in "
+            f"{run_s:.2f} s ({len(prompts) * new_tokens / run_s:.1f} tokens/s); client "
+            f"TTFT ms {[round(t, 1) for t in ttft]}; decode tokens/s a request "
+            f"{[round(d, 1) for d in decode]}; transport {transport} (replica lane: "
+            f"{attached} attached, {spilled} spilled); replica attention launches "
+            f"{launches}")
+        if phase6 is not None:
+            log(f"20b [{card}]: phase 6 in process, same traffic: TTFT ms "
+                f"{phase6['ttft_ms']}, decode tokens/s a request "
+                f"{[round(d, 1) for d in phase6['mixed_decode_tokens_per_s']]}, "
+                f"{len(prompts) * new_tokens / phase6['mixed_run_s']:.1f} tokens/s")
+        if any(launches.values()):
+            raise AssertionError(f"20b: the replica launched attention kernels {launches}")
+        if transport != ["rails"] * len(prompts) or spilled:
+            raise AssertionError(f"20b: streams not all on the rails: {transport}, "
+                                 f"lane {lane}")
+
+        # The 1900-token prompt alone on the unified deployment, for (d).
+        unified = h.remote({"tokens": alone, "max_tokens": new_tokens}).result(
+            timeout=900)["tokens"]
+        # (e) round trips of a 1-token request.
+        out["one_token_round_trip_ms"] = {
+            "handle": one_token_round_trips(lambda p: h.remote(
+                {"tokens": p, "max_tokens": 1}).result(timeout=600), rng, cfg),
+            "http": one_token_round_trips(lambda p: _http_json(
+                port, {"tokens": p, "max_tokens": 1}), rng, cfg),
+            "in_process": phase6["one_token_round_trip_ms"] if phase6 else None}
+        log(f"20e [{card}]: 1-token request, median of 20: "
+            f"{json.dumps(out['one_token_round_trip_ms'])} ms")
+
+        # (c) the arena, and the store once the deployment goes.
+        digest = h.options(method_name="weights_digest").remote().result(timeout=600)
+        stats = h.options(method_name="stats").remote().result(timeout=60)
+        arena = {"arena_bytes": stats["arena_bytes"], "in_store": stats["arena_in_store"]}
+        held = (store.used, store.num_objects)
+        serve.delete("llm")
+        after = _wait_store(store, baseline)
+        out["arena"] = {**arena, "store_baseline": baseline, "store_with_replica": held,
+                        "store_after_delete": after}
+        log(f"20c [{card}]: arena {arena['arena_bytes']} bytes, in the store "
+            f"{arena['in_store']}; store (used bytes, objects) {baseline} before, "
+            f"{held} with the replica, {after} after serve.delete")
+        if after != baseline:
+            raise AssertionError(f"20c: the store is at {after}, not back at {baseline}")
+
+        # (d) disaggregated prefill of the same prompt.
+        mem = _CardMemory(torch) if cuda else None
+        t0 = time.perf_counter()
+        serve.run(deployment.bind(cfg_arg, disagg=True, **kw), name="disagg")
+        _wait_ready(serve, "disagg")
+        hd = serve.get_app_handle("disagg")
+        hd.options(method_name="warmup").remote().result(timeout=900)
+        t1 = time.perf_counter()
+        offloaded = hd.remote({"tokens": alone, "max_tokens": new_tokens}).result(
+            timeout=900)["tokens"]
+        request_s = time.perf_counter() - t1
+        dstats = hd.options(method_name="stats").remote().result(timeout=60)
+        peak = mem.stop() if mem else None
+        out["disagg"] = {"deploy_s": t1 - t0, "request_s": request_s,
+                         "disagg_prefills": dstats["disagg_prefills"],
+                         "adopted_blocks": dstats["adopted_blocks"],
+                         "prefill_chunks": dstats["prefill_chunks"],
+                         "tokens_equal": offloaded == unified, "peak_card_gib": peak}
+        log(f"20d [{card}]: disagg deployment ready and warm in {t1 - t0:.1f} s; the "
+            f"1900-token prompt in {request_s:.1f} s (prefill actor started on first "
+            f"use): disagg_prefills {dstats['disagg_prefills']}, adopted blocks "
+            f"{dstats['adopted_blocks']}, local prefill chunks "
+            f"{dstats['prefill_chunks']}; tokens == unified: {offloaded == unified}; "
+            f"peak card memory (all processes) {peak} GiB")
+        if dstats["disagg_prefills"] != 1 or dstats["adopted_blocks"] <= 0:
+            raise AssertionError(f"20d: the prompt was not offloaded: {dstats}")
+        if offloaded != unified:
+            raise AssertionError(f"20d: disagg tokens {offloaded} != unified {unified}")
+        serve.shutdown()
+        # Both arenas and the prefill actor's returned frame (owned by the
+        # replica, which frees it before it exits) are gone.
+        after = _wait_store(store, baseline)
+        out["arena"]["store_after_shutdown"] = after
+        log(f"20c [{card}]: store (used bytes, objects) {after} after serve.shutdown "
+            f"(baseline {baseline})")
+        if after != baseline:
+            raise AssertionError(f"20c: after serve.shutdown the store is at {after}, "
+                                 f"not back at {baseline}")
+    except BaseException:
+        log(f"20 [{card}]: failed; host now: {_host_state(torch)}")
+        _dump_node_logs(rt)
+        raise
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+
+    # The greedy tokens against forward on weights remade from the seed,
+    # once the cluster's processes have given the card back.
+    if cuda:
+        deadline = time.perf_counter() + 120
+        while torch.cuda.mem_get_info()[0] < 0.75 * torch.cuda.mem_get_info()[1]:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"20: the card is still held: {_host_state(torch)}")
+            time.sleep(0.5)
+    with torch.no_grad():
+        masters = models.init_params(
+            cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+        params = _to_compute(masters, cfg.compute_dtype, torch.device(device))
+        del masters
+        if cuda:
+            torch.cuda.empty_cache()
+        remade = params_digest(params, cfg.compute_dtype)
+        if remade != digest:
+            raise AssertionError(f"20: the replica's weights digest {digest} != {remade}")
+        greedy = [i for i, t in enumerate(temps) if t == 0]
+        out["teacher_forced"] = forward_agreement(
+            torch, models, params, cfg, [prompts[i] for i in greedy] + [alone],
+            [results[i][0] for i in greedy] + [unified], card, device=device)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    out["weights_digest"] = digest
+    out["replica_stats"] = stats
+    return out
+
+
 def import_and_rllib_phase(torch, models, attention, seed: int, card: str) -> dict:
     """Phases 15 and 16."""
     return {"tiny_padded": tiny_padded(torch, models, attention, card),
@@ -3622,6 +3969,9 @@ def main() -> int:
     cluster = cluster_phase(torch, models, attention, CLUSTER_STEPS, args.seed, card)
     log(f"19 multi-process runtime ({time.perf_counter() - t0:.1f} s): "
         + json.dumps(cluster))
+    t0 = time.perf_counter()
+    plane = serve_plane_phase(torch, models, attention, args.seed, card, phase6=serve_run)
+    log(f"20 serve plane ({time.perf_counter() - t0:.1f} s): " + json.dumps(plane))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -3653,6 +4003,10 @@ def main() -> int:
             # actor in a worker process, counted by that process.
             "launches_bench_350m_cluster_actor_train":
                 cluster["actor_train"]["launches"][name],
+            # Phase 20: the llama3-8b replica's own counters over phase 6's
+            # traffic (serving computes attention without the kernels).
+            "launches_llama3_8b_serve_replica":
+                plane["traffic"]["replica_kernel_launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

@@ -19,9 +19,12 @@ and actors on the in-process engine (`core/local_engine.py`), with
 tracing, profiling) and the single-host multi-process runtime of
 `core/distributed/` (GCS, node daemon, zygote-forked workers, the
 shared-memory object store): `init()` starts such a cluster and
-`init(address=...)` joins one. Multi-node clusters and the client
-(ROADMAP queue A, item 10a-iii) and the layers above the runtime
-(10b-10d) are not ported yet.
+`init(address=...)` joins one; on it, `serve`'s control plane
+(deployments, the controller, handles, the HTTP proxy, `LLMDeployment`)
+and `experimental` (the shared-memory channel rings). Multi-node
+clusters and the client (ROADMAP queue A, item 10a-iii), the DAG layer
+(10c-ii) and the data, train and tune layers (10b, 10d) are not ported
+yet.
 
 A bare `import ray_tpu_torch` stays light, as `import ray_tpu` does: the
 subpackages (`models`, `ops`, `serve`, ...) import on first touch, so the

@@ -6,7 +6,8 @@ starts a single-host cluster (GCS, node daemon, zygote workers, shared-memory
 store) through `core/distributed/driver.py`, and `init(address=...)` or
 `RAY_TPU_ADDRESS` joins a running ray_tpu_torch cluster. The `ray-tpu://`
 client and `register_cross_lang` raise: they are ROADMAP item 10a-iii.
-`shutdown` writes no usage snapshot yet (item 10d, with `util/usage_stats`).
+`shutdown` writes no usage snapshot yet (item 10d; `util/usage_stats`
+records library usage in memory).
 
 Analogue of the reference driver API (ref: python/ray/_private/worker.py —
 init :1217, get :2574, put :2686, wait :2751, remote :3144, shutdown :1795).

@@ -311,6 +311,127 @@ class Config:
     # Trailing n-gram length the drafter matches against each slot's
     # own context (prompt + generated tokens) to mine proposals.
     serve_speculation_ngram: int = 2
+    # ---- decode on rails (serve/handle.py, serve/replica.py) ----
+    # Stream token frames over the compiled-DAG channel plane instead of
+    # per-batch stream_next RPCs: the handle pre-creates a shm ring on
+    # its own node and the replica's stream drain runs as a pinned rails
+    # stage whose frames ride versioned channel writes (same-host mmap,
+    # cross-host RemoteChannelWriter push through the reader node's
+    # daemon). Kill switch: off => every stream admits on the ordinary
+    # RPC pull path; on-stream failures always spill there too.
+    serve_rails_enabled: bool = True
+    # Ring capacity per rails stream (bytes).
+    serve_rails_capacity_bytes: int = 1 << 20
+    # Per-replica rails lane width: concurrent pinned stream stages.
+    # Attach requests beyond this spill to the RPC pull path at
+    # admission time (never mid-stream).
+    serve_rails_max_streams: int = 32
+    # Handle-side ring poll slice; a slice that yields no frame
+    # rate-limits a replica liveness probe (serve_rails_probe_s) so a
+    # SIGKILLed replica surfaces as a resume, not a silent hang.
+    serve_rails_tick_s: float = 0.2
+    serve_rails_probe_s: float = 1.0
+    # Daemon-side TTL for per-replica serve gauges: a replica that
+    # stopped pushing (crash, scale-down) ages out of the syncer's
+    # "serve" entry instead of pinning stale queue depth.
+    serve_gauge_ttl_s: float = 10.0
+    # Controller-side TTL for handle-pushed autoscale stats (the
+    # fallback signal when the syncer view is absent): entries from a
+    # handle process that exited between pushes expire instead of
+    # flapping the replica target.
+    serve_autoscale_stats_ttl_s: float = 5.0
+    # ---- serving-plane robustness ----
+    # Handle-side retry budget for replica-death/draining failures:
+    # attempts (total tries) and capped exponential backoff + jitter
+    # between them, mirroring the elastic-train knobs.  Also bounds the
+    # number of mid-stream failover resumes per streaming response.
+    serve_retry_max: int = 3
+    serve_retry_backoff_initial_s: float = 0.05
+    serve_retry_backoff_max_s: float = 2.0
+    serve_retry_backoff_multiplier: float = 2.0
+    serve_retry_backoff_jitter: float = 0.2
+    # Graceful drain on downscale/redeploy: a retiring replica stops
+    # admission, keeps serving in-flight streams up to this long, then
+    # exits; whatever remains migrates-by-recompute through the handle
+    # resume path.
+    serve_drain_timeout_s: float = 30.0
+    # HTTP proxy admission bound: requests beyond this many in flight
+    # are shed with 503 + Retry-After instead of queueing without limit.
+    serve_proxy_max_inflight: int = 256
+    # Per-request deadline on proxied unary calls and per-pull deadline
+    # on proxied/handle streams.
+    serve_request_deadline_s: float = 120.0
+    # Per-tick wall budget for the controller's concurrent replica
+    # health probes (shared deadline across the bounded gather, not
+    # per-replica).
+    serve_health_timeout_s: float = 10.0
+    # ---- serving-plane observability ----
+    # Per-request serve tracing: the proxy/handle mint a trace context
+    # (trace id == request id) and every hop — proxy admission, handle
+    # routing, replica queue, engine admission, prefill chunks, decode
+    # bursts, stream pulls, failover resumes — records a span into the
+    # GCS TaskEvents sink (`ray-tpu serve trace <request-id>`).  On by
+    # default (spans are dict appends off the device path); kill switch
+    # RAY_TPU_SERVE_TRACE_ENABLED=0 also disables the engines'
+    # per-token latency attribution.
+    serve_trace_enabled: bool = True
+    # Cadence of the replica/proxy worker-process metrics push to the
+    # local node daemon (the daemon folds worker registry dumps into
+    # its syncer federation payload so serve TTFT/ITL histograms and
+    # KV-cache counters appear in `ray-tpu metrics --federated`).
+    serve_metrics_push_s: float = 2.0
+    # ---- disaggregated serving (serve/disagg.py) ----
+    # Knob families: RAY_TPU_SERVE_DISAGG_* (prefill/decode split),
+    # RAY_TPU_SERVE_PREFIX_REGISTRY_* (cluster-wide prefix registry),
+    # RAY_TPU_SERVE_KV_MIGRATE_* (live KV migration on drain).
+    # Prefill/decode split: paged replicas offload long-prompt prefill
+    # to dedicated prefill actors and adopt the returned KV frames into
+    # their block pool instead of recomputing. Off by default: the
+    # split only pays for itself when long prompts interfere with
+    # decode ITL.
+    serve_disagg_enabled: bool = False
+    # Prompts shorter than this many tokens prefill locally even when
+    # disagg is on (the frame round-trip costs more than the compute).
+    serve_disagg_prompt_threshold: int = 64
+    # Dedicated prefill actors per engine pool (keyed by
+    # config/block-size/max-len so frames always fit the adopter).
+    serve_disagg_prefill_actors: int = 1
+    # Cluster-wide prefix registry: replicas publish block-aligned
+    # prefix digests over the gauge/syncer path and the handle routes
+    # prefix-warm requests to the replica already holding those blocks.
+    serve_prefix_registry_enabled: bool = True
+    # Per-replica cap on published digests (newest-registered win) so
+    # the gauge payload stays bounded on prefix-heavy workloads.
+    serve_prefix_registry_max_entries: int = 512
+    # Live KV migration on drain: a draining replica exports each
+    # in-flight stream's KV blocks as a migration ticket; the resumed
+    # stream adopts them on the new replica instead of recomputing the
+    # whole context (recompute stays the fallback when the ticket is
+    # missing, stale, or oversized).
+    serve_kv_migrate_enabled: bool = True
+    # Tickets whose KV frame exceeds this many bytes are not published
+    # (the resume falls back to recompute rather than bloating the GCS
+    # KV store with multi-MB blobs).
+    serve_kv_migrate_inline_max_bytes: int = 4194304
+    # Grace window the draining replica waits after publishing tickets
+    # so handles observe the failure and resume elsewhere before the
+    # process exits.
+    serve_kv_migrate_linger_s: float = 2.0
+    # Tickets older than this are treated as stale and ignored on
+    # consume (left-over tickets are also deleted on read).
+    serve_kv_migrate_ttl_s: float = 60.0
+    # Grace window for replica actors to come up before the controller
+    # declares a deployment failed.
+    serve_startup_grace_s: float = 600.0
+    # Shared-memory ring channels (experimental/channel.py, the rails'
+    # transport): spin-wait poll backoff bounds, in MICROSECONDS. Once the
+    # backoff saturates at the max the waiter also sched_yield()s so a
+    # busy peer on the same core can make progress.
+    channel_backoff_us_min: float = 1.0
+    channel_backoff_us_max: float = 200.0
+    # ---- usage stats (util/usage_stats.py; opt-in, off by default like
+    # the reference's RAY_USAGE_STATS_ENABLED gate) ----
+    usage_stats_enabled: bool = False
 
     # ---- client bootstrap / process-local paths ----
     # Cluster address used by ray_tpu.init() and the CLI when none is

@@ -1188,10 +1188,12 @@ class DistributedCoreWorker:
 
         fut.add_done_callback(unpin)
 
-    def _flush_frees_locked(self) -> None:
+    def _flush_frees_locked(self):
+        """Send the pending frees to the object directory; returns the
+        future of the send (None when nothing was pending)."""
         batch, self._free_batch = self._free_batch, []
         if not batch:
-            return
+            return None
 
         async def free():
             try:
@@ -1202,7 +1204,23 @@ class DistributedCoreWorker:
             except Exception as e:  # noqa: BLE001
                 logger.debug("free_objects failed: %s", e)
 
-        self.loop_thread.submit(free())
+        return self.loop_thread.submit(free())
+
+    def flush_frees(self, timeout: float = 10.0) -> None:
+        """Free now, and wait for it, what this process owns and has
+        dropped. Frees are batched (sent at 100, by the 30 s sweep or at
+        shutdown), so a process that ends without `shutdown` (a replica's
+        `os._exit`) calls this first, or the objects it owned stay in
+        the node's store with no owner left to free them."""
+        with self._lock:
+            fut = self._flush_frees_locked()
+        # On the loop's own thread the send cannot run while we wait.
+        if (fut is not None and threading.current_thread()
+                is not self.loop_thread._thread):
+            try:
+                fut.result(timeout)
+            except Exception as e:  # noqa: BLE001
+                logger.debug("free_objects did not finish: %s", e)
 
     # ------------------------------------------------------------------
     # object API
@@ -3032,8 +3050,7 @@ class DistributedCoreWorker:
             return
         self._shutdown = True
         uninstall_refcounter()
-        with self._lock:
-            self._flush_frees_locked()
+        self.flush_frees(timeout=5.0)
         # Ship whatever the event pipeline still holds (statuses, spans)
         # before the loop thread dies — the flusher's own tick may be
         # seconds out on an idle-backed-off process.

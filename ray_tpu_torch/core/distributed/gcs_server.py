@@ -1354,6 +1354,7 @@ class MetricsFederation:
             "metrics": self.stats(),
             "task_events": self._gcs.task_events.stats(),
             "hung_tasks": self._gcs.task_events.hung_tasks(),
+            "serve": self._gcs.serve_gauges.summary(),
             "gcs": self.gcs_load(),
         }
 
@@ -1480,6 +1481,93 @@ class MetricsFederation:
                 "checks": ["gcs-load", "gcs-slow-handler", "gcs-loop-lag",
                            "hung-tasks", "task-event-loss", "node-churn",
                            "stale-metrics"]}
+
+
+class ServeGauges:
+    """Cluster-merged serve replica gauges (the autoscaling read side of
+    the syncer plane): replicas push gauges to their node daemon, the
+    daemon's `serve` state key rides its syncer delta here, and the
+    serve controller reads ONE merged per-app view per reconcile tick —
+    no per-decision replica polling."""
+
+    def __init__(self, gcs: "GcsServer"):
+        self._gcs = gcs
+
+    def merged(self) -> Dict[str, dict]:
+        """Fold every alive node's per-app aggregate into a cluster-wide
+        per-app aggregate (sums of replicas / queue_depth / active;
+        occupancy stays a sum too — the controller divides by replicas
+        for a mean)."""
+        out: Dict[str, Dict[str, Any]] = {}
+        for n in self._gcs.nodes.view.alive_nodes():
+            for app, agg in (getattr(n, "serve", None) or {}).items():
+                dst = out.setdefault(app, {})
+                for name, val in agg.items():
+                    # Per-replica disagg state (role + prefix digests)
+                    # is a union across nodes, not a sum.
+                    if name == "_replicas" and isinstance(val, dict):
+                        dst.setdefault("_replicas", {}).update(val)
+                        continue
+                    try:
+                        dst[name] = round(dst.get(name, 0.0) + float(val),
+                                          3)
+                    except (TypeError, ValueError):
+                        continue
+        return out
+
+    def summary(self) -> dict:
+        """`ray-tpu serve status` / cluster_status()["observability"]
+        ["serve"] payload: the merged autoscaling gauges plus a
+        latency/counter rollup mined from the federated serve metrics —
+        per-app TTFT/ITL means, per-phase means (queue_wait / prefill /
+        decode_step / stream_transport), and the serve counter totals
+        (tokens, requests by status, KV events, sheds, resumes)."""
+        lat: Dict[str, dict] = {}
+        counters: Dict[str, Dict[str, float]] = {}
+        for holder in self._gcs.metrics._node_dumps.values():
+            for rec in holder["dump"]:
+                name = rec.get("name", "")
+                if not name.startswith("raytpu_serve_"):
+                    continue
+                short = name[len("raytpu_serve_"):]
+                if rec.get("kind") == "histogram":
+                    for key, _buckets, hsum, total in rec.get("hist", []):
+                        tags = dict(map(tuple, key))
+                        ent = lat.setdefault(tags.get("app", "-"), {})
+                        if name == "raytpu_serve_phase_seconds":
+                            slot = ent.setdefault("phases", {}).setdefault(
+                                tags.get("phase", "?"), [0.0, 0])
+                        elif name == "raytpu_serve_ttft_seconds":
+                            slot = ent.setdefault("ttft", [0.0, 0])
+                        elif name == "raytpu_serve_itl_seconds":
+                            slot = ent.setdefault("itl", [0.0, 0])
+                        else:
+                            continue
+                        slot[0] += hsum
+                        slot[1] += total
+                elif rec.get("kind") == "counter":
+                    for key, value in rec.get("samples", []):
+                        tags = dict(map(tuple, key))
+                        dst = counters.setdefault(tags.get("app", "-"), {})
+                        sub = tags.get("event") or tags.get("status")
+                        k = f"{short}.{sub}" if sub else short
+                        dst[k] = round(dst.get(k, 0.0) + float(value), 3)
+        latency: Dict[str, dict] = {}
+        for app, ent in lat.items():
+            row: Dict[str, Any] = {}
+            for field, label in (("ttft", "ttft_mean_s"),
+                                 ("itl", "itl_mean_s")):
+                s, c = ent.get(field, (0.0, 0))
+                if c:
+                    row[label] = round(s / c, 6)
+            phases = {p: round(s / c, 6)
+                      for p, (s, c) in ent.get("phases", {}).items() if c}
+            if phases:
+                row["phase_mean_s"] = phases
+            if row:
+                latency[app] = row
+        return {"apps": self.merged(), "latency": latency,
+                "counters": counters}
 
 
 class DiagnosisManager:
@@ -1682,6 +1770,7 @@ class GcsServer:
 
         self.task_events = GcsTaskManager()
         self.metrics = MetricsFederation(self)
+        self.serve_gauges = ServeGauges(self)
         self.diagnosis = DiagnosisManager(self)
         self.event_log = EventLog()
         self.flight = FlightRecorder(self, self.store)
@@ -1723,6 +1812,7 @@ class GcsServer:
             ("LogManager", self.logs),
             ("Syncer", self.syncer),
             ("Metrics", self.metrics),
+            ("Serve", self.serve_gauges),
             ("Diagnosis", self.diagnosis),
             ("FlightRecorder", self.flight),
         ]:

@@ -229,6 +229,18 @@ class NodeDaemon:
         # NOT in self._workers: the OOM sweep and idle reaping never see
         # them — killing the template would re-cold-start the node.
         self._zygotes: Dict[str, ZygoteHandle] = {}
+        # Serve replica gauges: (app, replica) -> {"ts", "gauges"}.
+        # Replicas on this node push queue depth / KV-pool occupancy
+        # here; the aggregate rides the SYNCER delta to the GCS so the
+        # serve controller reads one merged view instead of polling
+        # every replica per autoscale decision.
+        self._serve_gauges: Dict[tuple, dict] = {}
+        # Worker-process metric registry dumps: origin -> {"ts", "dump"}.
+        # Replicas piggyback theirs on the gauge push, other serve
+        # workers (HTTP proxy) use report_metrics; _metrics_dump merges
+        # them into the federation payload so worker-side serve series
+        # (TTFT/ITL histograms, KV counters) reach the GCS exposition.
+        self._worker_metric_dumps: Dict[str, dict] = {}
         self._init_metrics()
 
     # ------------------------------------------------------------------
@@ -370,21 +382,84 @@ class NodeDaemon:
             "workers": len(self._workers),
             "idle_workers": len(self._idle),
             "busy_workers": busy,
+            "serve": self._serve_state(),
         }
 
-    # Serve replicas and the HTTP proxy push their gauges and metric
-    # dumps here, training ranks their step gauges: the serve control
-    # plane is ROADMAP queue A, item 10c, the train plane item 10d.
-    async def report_serve_gauges(self, **_kw) -> dict:
-        raise NotImplementedError(
-            "report_serve_gauges: serve is not ported to ray_tpu_torch's "
-            "cluster yet (ROADMAP queue A, item 10c)")
+    def _serve_state(self) -> Dict[str, Any]:
+        """Per-app aggregate of this node's replica gauges (TTL-swept so
+        a dead replica's numbers stop counting).  Values are rounded so
+        tiny float jitter doesn't defeat the syncer's delta suppression."""
+        ttl = get_config().serve_gauge_ttl_s
+        now = time.monotonic()
+        apps: Dict[str, Dict[str, float]] = {}
+        for key, ent in list(self._serve_gauges.items()):
+            if now - ent["ts"] > ttl:
+                del self._serve_gauges[key]
+                # Drop the dead replica's mirrored gauge rows too —
+                # a stale exposition row is worse than a missing one.
+                mirror = getattr(self, "_m_serve_gauge", None)
+                for name in ent["gauges"]:
+                    if mirror is not None:
+                        mirror.remove({"app": key[0], "replica": key[1],
+                                       "gauge": name})
+                continue
+            app = key[0]
+            agg = apps.setdefault(app, {"replicas": 0.0})
+            agg["replicas"] += 1
+            for name, val in ent["gauges"].items():
+                try:
+                    agg[name] = round(agg.get(name, 0.0) + float(val), 3)
+                except (TypeError, ValueError):
+                    continue
+            # Per-replica disagg state (role, published prefix digests)
+            # rides the same TTL sweep: a SIGKILLed replica's registry
+            # entries stop routing within serve_gauge_ttl_s.
+            if ent.get("state"):
+                agg.setdefault("_replicas", {})[key[1]] = ent["state"]
+        return apps
 
-    async def report_metrics(self, **_kw) -> dict:
-        raise NotImplementedError(
-            "report_metrics: serve is not ported to ray_tpu_torch's "
-            "cluster yet (ROADMAP queue A, item 10c)")
+    async def report_serve_gauges(self, app: str, replica: str,
+                                  gauges: Dict[str, float],
+                                  metrics: Optional[list] = None,
+                                  state: Optional[dict] = None) -> dict:
+        """Replica -> local daemon gauge push (the serve-autoscaling
+        leg of the syncer plane; replicas never talk to the GCS).
 
+        Each gauge is also mirrored into this daemon's own registry as
+        raytpu_serve_replica_gauge{app,replica,gauge} so the engine
+        gauges appear verbatim in the federated exposition, and the
+        optional `metrics` registry dump piggybacks into
+        _metrics_dump's merge (histograms/counters the replica process
+        records).  `state` carries non-additive per-replica facts —
+        disagg role and published prefix digests — surfaced under the
+        app's `_replicas` submap instead of the float aggregation."""
+        self._serve_gauges[(app, replica)] = {
+            "ts": time.monotonic(), "gauges": dict(gauges),
+            "state": dict(state) if state else None}
+        for name, val in gauges.items():
+            try:
+                self._m_serve_gauge.set(float(val), {
+                    "app": app, "replica": replica, "gauge": name})
+            except (TypeError, ValueError):
+                continue
+        if metrics is not None:
+            self._worker_metric_dumps[f"replica:{replica}"] = {
+                "ts": time.monotonic(), "dump": metrics}
+        if self.syncer is not None:
+            self.syncer.mark_dirty()
+        return {"ok": True}
+
+    async def report_metrics(self, origin: str, dump: list) -> dict:
+        """Generic worker -> local daemon metrics push (serve HTTP
+        proxy and friends): the dump is merged into this node's
+        federation payload under the node's label, TTL-swept so a dead
+        worker's series age out."""
+        self._worker_metric_dumps[str(origin)] = {
+            "ts": time.monotonic(), "dump": dump}
+        return {"ok": True}
+
+    # Training ranks push their step gauges here: the train plane is
+    # ROADMAP queue A, item 10d.
     async def report_train_gauges(self, **_kw) -> dict:
         raise NotImplementedError(
             "report_train_gauges: train is not ported to ray_tpu_torch's "
@@ -668,6 +743,11 @@ class NodeDaemon:
         from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
 
         tags = {"node_id": self.node_id[:12]}
+        self._m_serve_gauge = Gauge(
+            "raytpu_serve_replica_gauge",
+            "Serve replica engine gauges (queue depth, active, KV "
+            "occupancy...) mirrored from report_serve_gauges",
+            tag_keys=("app", "replica", "gauge")).set_default_tags(tags)
         self._m_leases = Counter(
             "raytpu_leases_granted_total",
             "Worker leases granted by this daemon").set_default_tags(tags)
@@ -785,11 +865,25 @@ class NodeDaemon:
 
     def _metrics_dump(self):
         """Structured registry snapshot for the syncer's federation
-        piggyback (gauges refreshed first, like the text exposition)."""
-        from ray_tpu_torch.util.metrics import registry_dump
+        piggyback (gauges refreshed first, like the text exposition),
+        merged with the TTL-live worker-process dumps pushed via
+        report_serve_gauges / report_metrics — counters and histograms
+        with identical labelsets sum (several replicas of one app on a
+        node aggregate per app), gauges last-write-win."""
+        from ray_tpu_torch.util.metrics import merge_dump_lists, registry_dump
 
         self._refresh_gauges()
-        return registry_dump()
+        dumps = [registry_dump()]
+        ttl = get_config().serve_gauge_ttl_s
+        now = time.monotonic()
+        for origin, ent in list(self._worker_metric_dumps.items()):
+            if now - ent["ts"] > ttl:
+                del self._worker_metric_dumps[origin]
+                continue
+            dumps.append(ent["dump"])
+        if len(dumps) == 1:
+            return dumps[0]
+        return merge_dump_lists(dumps)
 
     def _start_metrics_http(self) -> None:
         port = get_config().metrics_export_port
@@ -1600,15 +1694,17 @@ class NodeDaemon:
 
     # ------------------------------------------------------------------
     # cross-host channel endpoints (compiled execution plane): the shm
-    # rings live in `experimental/channel.py`, which comes with the DAG
-    # layer (ROADMAP queue A, item 10c). Until then each endpoint raises.
+    # rings are `experimental/channel.py`; a writer on this host mmaps a
+    # ring directly, a writer on another host would push through these
+    # endpoints, which come with the DAG layer and cross-host channels
+    # (ROADMAP queue A, item 10c-ii). Until then each endpoint raises.
     # ------------------------------------------------------------------
     @staticmethod
     def _no_channels(name: str):
         raise NotImplementedError(
             f"NodeDaemon.{name}: cross-host channels come with the DAG "
             f"layer, which ray_tpu_torch has not ported yet (ROADMAP queue "
-            f"A, item 10c)")
+            f"A, item 10c-ii)")
 
     def channel_create(self, n_readers: int,
                        capacity: Optional[int] = None,

@@ -23,7 +23,7 @@ Where it parts from the JAX package's local engine:
   on them (`bundle_labels`, `wait_placement_group`); there,
   ``placement_group()`` raises;
 - actor instances get no `__raytpu_apply__` (the compiled-DAG hook): the
-  DAG layer is ROADMAP queue A, item 10c.
+  DAG layer is ROADMAP queue A, item 10c-ii.
 """
 from __future__ import annotations
 

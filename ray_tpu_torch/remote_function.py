@@ -13,7 +13,7 @@ from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.task_spec import TaskOptions
 
 _NO_DAG = (".bind() builds a DAG node; ray_tpu_torch has no DAG layer yet "
-           "(ROADMAP queue A, item 10c)")
+           "(ROADMAP queue A, item 10c-ii)")
 
 
 def _merge_options(base: TaskOptions, **updates) -> TaskOptions:

@@ -12,9 +12,15 @@ the table entry the allocator hands back).
 Block 0 is the reserved NULL block: never allocated, every unused table
 entry points at it, so the gather/scatter is always in bounds.
 
-Pure Python, the same behaviour as the JAX package's allocator. Not ported
-yet: the object-store arena (`store=`), which comes with the serve control
-plane on the port's own object store (ROADMAP queue A, item 10c).
+Pure Python, the same behaviour as the JAX package's allocator.
+
+The pool's bytes are carved out of the node's shared-memory object store
+through the create-then-fill seam (`ObjectStore.create_arena`): the arena
+reservation makes KV pressure visible to the store accounting/syncer
+plane, and releasing it returns the store to quiescence. Engines running
+without a store (standalone, unit tests) skip the arena. When the store
+cannot hold the arena, `create_arena` hands back an anonymous mapping
+whose pages nothing touches (`arena_in_store` is then False).
 """
 from __future__ import annotations
 
@@ -47,11 +53,8 @@ class KVBlockAllocator:
     """
 
     def __init__(self, num_blocks: int, block_size: int, *,
-                 store: Any = None, prefix_sharing: bool = True):
-        if store is not None:
-            raise NotImplementedError(
-                "the object-store arena (store=) is not ported yet: "
-                "ROADMAP queue A, item 10c")
+                 store: Any = None, bytes_per_block: int = 0,
+                 prefix_sharing: bool = True, arena_name: str = "kv-pool"):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is the null block)")
         self.num_blocks = num_blocks
@@ -72,6 +75,36 @@ class KVBlockAllocator:
         self._meta: Dict[tuple, Any] = {}
         self.stats = {"reuse_hits": 0, "reuse_misses": 0, "cow_copies": 0,
                       "evictions": 0, "alloc_failures": 0}
+        self._arena = None
+        self.arena_bytes = 0
+        if store is not None and bytes_per_block > 0:
+            self._reserve_arena(store, bytes_per_block, arena_name)
+
+    # -- shm arena ------------------------------------------------------
+    def _reserve_arena(self, store, bytes_per_block: int,
+                       arena_name: str) -> None:
+        from ray_tpu_torch.core.ids import ObjectID
+
+        oid = ObjectID.from_random()
+        size = self.num_blocks * bytes_per_block
+        try:
+            self._arena = store.create_arena(oid, size)
+            self.arena_bytes = size
+        except Exception:  # noqa: BLE001 — pool works unreserved
+            self._arena = None
+
+    @property
+    def arena_in_store(self) -> bool:
+        """Whether the reservation is an object in the store (False: no
+        arena, or the anonymous mapping a full store hands back)."""
+        return bool(self._arena is not None and self._arena.in_store)
+
+    def release(self) -> None:
+        """Drop the shm arena reservation (engine shutdown)."""
+        if self._arena is not None:
+            self._arena.release()
+            self._arena = None
+            self.arena_bytes = 0
 
     # -- core alloc/free ------------------------------------------------
     def _evict_cached(self) -> Optional[int]:
@@ -321,7 +354,6 @@ class KVBlockAllocator:
                 "blocks_active": active,
                 "occupancy": round(active / usable, 4) if usable else 0.0,
                 "prefixes_registered": len(self._by_key),
-                # No arena: the pool is not reserved in an object store.
-                "arena_bytes": 0,
+                "arena_bytes": self.arena_bytes,
                 **self.stats,
             }

@@ -30,10 +30,15 @@ Both serve MoE models (`n_experts > 0`) with exact, dropless routing.
 one engine on its tp shard of the weights and the cache, the ranks' ticks
 in lockstep (`dryrun_tp_serving` drives it once).
 
-Not ported yet, raising NotImplementedError where a caller could ask for
-it: the object-store arena (`store=`, ROADMAP queue A, item 10c). Serving
-spans and histograms, `LLMDeployment` and `serve/disagg.py` come with
-item 10c.
+The paged engine's block pool can reserve its bytes in the node's
+object store (`store=`, the arena of `serve/kv_cache.py`). Both engines
+record serve spans and histograms (`serve/observability.py`) through
+their `_obs_*` hooks.
+
+`LLMDeployment` wraps either engine as a Serve deployment: build it with
+`serve.deployment(LLMDeployment).bind(...)`; replicas each own an engine
+and the pow-2 router spreads requests. With `disagg=True` long prompts
+prefill on dedicated prefill actors (`serve/disagg.py`).
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ import queue
 import threading
 import time
 import uuid
+import warnings
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -63,6 +69,11 @@ from ray_tpu_torch.parallel.mesh import AXIS_TENSOR, MeshConfig, build_mesh
 from ray_tpu_torch.parallel.sharding import (
     TP_RULES, local_shard, local_tensor, param_shardings)
 from ray_tpu_torch.serve.kv_cache import KVBlockAllocator
+from ray_tpu_torch.util import tracing
+
+# Canonical home is the typed error tree (it crosses the replica -> proxy
+# wire); re-exported here for the engines' import path.
+from ray_tpu_torch.exceptions import StreamQueueFullError  # noqa: F401
 
 # A tensor-parallel engine's first rank sends its followers a plan at least
 # this often when idle, so no follower waits on a collective for long; a
@@ -71,21 +82,11 @@ LOCKSTEP_IDLE_S = 1.0
 LOCKSTEP_ADMIT_S = 300.0
 
 
-class StreamQueueFullError(Exception):
-    """A streaming consumer fell ``serve_stream_queue_max`` tokens behind
-    and its stream was dropped (backpressure instead of unbounded memory
-    growth)."""
-
-    def __init__(self, message: str = "", queue_max: int = 0):
-        super().__init__(message)
-        self.queue_max = queue_max
-
-
 class _Request:
     __slots__ = ("prompt", "max_tokens", "temperature", "out_tokens",
                  "done", "error", "slot", "submitted_at", "first_token_at",
                  "token_q", "dropped", "blocks", "pos", "prefilling",
-                 "no_register", "trace")
+                 "no_register", "trace", "submitted_wall", "last_emit_wall")
 
     def __init__(self, prompt, max_tokens, temperature, stream=False,
                  trace: Optional[dict] = None):
@@ -98,11 +99,17 @@ class _Request:
         self.slot = -1
         self.submitted_at = time.perf_counter()
         self.first_token_at: Optional[float] = None
-        # Serve trace context; its trace_id is the request id that
-        # `export_streams` keys a migration ticket by. A request with no
-        # caller context gets its own, as the JAX engine mints one.
+        # Serve trace context ({"trace_id": <request id>, ...}, None when
+        # serve tracing is off): engine tick spans parent under it, and
+        # its trace_id is the request id that `export_streams` keys a
+        # migration ticket by. Direct engine use (no proxy or handle
+        # upstream) mints its own, so span coverage is the same with and
+        # without the HTTP front. Wall clocks beside the perf counters:
+        # spans need epoch stamps.
         self.trace = (trace if trace is not None
-                      else {"trace_id": uuid.uuid4().hex, "span_id": None})
+                      else tracing.serve_ctx(uuid.uuid4().hex))
+        self.submitted_wall = time.time()
+        self.last_emit_wall: Optional[float] = None
         # Streaming consumers read tokens as the engine emits them.
         # BOUNDED: at the bound the stream drops with an explicit error
         # (the engine frees the slot and blocks).
@@ -325,6 +332,68 @@ class _EngineBase:
         req.done.set()
         self._work.set()   # the freed slot may admit the queue head
 
+    # -- serving observability ------------------------------------------
+    # Spans attribute each engine phase (queue_wait / prefill_chunk /
+    # decode_burst) to the request's trace; histograms decompose TTFT /
+    # ITL per app.  Spans gate on req.trace (None when the
+    # RAY_TPU_SERVE_TRACE_ENABLED kill switch is off); histograms record
+    # either way.  The app tag is learned lazily from traced requests —
+    # standalone engines (bench, unit tests) report under "-".
+    _app_hint = "-"
+
+    def _obs_app(self, req: "_Request") -> str:
+        app = req.trace.get("app") if req.trace else None
+        if app:
+            self._app_hint = app
+            return app
+        return self._app_hint
+
+    def _obs_admitted(self, req: "_Request") -> None:
+        from ray_tpu_torch.serve import observability
+
+        now = time.time()
+        tracing.record_serve_span(req.trace, "serve.engine.queue_wait",
+                                  req.submitted_wall, now,
+                                  tokens=len(req.prompt))
+        observability.observe_phase(self._obs_app(req), "queue_wait",
+                                    now - req.submitted_wall)
+
+    def _obs_first_token(self, req: "_Request") -> None:
+        from ray_tpu_torch.serve import observability
+
+        observability.metrics()["ttft"].observe(
+            req.first_token_at - req.submitted_at,
+            {"app": self._obs_app(req)})
+        req.last_emit_wall = time.time()
+
+    def _obs_prefill(self, req: "_Request", t0: float,
+                     n_tokens: int) -> None:
+        from ray_tpu_torch.serve import observability
+
+        t1 = time.time()
+        tracing.record_serve_span(req.trace, "serve.engine.prefill_chunk",
+                                  t0, t1, tokens=n_tokens, pos=req.pos)
+        observability.observe_phase(self._obs_app(req), "prefill", t1 - t0)
+
+    def _obs_burst(self, req: "_Request", t0: float, t1: float,
+                   n_new: int) -> None:
+        """Per fused-burst, per-request: one decode_burst span, one
+        decode_step phase sample, and ONE inter-token-latency sample at
+        the burst-mean gap (per-token observes would cost more than the
+        decode itself at small models)."""
+        if n_new <= 0:
+            return
+        from ray_tpu_torch.serve import observability
+
+        app = self._obs_app(req)
+        tracing.record_serve_span(req.trace, "serve.engine.decode_burst",
+                                  t0, t1, tokens=n_new)
+        observability.observe_phase(app, "decode_step", t1 - t0)
+        if req.last_emit_wall is not None and t1 > req.last_emit_wall:
+            observability.metrics()["itl"].observe(
+                (t1 - req.last_emit_wall) / n_new, {"app": app})
+        req.last_emit_wall = t1
+
 
 class LLMEngine(_EngineBase):
     """Fixed-slot engine over the contiguous KV cache.
@@ -485,6 +554,7 @@ class LLMEngine(_EngineBase):
                     f"given the same requests") from None
             return False
         try:
+            self._obs_admitted(req)
             n = len(req.prompt)
             key = tuple(req.prompt)
             entry = (self._prefix_cache.get(key)
@@ -499,6 +569,7 @@ class LLMEngine(_EngineBase):
                 self._prefix_cache[key] = self._prefix_cache.pop(key)
                 self.stats["prefix_hits"] += 1
             else:
+                t0 = time.time()
                 bucket = self._bucket_for(n)
                 toks = np.zeros((1, bucket), np.int32)
                 toks[0, :n] = req.prompt
@@ -506,6 +577,7 @@ class LLMEngine(_EngineBase):
                     self.params, self.cache, self._dev(toks), slot, n,
                     req.temperature, self._gen)
                 self.stats["prefix_misses"] += 1
+                self._obs_prefill(req, t0, n)
                 if self._prefix_cache_size:
                     # Snapshot only the prompt's bucket of KV.
                     k_slice, v_slice = self._px_extract(self.cache, slot,
@@ -516,6 +588,7 @@ class LLMEngine(_EngineBase):
                         self._prefix_cache.pop(next(iter(self._prefix_cache)))
             tok = int(tok)
             req.first_token_at = time.perf_counter()
+            self._obs_first_token(req)
             req.emit(tok)
             req.slot = slot
             self._slots[slot] = req
@@ -581,6 +654,7 @@ class LLMEngine(_EngineBase):
             burst = self.max_burst
             kv_tokens = sum(len(r.prompt) + len(r.out_tokens) - 1
                             for r in self._slots if r is not None)
+            w0 = time.time()
             t0 = time.perf_counter()
             self.cache, tok_mat = self._decode(
                 self.params, self.cache, self._dev(self._last_tokens),
@@ -589,11 +663,14 @@ class LLMEngine(_EngineBase):
             t_enq = time.perf_counter()
             tok_mat = tok_mat.cpu().numpy()          # (burst, S)
             t1 = time.perf_counter()
+            w1 = time.time()
             emitted = 0
             for i, req in enumerate(self._slots):
                 if req is None:
                     continue
-                emitted += self._emit(i, req, tok_mat[:, i])
+                n_new = self._emit(i, req, tok_mat[:, i])
+                emitted += n_new
+                self._obs_burst(req, w0, w1, n_new)
                 self._maybe_finish(i)
             self.burst_log.append((t0, t_enq, t1, self.num_slots, emitted,
                                    int(active_mask.sum()), kv_tokens))
@@ -634,10 +711,6 @@ class PagedLLMEngine(_EngineBase):
                  speculation_ngram: Optional[int] = None,
                  store=None, device: torch.device | str = "cuda"):
         knobs = get_config()
-        if store is not None:
-            raise NotImplementedError(
-                "the object-store arena (store=) is not ported yet: "
-                "ROADMAP queue A, item 10c")
         self.device = resolve_device(device)
         self.cfg = cfg
         # The JAX step casts the fp32 masters to the compute dtype inside
@@ -681,8 +754,15 @@ class PagedLLMEngine(_EngineBase):
         self._prefill_chunk_fn, self._decode, self._copy_block = \
             make_paged_engine_fns(cfg)
         self._verify = make_paged_spec_fns(cfg)
-        self.allocator = KVBlockAllocator(self.num_blocks, self.block_size,
-                                          prefix_sharing=prefix_sharing)
+        # The pool's bytes, reserved in the node's object store when the
+        # engine is given one (the arena; `serve/kv_cache.py`).
+        bytes_per_block = (2 * cfg.n_layers * self.block_size
+                           * cfg.n_kv_heads * cfg.head_dim
+                           * cfg.compute_dtype.itemsize)
+        self.allocator = KVBlockAllocator(
+            self.num_blocks, self.block_size, store=store,
+            bytes_per_block=bytes_per_block if store is not None else 0,
+            prefix_sharing=prefix_sharing)
         # Host-side engine state: per-slot block tables + lengths (the
         # device step only ever sees fixed (S, B_max) arrays).
         self._tables = np.zeros((num_slots, self._b_max), np.int32)
@@ -699,7 +779,9 @@ class PagedLLMEngine(_EngineBase):
                       "ttft_sum": 0.0, "completed": 0,
                       "prefix_hits": 0, "prefix_misses": 0,
                       "prefill_chunks": 0, "queue_waits": 0,
-                      "preemptions": 0,
+                      "preemptions": 0, "adopted_blocks": 0,
+                      "migrated_blocks": 0, "migrate_fallbacks": 0,
+                      "disagg_prefills": 0,
                       "spec_proposed": 0, "spec_accepted": 0}
         # Host clock per decode burst (perf_counter s): start, enqueued
         # (the burst function returned), tokens on the host; the lane
@@ -720,6 +802,7 @@ class PagedLLMEngine(_EngineBase):
     def engine_stats(self) -> Dict[str, Any]:
         s = super().engine_stats()
         s.update(self.allocator.snapshot())
+        s["arena_in_store"] = self.allocator.arena_in_store
         s["queue_depth"] = len(self._pending)
         s["active"] = sum(1 for r in self._slots if r is not None)
         return s
@@ -749,6 +832,11 @@ class PagedLLMEngine(_EngineBase):
                     self._dev(np.zeros((self._b_max,), np.int32)), 0, 1)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def shutdown(self, timeout: float = 30.0):
+        super().shutdown(timeout)
+        # Return the arena to the store (the leak guard's baseline).
+        self.allocator.release()
 
     def gauges(self) -> Dict[str, float]:
         """Cheap autoscaling signals."""
@@ -815,6 +903,7 @@ class PagedLLMEngine(_EngineBase):
             return False
         with self._pending_lock:
             self._pending.popleft()
+        self._obs_admitted(req)
         blocks = shared + alloc
         req.blocks = blocks
         req.slot = slot
@@ -861,6 +950,7 @@ class PagedLLMEngine(_EngineBase):
         n_ctx = len(req.prompt) + len(req.out_tokens)
         if req.first_token_at is None:
             req.first_token_at = time.perf_counter()
+            self._obs_first_token(req)
         req.prefilling = False
         req.emit(first_tok)
         self._last_tokens[req.slot] = first_tok
@@ -912,6 +1002,7 @@ class PagedLLMEngine(_EngineBase):
                         break        # wait for completions to free blocks
                     req.blocks = alloc
                     self._table_row(slot, req.blocks)
+                t0 = time.time()
                 nv = min(budget, n - req.pos)
                 c = self._tier_for(self._chunk_tiers, nv)
                 nv = min(nv, c)
@@ -924,6 +1015,7 @@ class PagedLLMEngine(_EngineBase):
                 budget -= nv
                 progressed = True
                 self.stats["prefill_chunks"] += 1
+                self._obs_prefill(req, t0, nv)
                 if req.pos >= n:
                     self._prefillq.popleft()
                     if not req.out_tokens and not req.no_register:
@@ -1001,6 +1093,7 @@ class PagedLLMEngine(_EngineBase):
             if self._spec_k and self._spec_tick(idx, tables, lengths,
                                                 active, temps):
                 return True
+            w0 = time.time()
             t0 = time.perf_counter()
             self.cache, tok_mat = self._decode(
                 self.params, self.cache, self._dev(tokens),
@@ -1009,10 +1102,14 @@ class PagedLLMEngine(_EngineBase):
             t_enq = time.perf_counter()
             tok_mat = tok_mat.cpu().numpy()          # (burst, w)
             t1 = time.perf_counter()
+            w1 = time.time()
             emitted = 0
             for j, i in enumerate(idx):
                 self._lengths[i] += burst   # KV written for every step
-                emitted += self._emit(i, self._slots[i], tok_mat[:, j])
+                req = self._slots[i]
+                n_new = self._emit(i, req, tok_mat[:, j])
+                emitted += n_new
+                self._obs_burst(req, w0, w1, n_new)
                 self._maybe_finish(i)
             self.burst_log.append((t0, t_enq, t1, w, emitted, len(idx),
                                    int(lengths.sum())))
@@ -1035,6 +1132,7 @@ class PagedLLMEngine(_EngineBase):
         if not self._spec_pays(drafted, greedy, len(idx)):
             return False
         self.stats["spec_proposed"] += (self._spec_k - 1) * greedy
+        w0 = time.time()
         t0 = time.perf_counter()
         self.cache, tok_out, accepted = self._verify(
             self.params, self.cache, self._dev(cand), self._dev(tables),
@@ -1043,6 +1141,7 @@ class PagedLLMEngine(_EngineBase):
         t_enq = time.perf_counter()
         tok_out, accepted = tok_out.cpu().numpy(), accepted.cpu().numpy()
         t1 = time.perf_counter()
+        w1 = time.time()
         emitted = 0
         for j, i in enumerate(idx):
             a = int(accepted[j])
@@ -1050,7 +1149,10 @@ class PagedLLMEngine(_EngineBase):
             # KV was written for the whole window; only a+1 positions are
             # real, and advancing by a+1 is the rollback.
             self._lengths[i] += a + 1
-            emitted += self._emit(i, self._slots[i], tok_out[j, :a + 1])
+            req = self._slots[i]
+            n_new = self._emit(i, req, tok_out[j, :a + 1])
+            emitted += n_new
+            self._obs_burst(req, w0, w1, n_new)
             self._maybe_finish(i)
         self.verify_log.append((t0, t_enq, t1, tables.shape[0], emitted,
                                 len(idx), int(lengths.sum())))
@@ -1106,8 +1208,11 @@ class PagedLLMEngine(_EngineBase):
 
         Returns the number of blocks imported; 0 when the frame cannot be
         adopted (geometry mismatch, pool exhausted, sharing off), and the
-        caller recomputes. Safe to call from any thread (tick lock)."""
-        kv = np.asarray(kv)
+        caller recomputes. Safe to call from any thread (tick lock).
+        `kv` is a numpy array or a tensor (a prefill actor's bf16 frame
+        travels as a tensor: numpy has no bfloat16)."""
+        if not isinstance(kv, torch.Tensor):
+            kv = np.asarray(kv)
         n_need = -(-len(tokens) // self.block_size)
         if (block_size != self.block_size or kv.ndim != 6
                 or kv.shape[0] != 2
@@ -1227,3 +1332,285 @@ def _to_compute(params, dtype: torch.dtype, device: torch.device):
                    else w.detach().to(device=device) if name.endswith("norm")
                    else w.detach().to(device=device, dtype=dtype))
             for name, w in params.items()}
+
+
+def params_digest(params, dtype: torch.dtype, samples: int = 4096) -> str:
+    """Digest of a parameter tree as the engines hold it: for every leaf,
+    its name, its shape and an even sample of about `samples` of its
+    values, the weights cast to the compute `dtype` (norms as they are).
+    fp32 masters and the engine's compute-dtype copy of them digest
+    alike, so a driver can check a replica's weights from the seed
+    without holding a second copy."""
+    import hashlib
+
+    h = hashlib.sha1()
+
+    def walk(tree, prefix):
+        for name in sorted(tree):
+            w = tree[name]
+            if isinstance(w, dict):
+                walk(w, f"{prefix}{name}/")
+                continue
+            flat = w.detach().reshape(-1)
+            x = flat[::max(1, flat.numel() // samples)]
+            if not name.endswith("norm"):
+                x = x.to(dtype)
+            h.update(f"{prefix}{name}{tuple(w.shape)}".encode())
+            h.update(x.float().cpu().numpy().tobytes())
+
+    walk(params, "")
+    return h.hexdigest()[:16]
+
+
+class LLMDeployment:
+    """Serve-deployable wrapper: __call__({"tokens": [...], ...}) →
+    {"tokens": [...]}.  Build with serve.deployment(LLMDeployment).bind(...).
+    The port's counterpart of the JAX package's `LLMDeployment`.
+
+    `engine="paged"` (default) serves through the paged KV-cache engine;
+    `engine="fixed"` is DEPRECATED explicit opt-in to the fixed-slot
+    engine (emits a DeprecationWarning — the paged engine covers its
+    whole feature set at equal HBM, including speculative decoding).
+    Tensor-parallel deployments still fall back to the fixed engine
+    without a warning (the paged kernels are single-device for now)."""
+
+    def __init__(self, cfg_name, *, engine: str = "paged",
+                 num_slots: int = 8, max_len: int = 512, seed: int = 0,
+                 block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache_size: int = 4,
+                 speculation_k: Optional[int] = None,
+                 tensor_parallel: int = 0,
+                 prefix_sharing: Optional[bool] = None,
+                 disagg: Optional[bool] = None,
+                 params_loader: Optional[Callable] = None,
+                 device: torch.device | str = "cuda"):
+        """`cfg_name`: a registry name (ray_tpu_torch.models.configs) or a
+        TransformerConfig instance, e.g. the config half of
+        `ray_tpu_torch.models.hf_convert.from_hf(...)`, with
+        `params_loader` returning the converted weights (serve real HF
+        checkpoints). Without a loader the weights are `init_params` drawn
+        from a `torch.Generator` seeded with `seed`. The engine runs on
+        `device` ("cuda" unless the caller asks for the CPU)."""
+        from ray_tpu_torch.models import configs
+
+        device = resolve_device(device)
+        cfg = (cfg_name if isinstance(cfg_name, TransformerConfig)
+               else configs.get(cfg_name))
+        mesh = None
+        if tensor_parallel > 1:
+            # Claim N local cards as a tp mesh for this replica (the
+            # router still spreads requests across replicas).
+            visible = (torch.cuda.device_count()
+                       if device.type == "cuda" else 1)
+            if visible < tensor_parallel:
+                raise ValueError(
+                    f"tensor_parallel={tensor_parallel} > "
+                    f"{visible} visible devices")
+            mesh = build_mesh(MeshConfig(tp=tensor_parallel, fsdp=1),
+                              device_type=device.type,
+                              n_ranks=tensor_parallel)
+            engine = "fixed"
+        elif engine == "fixed":
+            warnings.warn(
+                "LLMDeployment(engine='fixed') is deprecated: the paged "
+                "engine is the default and covers the fixed engine's "
+                "feature set (prefix caching, speculative decoding) at "
+                "equal HBM with block-granular sharing. The fixed "
+                "engine remains only as the tensor-parallel fallback "
+                "and for explicit opt-in.",
+                DeprecationWarning, stacklevel=2)
+        with torch.no_grad():
+            params = (params_loader() if params_loader
+                      else init_params(
+                          cfg, torch.Generator(device=device).manual_seed(
+                              seed), device=device))
+        if engine == "paged":
+            store = None
+            try:
+                import ray_tpu_torch.api as _api
+
+                if _api.is_initialized():
+                    store = getattr(_api._global_worker(), "store", None)
+            except Exception:  # noqa: BLE001 standalone use
+                store = None
+            self.engine = PagedLLMEngine(
+                cfg, params, num_slots=num_slots, max_len=max_len,
+                block_size=block_size, num_blocks=num_blocks,
+                prefill_chunk=prefill_chunk, seed=seed,
+                prefix_sharing=prefix_sharing,
+                speculation_k=speculation_k, store=store, device=device)
+        else:
+            self.engine = LLMEngine(cfg, params, num_slots=num_slots,
+                                    max_len=max_len,
+                                    prefix_cache_size=prefix_cache_size,
+                                    speculation_k=speculation_k or 0,
+                                    mesh=mesh, device=device)
+        # The engine holds its compute-dtype copy; the fp32 masters go
+        # now, and with them the allocator's hold on their memory.
+        del params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        # Disaggregated serving: this replica decodes; chunked prefill
+        # of long prompts offloads to dedicated prefill actors whose
+        # finished KV blocks ship back as frames (serve/disagg.py).
+        if disagg is None:
+            disagg = get_config().serve_disagg_enabled
+        self._disagg = None
+        self.disagg_role = "unified"
+        # Prefill actors re-derive weights from (cfg, seed); a custom
+        # params_loader would hand them different weights than this
+        # replica decodes with — KV frames would silently mismatch.
+        if disagg and engine == "paged" and params_loader is None:
+            from ray_tpu_torch.serve.disagg import DisaggPrefillClient
+
+            self._disagg = DisaggPrefillClient(
+                cfg_name=cfg_name, seed=seed,
+                block_size=self.engine.block_size,
+                max_len=max_len, device=str(device))
+            self.disagg_role = "decode"
+
+    def set_serve_context(self, app: str, replica_id: str) -> None:
+        """Replica-actor hook: lets the disagg client tag its prefill
+        actors' gauge pushes with the hosting app."""
+        if self._disagg is not None:
+            self._disagg.set_serve_context(app, replica_id)
+
+    def _maybe_offload_prefill(self, tokens,
+                               trace: Optional[dict] = None) -> None:
+        """Disagg hot path: a long prompt whose KV this replica doesn't
+        already hold prefills on a dedicated prefill actor; the finished
+        blocks ship back as a frame and import into the local pool, so
+        the engine's own admission sees a whole-prompt prefix hit and
+        the decode loop never runs the long prefill chunks.  Any
+        failure (actor down, pool full) degrades to local prefill."""
+        if self._disagg is None:
+            return
+        t0 = time.time()
+        try:
+            offloaded = self._disagg.prefill_into(self.engine,
+                                                  list(tokens))
+        except Exception:  # noqa: BLE001 degrade to local prefill
+            return
+        if offloaded:
+            tracing.record_serve_span(trace, "serve.prefill.offload",
+                                      t0, time.time(),
+                                      tokens=len(tokens))
+
+    def weights_digest(self) -> str:
+        """Digest of the weights this replica serves (`params_digest`):
+        a caller that remade them from the same seed can check that they
+        are these."""
+        return params_digest(self.engine.params, self.engine.cfg.compute_dtype)
+
+    def warmup(self) -> None:
+        """Run the engine's every width and chunk tier once (the paged
+        engine's `warmup`), so a replica's first requests do not pay its
+        first launches."""
+        warm = getattr(self.engine, "warmup", None)
+        if warm is not None:
+            warm()
+
+    def __del__(self):
+        """Stop the engine (the paged one gives its arena back to the
+        store); the replica runs this on a graceful exit."""
+        engine = getattr(self, "engine", None)
+        if engine is not None:
+            engine.shutdown()
+
+    def __call__(self, request: dict,
+                 _serve_trace: Optional[dict] = None) -> dict:
+        self._maybe_offload_prefill(request["tokens"],
+                                    trace=_serve_trace)
+        toks = self.engine.generate(
+            request["tokens"],
+            max_tokens=int(request.get("max_tokens", 32)),
+            temperature=float(request.get("temperature", 0.0)),
+            trace=_serve_trace)
+        return {"tokens": toks}
+
+    def stream(self, request: dict, _serve_resume: Optional[dict] = None,
+               _serve_trace: Optional[dict] = None):
+        """Streaming entry: yields {"token": t} dicts (served over
+        chunked HTTP by the proxy; call via handle.remote_streaming).
+
+        `_serve_resume` is the replica-injected failover context
+        ({"offset": n, "items": [...]}): the tokens a dead replica
+        already delivered are re-admitted through the engine's recompute
+        path (resume_tokens) so this replica yields only the
+        continuation — no duplicated or re-generated tokens."""
+        resume = [it["token"] for it in (_serve_resume or {}).get(
+            "items", []) if isinstance(it, dict) and "token" in it]
+        if not resume:
+            self._maybe_offload_prefill(request["tokens"])
+        for tok in self.engine.generate_stream(
+                request["tokens"],
+                max_tokens=int(request.get("max_tokens", 32)),
+                temperature=float(request.get("temperature", 0.0)),
+                resume_tokens=resume or None,
+                trace=_serve_trace):
+            yield {"token": tok}
+
+    def stats(self, _request: Optional[dict] = None) -> dict:
+        """The engine's statistics, and the attention kernels' launch
+        counts in this replica's process (`ops.attention.launches`)."""
+        from ray_tpu_torch.ops import attention
+
+        return dict(self.engine.engine_stats(),
+                    kernel_launches=dict(attention.launches))
+
+    def serve_state(self) -> dict:
+        """Replica gauge-loop hook: disagg role + the digests of this
+        engine's registered (aligned) prefixes.  Rides the existing
+        report_serve_gauges/syncer push into the GCS-resident prefix
+        registry (no new RPC plane); the handle's prefix-affinity
+        routing reads the merged owner map back out of controller
+        routing state."""
+        cfg = get_config()
+        state: dict = {"role": self.disagg_role}
+        es = self.engine.engine_stats()
+        if es.get("spec_proposed"):
+            state["spec_accept_rate"] = round(
+                es.get("spec_accepted", 0) / es["spec_proposed"], 4)
+        alloc = getattr(self.engine, "allocator", None)
+        if alloc is not None and cfg.serve_prefix_registry_enabled:
+            state["block_size"] = int(self.engine.block_size)
+            state["prefixes"] = alloc.prefix_digests(
+                limit=cfg.serve_prefix_registry_max_entries)
+        return state
+
+    def adopt_kv(self, tokens, kv, block_size: int, last_logits=None,
+                 source: str = "migrate") -> int:
+        """Import a shipped KV frame (migration ticket / disagg handoff)
+        into the hosted engine's pool.  Raises KVMigrationError when the
+        engine can't adopt it — the caller's recompute fallback takes
+        over.  Returns the number of blocks imported."""
+        from ray_tpu_torch.exceptions import KVMigrationError
+
+        imp = getattr(self.engine, "import_prefix", None)
+        if imp is None:
+            raise KVMigrationError(
+                reason="engine has no paged block pool to adopt into")
+        n = imp(tokens, kv, block_size, last_logits=last_logits)
+        if n <= 0:
+            raise KVMigrationError(
+                reason=f"import_prefix rejected frame "
+                       f"({len(tokens)} tokens, block_size "
+                       f"{block_size})")
+        key = ("migrated_blocks" if source == "migrate"
+               else "adopted_blocks")
+        self.engine.stats[key] += n
+        return n
+
+    def engine_gauges(self) -> dict:
+        """Replica gauge hook: the Replica actor piggybacks these on the
+        node daemon's syncer push (serve autoscaling input)."""
+        g = getattr(self.engine, "gauges", None)
+        if g is not None:
+            return g()
+        s = self.engine.engine_stats()
+        return {"queue_depth": 0.0,
+                "active": float(s.get("requests", 0)
+                                - s.get("completed", 0)),
+                "occupancy": 0.0}

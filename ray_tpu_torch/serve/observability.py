@@ -1,0 +1,263 @@
+"""Serving-plane observability: metric definitions, engine mirroring,
+and the worker->daemon metrics push.
+
+The port's copy of `ray_tpu/serve/observability.py`, importing `ray_tpu_torch`
+only.
+
+This is the metrics half of the request-observability layer (spans live
+in util/tracing's serve_span helpers; trace id == request id).  All
+metric instances live in the EMITTING process's registry (replica or
+proxy worker); they reach the cluster-wide exposition because workers
+push registry dumps to their local node daemon, which folds them into
+the dump its syncer piggybacks to the GCS MetricsFederation — the same
+path node metrics already ride, so `ray-tpu metrics --federated` and
+the RAY_TPU_METRICS_GCS_EXPORT_PORT endpoint see serve series with a
+node label and no new RPC plane.
+
+Metric names (phases: queue_wait, prefill, decode_step,
+stream_transport):
+
+  raytpu_serve_ttft_seconds{app}          first-token latency histogram
+  raytpu_serve_itl_seconds{app}           inter-token gap histogram
+                                          (observed once per decode
+                                          burst at the burst-mean gap)
+  raytpu_serve_phase_seconds{app,phase}   per-phase latency histogram
+  raytpu_serve_tokens_total{app}          tokens generated
+  raytpu_serve_tokens_per_s{app,eng}      rolling generation rate
+  raytpu_serve_inflight{app,eng}          active engine requests
+  raytpu_serve_requests_total{app,status} proxy dispatch outcomes
+  raytpu_serve_shed_total{app}            proxy 503 admission sheds
+  raytpu_serve_stream_resumes_total{app}  mid-stream failover resumes
+  raytpu_serve_kv_blocks{app,eng,state}   pool blocks by state
+                                          (free/cached/active/total)
+  raytpu_serve_kv_occupancy{app,eng}      active / usable blocks
+  raytpu_serve_kv_events_total{app,event} reuse_hit, reuse_miss,
+                                          cow_copy, eviction,
+                                          preemption, alloc_failure,
+                                          prefill_chunk, queue_wait,
+                                          migrate_block,
+                                          migrate_fallback_recompute,
+                                          remote_prefix_hit,
+                                          remote_prefix_miss,
+                                          adopt_block, disagg_prefill
+  raytpu_serve_kv_migrate_seconds{app}    live KV migration latency
+                                          (ticket publish to adoption)
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, Optional
+
+_metrics: Optional[Dict[str, Any]] = None
+_lock = threading.Lock()
+
+# Token-latency boundaries: TTFT spans ~1ms (tiny test models, warm
+# prefix hits) to tens of seconds (chunked prefill of long prompts
+# under load); the RPC-oriented defaults put everything past 60s in
+# one bucket but waste half their resolution under 1ms.
+_LATENCY_BOUNDARIES = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                       0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+
+
+def metrics() -> Dict[str, Any]:
+    """Lazy per-process serve metric set (registry adoption makes
+    re-instantiation after an in-process restart safe)."""
+    global _metrics
+    if _metrics is None:
+        with _lock:
+            if _metrics is None:
+                from ray_tpu_torch.util.metrics import (
+                    Counter,
+                    Gauge,
+                    Histogram,
+                )
+
+                _metrics = {
+                    "ttft": Histogram(
+                        "raytpu_serve_ttft_seconds",
+                        "Serve first-token latency (submit to first "
+                        "generated token)",
+                        boundaries=_LATENCY_BOUNDARIES,
+                        tag_keys=("app",)),
+                    "itl": Histogram(
+                        "raytpu_serve_itl_seconds",
+                        "Serve inter-token latency (mean gap per "
+                        "decode burst)",
+                        boundaries=_LATENCY_BOUNDARIES,
+                        tag_keys=("app",)),
+                    "phase": Histogram(
+                        "raytpu_serve_phase_seconds",
+                        "Serve request time by phase (queue_wait, "
+                        "prefill, decode_step, stream_transport)",
+                        boundaries=_LATENCY_BOUNDARIES,
+                        tag_keys=("app", "phase")),
+                    "tokens": Counter(
+                        "raytpu_serve_tokens_total",
+                        "Tokens generated by serve engines",
+                        tag_keys=("app",)),
+                    "tokens_per_s": Gauge(
+                        "raytpu_serve_tokens_per_s",
+                        "Rolling serve token generation rate",
+                        tag_keys=("app", "eng")),
+                    "inflight": Gauge(
+                        "raytpu_serve_inflight",
+                        "Requests active in a serve engine",
+                        tag_keys=("app", "eng")),
+                    "requests": Counter(
+                        "raytpu_serve_requests_total",
+                        "HTTP proxy dispatches by status",
+                        tag_keys=("app", "status")),
+                    "shed": Counter(
+                        "raytpu_serve_shed_total",
+                        "HTTP proxy requests shed at admission (503)",
+                        tag_keys=("app",)),
+                    "resumes": Counter(
+                        "raytpu_serve_stream_resumes_total",
+                        "Mid-stream failover resumes",
+                        tag_keys=("app",)),
+                    "kv_blocks": Gauge(
+                        "raytpu_serve_kv_blocks",
+                        "Paged KV pool blocks by state",
+                        tag_keys=("app", "eng", "state")),
+                    "kv_occupancy": Gauge(
+                        "raytpu_serve_kv_occupancy",
+                        "Paged KV pool occupancy (active/usable)",
+                        tag_keys=("app", "eng")),
+                    "kv_events": Counter(
+                        "raytpu_serve_kv_events_total",
+                        "Paged KV cache events (reuse_hit/reuse_miss/"
+                        "cow_copy/eviction/preemption/alloc_failure/"
+                        "prefill_chunk/queue_wait/migrate_block/"
+                        "migrate_fallback_recompute/remote_prefix_hit/"
+                        "remote_prefix_miss/adopt_block/disagg_prefill)",
+                        tag_keys=("app", "event")),
+                    "kv_migrate": Histogram(
+                        "raytpu_serve_kv_migrate_seconds",
+                        "Live KV migration latency (drain-side ticket "
+                        "publish to survivor-side block adoption)",
+                        boundaries=_LATENCY_BOUNDARIES,
+                        tag_keys=("app",)),
+                }
+    return _metrics
+
+
+def observe_phase(app: str, phase: str, seconds: float) -> None:
+    metrics()["phase"].observe(seconds, {"app": app, "phase": phase})
+
+
+def observe_kv_migrate(app: str, seconds: float) -> None:
+    metrics()["kv_migrate"].observe(seconds, {"app": app})
+
+
+def count_kv_event(app: str, event: str, n: float = 1.0) -> None:
+    """Direct kv-event increment for events that don't originate in an
+    engine stats snapshot (handle-side remote_prefix_hit/miss)."""
+    metrics()["kv_events"].inc(n, {"app": app, "event": event})
+
+
+# Engine stats keys mirrored as monotonic kv/engine event counters
+# (engine stats are cumulative — the mirror incs by delta).
+_EVENT_KEYS = (("reuse_hits", "reuse_hit"),
+               ("reuse_misses", "reuse_miss"),
+               ("cow_copies", "cow_copy"),
+               ("evictions", "eviction"),
+               ("preemptions", "preemption"),
+               ("alloc_failures", "alloc_failure"),
+               ("prefill_chunks", "prefill_chunk"),
+               ("queue_waits", "queue_wait"),
+               ("prefix_hits", "prefix_hit"),
+               ("prefix_misses", "prefix_miss"),
+               ("migrated_blocks", "migrate_block"),
+               ("migrate_fallbacks", "migrate_fallback_recompute"),
+               ("adopted_blocks", "adopt_block"),
+               ("disagg_prefills", "disagg_prefill"))
+
+
+def mirror_engine(engine: Any, app: str) -> None:
+    """Fold one engine's cumulative stats snapshot into the process
+    registry: KV pool gauges, event counters (by delta), token counter
+    and a rolling tokens/s gauge.  Called from the replica gauge loop
+    (1s) and the bench harness; cheap (one stats dict + a few sets)."""
+    m = metrics()
+    try:
+        s = engine.engine_stats()
+    except Exception:  # noqa: BLE001 engine mid-shutdown
+        return
+    eng = _engine_id(engine)
+    last = engine.__dict__.setdefault("_obs_mirror", {})
+    now = time.monotonic()
+    tags = {"app": app, "eng": eng}
+    # Monotonic deltas -> counters.
+    tok = float(s.get("tokens_generated", 0.0))
+    dtok = tok - last.get("tokens_generated", 0.0)
+    if dtok > 0:
+        m["tokens"].inc(dtok, {"app": app})
+    for stat_key, event in _EVENT_KEYS:
+        if stat_key not in s:
+            continue
+        d = float(s[stat_key]) - last.get(stat_key, 0.0)
+        if d > 0:
+            m["kv_events"].inc(d, {"app": app, "event": event})
+        last[stat_key] = float(s[stat_key])
+    # Rolling rate over the mirror interval.
+    t0 = last.get("_t")
+    if t0 is not None and now > t0:
+        m["tokens_per_s"].set(max(0.0, dtok) / (now - t0), tags)
+    last["tokens_generated"] = tok
+    last["_t"] = now
+    m["inflight"].set(float(s.get("active",
+                                  s.get("requests", 0)
+                                  - s.get("completed", 0))), tags)
+    # Paged-pool internals (absent on the fixed-slot engine).
+    if "blocks_total" in s:
+        for state in ("total", "free", "cached", "active"):
+            m["kv_blocks"].set(float(s.get(f"blocks_{state}", 0.0)),
+                               {**tags, "state": state})
+        m["kv_occupancy"].set(float(s.get("occupancy", 0.0)), tags)
+
+
+def _engine_id(engine: Any) -> str:
+    eid = engine.__dict__.get("_obs_eng_id")
+    if eid is None:
+        import uuid
+
+        eid = engine.__dict__["_obs_eng_id"] = uuid.uuid4().hex[:6]
+    return eid
+
+
+def push_registry(origin: str, timeout: float = 2.0) -> bool:
+    """Best-effort one-shot push of this process's registry dump to the
+    local node daemon (which folds it into its federation payload).
+    False when there is no daemon (local mode) or the push failed."""
+    try:
+        from ray_tpu_torch.api import _global_worker, is_initialized
+        from ray_tpu_torch.util.metrics import registry_dump
+
+        if not is_initialized():
+            return False
+        daemon = getattr(_global_worker(), "daemon", None)
+        if daemon is None:
+            return False
+        daemon.call("NodeDaemon", "report_metrics", origin=origin,
+                    dump=registry_dump(), timeout=timeout)
+        return True
+    except Exception:  # noqa: BLE001 best-effort telemetry
+        return False
+
+
+def start_push_loop(origin: str) -> threading.Event:
+    """Background pusher for worker processes that have no other
+    periodic daemon RPC to piggyback on (the HTTP proxy; replicas ride
+    their gauge loop instead).  Returns the stop event."""
+    from ray_tpu_torch.core.config import get_config
+
+    stop = threading.Event()
+    period = max(0.5, get_config().serve_metrics_push_s)
+
+    def loop():
+        while not stop.wait(period):
+            push_registry(origin)
+
+    threading.Thread(target=loop, daemon=True).start()
+    return stop

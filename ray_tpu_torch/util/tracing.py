@@ -12,8 +12,8 @@ image): spans carry trace_id/span_id/parent_id, the current context
 propagates via a contextvar, `inject()/extract()` move it through task
 specs, and finished spans flush into the GCS TaskEvents sink (kind
 "span"). An OTLP-shaped exporter can be plugged via `set_exporter`.
-The serving- and train-plane spans of the JAX package wait for ROADMAP
-queue A, items 10c and 10d.
+The serving-plane spans (`serve_ctx`, `serve_span`, `record_serve_span`)
+are here; the train-plane ones wait for ROADMAP queue A, item 10d.
 
 Opt-in: RAY_TPU_TRACING_ENABLED=1 (ref: ray.init(_tracing_startup_hook)).
 """
@@ -47,6 +47,12 @@ def set_node_context(node_id: str) -> None:
 
 def enabled() -> bool:
     return get_config().tracing_enabled
+
+
+def serve_enabled() -> bool:
+    """Serving-plane request tracing (independent of the generic task
+    tracing opt-in; RAY_TPU_SERVE_TRACE_ENABLED=0 is the kill switch)."""
+    return get_config().serve_trace_enabled
 
 
 class Span:
@@ -132,6 +138,73 @@ def extract_and_span(ctx: Optional[Dict[str, str]], name: str, **attrs):
     finally:
         _current.reset(token)
         s.finish()
+
+
+# ---------------------------------------------------------------------------
+# Serving-plane request traces: the serve path passes an EXPLICIT context
+# dict ({"trace_id": <request id>, "span_id": <parent>}) from hop to hop
+# (proxy -> handle -> replica -> engine) instead of relying on the
+# contextvar — the engine emits spans from its own tick thread, replicas
+# from puller threads, none of which inherit the request's context.  The
+# request id IS the trace id, so `ray-tpu serve trace <request-id>`
+# is a trace_id filter over the GCS span sink.
+# ---------------------------------------------------------------------------
+
+def serve_ctx(request_id: str, parent_span_id: Optional[str] = None,
+              **extra) -> Optional[Dict[str, Any]]:
+    """Mint a serve trace context from a request id; None when serve
+    tracing is off (every downstream helper no-ops on None)."""
+    if not serve_enabled() or not request_id:
+        return None
+    ctx: Dict[str, Any] = {"trace_id": request_id,
+                           "span_id": parent_span_id}
+    ctx.update(extra)
+    return ctx
+
+
+def child_ctx(ctx: Optional[Dict[str, Any]],
+              span: Optional["Span"]) -> Optional[Dict[str, Any]]:
+    """Context for the next hop: same trace, parented under `span`."""
+    if ctx is None:
+        return None
+    if span is None:
+        return ctx
+    out = dict(ctx)
+    out["span_id"] = span.span_id
+    return out
+
+
+@contextlib.contextmanager
+def serve_span(ctx: Optional[Dict[str, Any]], name: str, **attrs):
+    """Open a serve-plane span under an explicit request context.
+    No-op (yields None) when tracing is off or there is no context —
+    the caller never branches."""
+    if ctx is None or not serve_enabled():
+        yield None
+        return
+    if ctx.get("resumed"):
+        attrs.setdefault("resumed", 1)
+    s = Span(name, trace_id=ctx["trace_id"],
+             parent_id=ctx.get("span_id"), attrs=attrs)
+    try:
+        yield s
+    finally:
+        s.finish()
+
+
+def record_serve_span(ctx: Optional[Dict[str, Any]], name: str,
+                      start_ts: float, end_ts: Optional[float] = None,
+                      **attrs) -> None:
+    """Record an already-timed serve span (engine ticks measure their
+    own wall window; spans are minted after the fact)."""
+    if ctx is None or not serve_enabled():
+        return
+    if ctx.get("resumed"):
+        attrs.setdefault("resumed", 1)
+    s = Span(name, trace_id=ctx["trace_id"],
+             parent_id=ctx.get("span_id"), attrs=attrs)
+    s.start = start_ts
+    s.finish(end_ts)
 
 
 def drain() -> List[dict]:

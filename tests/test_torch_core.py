@@ -638,7 +638,7 @@ def test_a_ref_inside_a_stored_object_keeps_its_object():
 def test_what_needs_the_multiprocess_runtime_raises(monkeypatch):
     """What the port has not ported raises and names its ROADMAP item: the
     ray-tpu:// client and the cross-language registry (10a-iii), DAG nodes
-    (10c). `init()` and an implicit init start a cluster instead
+    (10c-ii); a serve deployment's `bind` runs. `init()` and an implicit init start a cluster instead
     (`test_init_starts_a_cluster_and_an_address_joins_it`)."""
     for runtime in RUNTIMES:
         if runtime.is_initialized():
@@ -671,8 +671,14 @@ def test_what_needs_the_multiprocess_runtime_raises(monkeypatch):
                 return 1
 
         for bind in (f.bind, A.bind, A.remote().m.bind):
-            with pytest.raises(NotImplementedError, match="item 10c"):
+            with pytest.raises(NotImplementedError, match="item 10c-ii"):
                 bind()
+        # A deployment's bind is serve's own: it builds the application.
+        from ray_tpu_torch import serve
+
+        app = serve.deployment(A).bind(1, k=2)
+        assert (app.deployment.name, app.init_args, app.init_kwargs) == (
+            "A", (1,), {"k": 2})
         assert ray_tpu_torch.get_runtime_context().get_node_id() == "local"
     finally:
         ray_tpu_torch.shutdown()

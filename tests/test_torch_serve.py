@@ -76,7 +76,22 @@ KNOBS = ("address", "kv_block_size", "kv_block_count", "kv_block_prefix_sharing"
          "memory_usage_threshold", "gcs_attribution_enabled",
          "gcs_slow_handler_ms", "gcs_loop_audit_ms",
          "gcs_flight_recorder_enabled", "gcs_flight_max_events",
-         "log_dir", "log_to_driver")
+         "log_dir", "log_to_driver",
+         # the serve control plane, its channels and usage stats
+         "serve_rails_enabled", "serve_rails_capacity_bytes",
+         "serve_rails_max_streams", "serve_rails_tick_s", "serve_rails_probe_s",
+         "serve_gauge_ttl_s", "serve_autoscale_stats_ttl_s", "serve_retry_max",
+         "serve_retry_backoff_initial_s", "serve_retry_backoff_max_s",
+         "serve_retry_backoff_multiplier", "serve_retry_backoff_jitter",
+         "serve_drain_timeout_s", "serve_proxy_max_inflight",
+         "serve_request_deadline_s", "serve_health_timeout_s",
+         "serve_trace_enabled", "serve_metrics_push_s", "serve_disagg_enabled",
+         "serve_disagg_prompt_threshold", "serve_disagg_prefill_actors",
+         "serve_prefix_registry_enabled", "serve_prefix_registry_max_entries",
+         "serve_kv_migrate_enabled", "serve_kv_migrate_inline_max_bytes",
+         "serve_kv_migrate_linger_s", "serve_kv_migrate_ttl_s",
+         "serve_startup_grace_s", "channel_backoff_us_min",
+         "channel_backoff_us_max", "usage_stats_enabled")
 
 
 @pytest.fixture(scope="module")
@@ -292,15 +307,51 @@ def test_prefix_digest_matches_jax():
     assert prefix_digest(toks) == jax_digest(toks)
 
 
-def test_unported_options_raise(model):
-    """The store arena is not ported yet; the paged engine takes no mesh,
-    as the JAX package's takes none (`LLMEngine(mesh=...)` serves
-    tensor-parallel: tests/test_torch_{world_one,distributed}.py)."""
+def test_unported_options_raise(model, tmp_path):
+    """The store arena (`store=`) runs as the JAX package's does: the pool's
+    bytes are one object in the node's store, its size the JAX engine's,
+    and releasing it (allocator `release`, engine `shutdown`) returns the
+    store to its baseline. The paged engine takes no mesh, as the JAX
+    package's takes none (`LLMEngine(mesh=...)` serves tensor-parallel:
+    tests/test_torch_{world_one,distributed}.py)."""
+    from ray_tpu.core.object_store import ObjectStore as JaxStore
+    from ray_tpu_torch.core.object_store import ObjectStore
+
     jcfg, jp, tcfg, tp = model
-    with pytest.raises(NotImplementedError, match="queue A, item 10c"):
-        KVBlockAllocator(9, 4, store=object())
-    with pytest.raises(NotImplementedError, match="queue A, item 10c"):
-        PagedLLMEngine(tcfg, tp, store=object(), device="cpu")
+    stores = {}
+    try:
+        for kind, cls in (("jax", JaxStore), ("torch", ObjectStore)):
+            stores[kind] = cls(str(tmp_path / kind),
+                               capacity=32 * 1024 * 1024, num_slots=64)
+        arena = {}
+        for kind, alloc_cls, eng_cls, cfg, params, kw in (
+                ("jax", JaxAllocator, JaxEngine, jcfg, jp, {}),
+                ("torch", KVBlockAllocator, PagedLLMEngine, tcfg, tp,
+                 {"device": "cpu"})):
+            store = stores[kind]
+            base = (store.used, store.num_objects)
+            a = alloc_cls(17, 4, store=store, bytes_per_block=1024)
+            assert a.arena_bytes == 17 * 1024 and store.used > base[0]
+            a.free(a.alloc(8))
+            a.release()
+            assert (store.used, store.num_objects) == base
+            eng = eng_cls(cfg, params, num_slots=2, max_len=64, block_size=4,
+                          store=store, **kw)
+            try:
+                assert store.num_objects == base[1] + 1
+                arena[kind] = eng.allocator.arena_bytes
+                assert eng.generate([1, 2, 3, 4, 5], max_tokens=4,
+                                    timeout=WAIT_S) is not None
+            finally:
+                eng.shutdown()
+            assert (store.used, store.num_objects) == base
+        assert arena["torch"] == arena["jax"] > 0
+        assert KVBlockAllocator(9, 4, store=stores["torch"]).arena_bytes == 0
+    finally:
+        for kind, store in stores.items():
+            store.disconnect()
+            (JaxStore if kind == "jax" else ObjectStore).destroy(
+                str(tmp_path / kind))
     with pytest.raises(TypeError, match="mesh"):
         JaxEngine(jcfg, jp, mesh=object())
     with pytest.raises(TypeError, match="mesh"):
