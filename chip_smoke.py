@@ -218,7 +218,31 @@ Run from a checkout of the repository on a machine with a Hopper card
    beside phase 6's `engine.generate`. After the cluster is down, the
    greedy tokens (and the alone prompt's) are held to `forward`
    teacher-forced as in phase 6, on weights remade from the seed whose
-   `params_digest` must equal the replica's `weights_digest()`.
+   `params_digest` must equal the replica's `weights_digest()`;
+21. the train plane on that runtime (`train_plane_phase`), with
+   RAY_TPU_TRAIN_OBS_PEAK_FLOPS at PEAK_BF16_FLOPS: (a)
+   `train.TorchTrainer(train_plane_loop, scaling_config=ScalingConfig(
+   num_workers=1, use_gpu=True, flops_per_step=...))` runs phase 4's cell
+   (bench-350m, 8 x 2048, AdamW with warmup, seed --seed) for
+   TRAIN_PLANE_STEPS steps in its worker, every loss bit-equal to 19b's
+   direct step's on the same batches and 2L / L / L launches a step
+   counted in the worker; after step TRAIN_PLANE_CKPT_STEP the loop saves
+   the whole train state (params, both AdamW moments, the step count)
+   with `train.save_pytree` (seconds and GiB/s, the session's copy, the
+   free bytes first), and `Result.checkpoint` is checkpoint_000001; (b)
+   the same fit with `FailureConfig(elastic=True)`: right after that
+   checkpoint the driver SIGKILLs rank 0 (`util.chaos.kill_rank`; attempt
+   0 waits for it, with a deadline), the supervisor replaces the rank in
+   place on its kept bundle, the new gang loads the checkpoint in place
+   (`load_pytree(target=...)`, seconds and GiB/s) and steps on with the
+   direct step's losses; restarts by death >= 1, no shrink, checkpoint
+   directories monotonic, the restart gap from the kill to the new
+   gang's first step, and the store's (used bytes, objects) back at
+   their baseline; (c) `util.state.train_runs()` shows the clean run
+   (steps, no restart, a goodput split, achieved FLOP/s and an MFU beside
+   phase 4's) and the killed one (one restart, lost_restart_s > 0),
+   `util.timeline.fetch_spans` the clean run's train.step spans, and
+   `util.state.doctor()` no train finding on the clean run.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -230,8 +254,9 @@ as `launches_ulysses`, of 14a's mesh steps as
 `launches_hf_llama3_8b_forward`, of 15a's TINY as
 `launches_tiny_padded`, of 18a's actor steps as
 `launches_bench_350m_actor_train`, of 19b's worker-process actor steps
-as `launches_bench_350m_cluster_actor_train` and of phase 20's replica as
-`launches_llama3_8b_serve_replica`), and {"ok": true,
+as `launches_bench_350m_cluster_actor_train`, of phase 20's replica as
+`launches_llama3_8b_serve_replica` and of 21a's trainer steps as
+`launches_bench_350m_trainer`), and {"ok": true,
 "device": {...}}.
 """
 from __future__ import annotations
@@ -240,6 +265,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import statistics
 import sys
 import time
@@ -3885,6 +3911,359 @@ def serve_plane_phase(torch, models, attention, seed: int, card: str, phase6=Non
     return out
 
 
+TRAIN_PLANE_STEPS = 10
+# Step after which phase 21's loop saves the whole train state.
+TRAIN_PLANE_CKPT_STEP = 5
+# How long attempt 0 of 21b waits, after reporting its checkpoint, for the
+# SIGKILL the driver sends; a run that outlives it fails.
+TRAIN_PLANE_KILL_DEADLINE_S = 300.0
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(_tree_nbytes(v) if isinstance(v, dict) else
+               (v.numel() * v.element_size() if hasattr(v, "element_size") else 0)
+               for v in tree.values())
+
+
+def train_plane_loop(config) -> None:
+    """Phase 21's train loop, run by `train.TorchTrainer` in its worker:
+    phase 4's step from the seed, or from `train.get_checkpoint()` loaded
+    in place; each step reports its loss, this process's kernel launches
+    and times; the whole state is saved after TRAIN_PLANE_CKPT_STEP. With
+    `hold`, an attempt that did not resume writes a beacon after its
+    checkpoint and waits for the driver's SIGKILL."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import models, train
+    from ray_tpu_torch.ops import attention
+
+    cfg, device, steps = config["cfg"], config["device"], config["steps"]
+    init_fn, step_fn = bench_train_step(models, cfg, device)
+    state = init_fn(torch.Generator(device=device).manual_seed(config["seed"]))
+    ckpt = train.get_checkpoint()
+    restore = None
+    if ckpt is not None:
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        tree = train.load_pytree(ckpt, target=models.training.train_state_tree(state))
+        _sync(torch, device)
+        restore = {"seconds": time.perf_counter() - t0, "bytes": _tree_nbytes(tree),
+                   "path": ckpt.path}
+        state.step = int(tree["step"])
+        del tree
+    corpus = torch.from_numpy(np.random.default_rng(config["seed"]).integers(
+        0, cfg.vocab_size, (steps, config["batch"], config["seq"] + 1), dtype=np.int32))
+    card = torch.cuda.get_device_name() if device == "cuda" else "cpu"
+    for i in range(state.step, steps):
+        tokens = corpus[i].to(device)
+        with train.step_phases():
+            start = time.time()
+            with train.phase("compute"):
+                seen = dict(attention.launches)
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, {"tokens": tokens})
+                host_ms = (time.perf_counter() - t0) * 1e3
+                loss = float(metrics["loss"])
+                _sync(torch, device)
+                step_ms = (time.perf_counter() - t0) * 1e3
+                launched = {n: attention.launches[n] - seen[n] for n in seen}
+            report = {"step": state.step, "loss": loss, "launches": launched,
+                      "step_ms": step_ms, "host_ms": host_ms, "device": card,
+                      "pid": os.getpid(), "start_ts": start, "restore": restore}
+            restore = None
+            if state.step != TRAIN_PLANE_CKPT_STEP:
+                train.report(report)
+                continue
+            trial = train.get_context().get_trial_dir()
+            report["free_bytes_before_save"] = shutil.disk_usage(trial).free
+            tree = models.training.train_state_tree(state)
+            src = os.path.join(trial, f"save_{os.getpid()}")
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            saved = train.save_pytree(tree, src, step=state.step)
+            report["save"] = {"seconds": time.perf_counter() - t0,
+                              "bytes": _tree_nbytes(tree)}
+            del tree
+            t0 = time.perf_counter()
+            train.report(report, checkpoint=saved)
+            report_s = time.perf_counter() - t0
+            shutil.rmtree(src, ignore_errors=True)
+        # The session's copy into checkpoint_%06d, timed by the report.
+        train.report({"step": state.step, "copy_s": report_s})
+        if config.get("hold") and ckpt is None:
+            # Hold for the SIGKILL only once the trainer has drained the
+            # checkpoint's report: a report still queued in this process
+            # dies with it, and the gang would restart from scratch.
+            from ray_tpu_torch.train import session
+
+            queued = session._get().results
+            while not queued.empty():
+                time.sleep(0.01)
+            time.sleep(0.5)  # the poll's reply on its way; the cut stays here
+            with open(config["beacon"], "w") as f:
+                f.write(str(os.getpid()))
+            deadline = time.monotonic() + TRAIN_PLANE_KILL_DEADLINE_S
+            while not os.path.exists(config["beacon"] + ".never"):
+                if time.monotonic() > deadline:
+                    raise RuntimeError("21b: attempt 0 was never killed")
+                time.sleep(0.05)
+
+
+def _plane_steps(result) -> list:
+    return [m for m in result.metrics_history if "loss" in m]
+
+
+def _check_plane_steps(label, steps, reference, expected, card_name) -> None:
+    for m in steps:
+        i = m["step"] - 1
+        if m["loss"] != reference[i] or not math.isfinite(m["loss"]):
+            raise AssertionError(f"{label} step {m['step']}: loss {m['loss']!r} is not the "
+                                 f"direct step's {reference[i]!r}")
+        if m["launches"] != expected:
+            raise AssertionError(f"{label} step {m['step']}: launches {m['launches']} != "
+                                 f"{expected}")
+        if m["device"] != card_name:
+            raise AssertionError(f"{label} step {m['step']}: ran on {m['device']}, not "
+                                 f"{card_name}")
+
+
+def _gib_s(rec) -> float:
+    return rec["bytes"] / 2**30 / rec["seconds"] if rec and rec["seconds"] else float("nan")
+
+
+def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
+                      batch: int = 8, seq: int = 2048, device: str = "cuda",
+                      reference=None, direct_step_ms=None, phase4_mfu=None,
+                      num_cpus: int = 16) -> dict:
+    """Phase 21: bench-350m (`cfg`) trained through `train.TorchTrainer` on
+    the one-host runtime, one worker with the card: (a) a clean fit of
+    TRAIN_PLANE_STEPS steps saving the whole state after step
+    TRAIN_PLANE_CKPT_STEP; (b) the same fit, elastic, its rank SIGKILLed
+    right after that checkpoint, replaced in place on its kept bundle and
+    resumed from the checkpoint; (c) what `util.state` and
+    `util.timeline` recorded of both. Every step's loss is held bit for bit
+    to `reference` (the direct step's on the same seed and batches; made
+    here when not given), and its launches, counted in the worker, to
+    2L / L / L. The store's (used bytes, objects) must be back at their
+    baseline after (b)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.util import chaos, state as rt_state, timeline
+
+    cuda = device == "cuda"
+    cfg = cfg or models.configs.BENCH_350M
+    steps = TRAIN_PLANE_STEPS
+    if reference is None:
+        init_fn, step_fn = bench_train_step(models, cfg, device)
+        st = init_fn(torch.Generator(device=device).manual_seed(seed))
+        corpus = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (steps, batch, seq + 1), dtype=np.int32)
+        reference, times = [], []
+        for i in range(steps):
+            tokens = torch.from_numpy(corpus[i]).to(device)
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            st, m = step_fn(st, {"tokens": tokens})
+            reference.append(float(m["loss"]))
+            _sync(torch, device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        direct_step_ms = statistics.median(times[1:])
+        del st
+    per_step = 1 if cuda else 0  # the plain versions count nothing
+    expected = {"fa_fwd": 2 * cfg.n_layers * per_step,
+                "fa_bwd_dq": cfg.n_layers * per_step, "fa_bwd_dkv": cfg.n_layers * per_step}
+    card_name = torch.cuda.get_device_name(0) if cuda else "cpu"
+    fpt = 6.0 * cfg.num_params + 6 * cfg.n_layers * cfg.d_model * seq
+    flops_per_step = fpt * batch * seq
+    peak_var = "RAY_TPU_TRAIN_OBS_PEAK_FLOPS"
+    peak_before = os.environ.get(peak_var)
+    os.environ[peak_var] = repr(PEAK_BF16_FLOPS)
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    if cuda:
+        torch.cuda.empty_cache()
+    out = {"config": cfg.name, "batch": batch, "seq": seq, "steps": steps,
+           "flops_per_step": flops_per_step}
+    t_phase = time.perf_counter()
+    rt.init(num_cpus=num_cpus, num_gpus=None if cuda else 1)
+    try:
+        store = rt.api._global_worker().store
+        baseline = (store.used, store.num_objects)
+        config = {"cfg": cfg, "device": device, "steps": steps, "seed": seed,
+                  "batch": batch, "seq": seq}
+        # On the CPU (a rehearsal) the worker's bundle still reserves the
+        # GPU that init(num_gpus=1) declares, as the card's bundle does.
+        scaling = train.ScalingConfig(
+            num_workers=1, use_gpu=cuda, flops_per_step=flops_per_step,
+            resources_per_worker=None if cuda else {"GPU": 1.0})
+
+        # (a) a clean fit
+        t0 = time.perf_counter()
+        clean = train.TorchTrainer(
+            train_plane_loop, train_loop_config=config, scaling_config=scaling,
+            run_config=train.RunConfig(name="bench350m_clean", storage_path=storage)).fit()
+        fit_s = time.perf_counter() - t0
+        if clean.error is not None:
+            raise AssertionError(f"21a: the fit failed: {clean.error}")
+        done = _plane_steps(clean)
+        if [m["step"] for m in done] != list(range(1, steps + 1)):
+            raise AssertionError(f"21a: steps {[m['step'] for m in done]}")
+        _check_plane_steps("21a", done, reference, expected, card_name)
+        if not (clean.checkpoint and clean.checkpoint.path.endswith("checkpoint_000001")):
+            raise AssertionError(f"21a: Result.checkpoint is {clean.checkpoint}")
+        saved = done[TRAIN_PLANE_CKPT_STEP - 1]
+        copy_s = next(m["copy_s"] for m in clean.metrics_history if "copy_s" in m)
+        worker_ms = statistics.median(m["step_ms"] for m in done[1:])
+        out["clean"] = {
+            "fit_s": fit_s, "losses": [m["loss"] for m in done],
+            "step_ms": [m["step_ms"] for m in done], "host_ms": [m["host_ms"] for m in done],
+            "median_step_ms": worker_ms, "direct_median_step_ms": direct_step_ms,
+            "median_host_ms": statistics.median(m["host_ms"] for m in done[1:]),
+            "launches": {n: sum(m["launches"][n] for m in done) for n in expected},
+            "save": saved["save"], "save_gib_s": _gib_s(saved["save"]),
+            "session_copy_s": copy_s, "free_bytes_before_save": saved["free_bytes_before_save"],
+            "checkpoint": os.path.basename(clean.checkpoint.path)}
+        c = out["clean"]
+        log(f"21a [{card}]: {cfg.name} {batch} x {seq} through TorchTrainer (1 worker, "
+            f"{card_name}), {steps} steps in {fit_s:.1f} s, losses bit-equal to the direct "
+            f"step's, launches {expected} a step in the worker; worker step "
+            f"{worker_ms:.2f} ms median (host {c['median_host_ms']:.2f}) vs direct "
+            f"{direct_step_ms}; save_pytree of {saved['save']['bytes'] / 2**30:.2f} GiB "
+            f"in {saved['save']['seconds']:.2f} s ({c['save_gib_s']:.2f} GiB/s), the "
+            f"session's copy {copy_s:.2f} s, {c['free_bytes_before_save'] / 2**30:.1f} GiB "
+            f"free before the save; Result.checkpoint {c['checkpoint']}")
+        shutil.rmtree(os.path.join(storage, "bench350m_clean"), ignore_errors=True)
+
+        # (b) an elastic fit with a kill
+        beacon = os.path.join(storage, "rank0_pid")
+        fc = train.FailureConfig(elastic=True, max_failures=2, replace_timeout_s=60,
+                                 backoff_initial_s=0.1, backoff_max_s=0.5, backoff_jitter=0.0)
+        trainer = train.TorchTrainer(
+            train_plane_loop, train_loop_config={**config, "hold": True, "beacon": beacon},
+            scaling_config=scaling,
+            run_config=train.RunConfig(name="bench350m_elastic", storage_path=storage,
+                                       failure_config=fc))
+        killed = {}
+
+        def kill():
+            deadline = time.monotonic() + TRAIN_PLANE_KILL_DEADLINE_S
+            while not os.path.exists(beacon) and time.monotonic() < deadline:
+                time.sleep(0.02)
+            try:
+                with open(beacon) as f:
+                    pid = int(f.read())
+            except (OSError, ValueError):
+                return
+            killed["ts"] = time.time()
+            killed["ok"] = chaos.kill_rank(SimpleNamespace(pids=[pid]), 0)
+            killed["pid"] = pid
+
+        import threading
+
+        killer = threading.Thread(target=kill, daemon=True)
+        killer.start()
+        t0 = time.perf_counter()
+        elastic = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        killer.join(timeout=10)
+        if elastic.error is not None:
+            raise AssertionError(f"21b: the fit failed: {elastic.error}")
+        if not killed.get("ok"):
+            raise AssertionError(f"21b: rank 0 was not killed: {killed}")
+        done = _plane_steps(elastic)
+        before = [m for m in done if m["pid"] == killed["pid"]]
+        after = [m for m in done if m["pid"] != killed["pid"]]
+        if ([m["step"] for m in before] != list(range(1, TRAIN_PLANE_CKPT_STEP + 1))
+                or [m["step"] for m in after]
+                != list(range(TRAIN_PLANE_CKPT_STEP + 1, steps + 1))):
+            raise AssertionError(f"21b: steps {[(m['pid'], m['step']) for m in done]}")
+        _check_plane_steps("21b", done, reference, expected, card_name)
+        ek = elastic.elastic
+        if ek["restarts"]["death"] < 1 or ek["shrinks"] != 0:
+            raise AssertionError(f"21b: elastic accounting {ek}")
+        trial = os.path.join(storage, "bench350m_elastic")
+        seqs = sorted(n for n in os.listdir(trial) if n.startswith("checkpoint_"))
+        ck_steps = [train.Checkpoint(os.path.join(trial, n)).get_metadata()["step"]
+                    for n in seqs]
+        if not ck_steps or ck_steps != sorted(ck_steps):
+            raise AssertionError(f"21b: checkpoints {seqs} hold steps {ck_steps}")
+        restore = after[0]["restore"]
+        gap_s = after[0]["start_ts"] - killed["ts"]
+        store_after = _wait_store(store, baseline)
+        out["elastic"] = {
+            "fit_s": fit_s, "losses": [m["loss"] for m in done], "elastic": ek,
+            "checkpoints": dict(zip(seqs, ck_steps)), "restore": restore,
+            "restore_gib_s": _gib_s(restore), "restart_gap_s": gap_s,
+            "median_step_ms_after": statistics.median(m["step_ms"] for m in after[1:]),
+            "store_baseline": baseline, "store_after": store_after}
+        log(f"21b [{card}]: elastic fit in {fit_s:.1f} s: rank 0 (pid {killed['pid']}) "
+            f"SIGKILLed after its step-{TRAIN_PLANE_CKPT_STEP} checkpoint, replaced in place "
+            f"(restarts {ek['restarts']}, shrinks {ek['shrinks']}, final world "
+            f"{ek['final_world']}); load_pytree restored {restore['bytes'] / 2**30:.2f} GiB in "
+            f"{restore['seconds']:.2f} s ({out['elastic']['restore_gib_s']:.2f} GiB/s); "
+            f"restart gap from the kill to the new gang's first step {gap_s:.2f} s; steps "
+            f"{TRAIN_PLANE_CKPT_STEP + 1}-{steps} bit-equal to the direct step's; checkpoints "
+            f"{out['elastic']['checkpoints']}; store (used bytes, objects) {baseline} before, "
+            f"{store_after} after")
+        if store_after != baseline:
+            raise AssertionError(f"21b: the store is at {store_after}, not back at {baseline}")
+
+        # (c) what the plane recorded
+        def recorded():
+            runs = rt_state.train_runs()
+            c, e = runs.get("bench350m_clean"), runs.get("bench350m_elastic")
+            if (c and e and c["steps"] >= steps - 1 and "mfu" in c
+                    and e["restarts"] >= 1 and e["attempt"] >= 1):
+                return c, e
+            return None
+
+        deadline = time.monotonic() + 60
+        got = recorded()
+        while got is None and time.monotonic() < deadline:
+            time.sleep(0.5)
+            got = recorded()
+        if got is None:
+            raise AssertionError(f"21c: train_runs() {rt_state.train_runs()}")
+        c, e = got
+        spans = [sp for sp in timeline.fetch_spans(trace_id=c["run_id"])
+                 if sp["name"] == "train.step" and sp["attrs"].get("rank") == 0]
+        findings = [f for f in rt_state.doctor()["findings"]
+                    if f.get("run") == "bench350m_clean"]
+        out["recorded"] = {"clean": c, "elastic": e, "clean_step_spans": len(spans),
+                           "clean_findings": findings, "phase4_mfu": phase4_mfu}
+        log(f"21c [{card}]: train_runs(): clean {c['steps']} steps, restarts "
+            f"{c['restarts']}, split {c['split']}, {c['achieved_flops'] / 1e12:.1f} TFLOP/s "
+            f"achieved, mfu {c['mfu']} (phase 4's {phase4_mfu}); elastic restarts "
+            f"{e['restarts']}, lost_restart_s {e['lost_restart_s']}, split {e['split']}; "
+            f"{len(spans)} train.step spans of rank 0 under {c['run_id']}; doctor's train "
+            f"findings on the clean run: {findings}")
+        if c["restarts"] != 0 or not c["split"] or not spans:
+            raise AssertionError(f"21c: the clean run's record {c}, {len(spans)} spans")
+        if e["restarts"] != 1 or not e["lost_restart_s"] > 0:
+            raise AssertionError(f"21c: the elastic run's record {e}")
+        if findings:
+            raise AssertionError(f"21c: doctor flags the clean run: {findings}")
+    except BaseException:
+        log(f"21 [{card}]: failed; host now: {_host_state(torch)}")
+        _dump_node_logs(rt)
+        raise
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+        if peak_before is None:
+            os.environ.pop(peak_var, None)
+        else:
+            os.environ[peak_var] = peak_before
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def import_and_rllib_phase(torch, models, attention, seed: int, card: str) -> dict:
     """Phases 15 and 16."""
     return {"tiny_padded": tiny_padded(torch, models, attention, card),
@@ -3972,6 +4351,15 @@ def main() -> int:
     t0 = time.perf_counter()
     plane = serve_plane_phase(torch, models, attention, args.seed, card, phase6=serve_run)
     log(f"20 serve plane ({time.perf_counter() - t0:.1f} s): " + json.dumps(plane))
+    t0 = time.perf_counter()
+    direct = cluster["actor_train"]["direct"]
+    same = CLUSTER_STEPS == TRAIN_PLANE_STEPS  # 19b's direct run: the same steps
+    trainer = train_plane_phase(
+        torch, models, attention, args.seed, card,
+        reference=direct["losses"] if same else None,
+        direct_step_ms=direct["median_step_ms"] if same else None,
+        phase4_mfu=run["mfu_bf16_989"])
+    log(f"21 train plane ({time.perf_counter() - t0:.1f} s): " + json.dumps(trainer))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -4007,6 +4395,9 @@ def main() -> int:
             # traffic (serving computes attention without the kernels).
             "launches_llama3_8b_serve_replica":
                 plane["traffic"]["replica_kernel_launches"][name],
+            # Phase 21a: the clean fit's steps in TorchTrainer's worker,
+            # counted by that process.
+            "launches_bench_350m_trainer": trainer["clean"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

@@ -9,7 +9,7 @@ SGD or Adafactor, decoding on the contiguous and the paged KV cache, the
 weight bridge from JAX), `parallel` (the device mesh, the logical sharding
 rules on DTensor, differentiable collectives over named mesh dims, the
 GPipe pipeline over a pp axis), `data` (the pinned,
-prefetching device feed), `train` (the torch.distributed backend),
+prefetching device feed),
 `serve` (the fixed-slot and paged serving engines, with speculative
 decoding and KV import/export, and the block allocator), `rllib` (imported
 on its own) and the task/actor core: `init(local_mode=True)` runs tasks
@@ -21,10 +21,12 @@ tracing, profiling) and the single-host multi-process runtime of
 shared-memory object store): `init()` starts such a cluster and
 `init(address=...)` joins one; on it, `serve`'s control plane
 (deployments, the controller, handles, the HTTP proxy, `LLMDeployment`)
-and `experimental` (the shared-memory channel rings). Multi-node
-clusters and the client (ROADMAP queue A, item 10a-iii), the DAG layer
-(10c-ii) and the data, train and tune layers (10b, 10d) are not ported
-yet.
+and `experimental` (the shared-memory channel rings); and `train`'s
+plane (`TorchTrainer`, worker groups, sessions, DCP checkpoints, the
+elastic supervisor, train observability) with `util`'s chaos, state and
+timeline readers. Multi-node clusters and the client (ROADMAP queue A,
+item 10a-iii), the DAG layer (10c-ii), the data layer (10b) and tune
+(10d-ii) are not ported yet.
 
 A bare `import ray_tpu_torch` stays light, as `import ray_tpu` does: the
 subpackages (`models`, `ops`, `serve`, ...) import on first touch, so the

@@ -4,7 +4,8 @@ Same names, defaults and environment variables as the JAX package: each
 knob can be overridden with `RAY_TPU_<NAME>`, parsed to the declared type.
 Only the knobs the port reads are here: those of the multi-process runtime
 (control plane, node daemon, zygote, object store and transfer, tracing and
-diagnosis), the cluster address `init` joins, and the serving engines'.
+diagnosis), the cluster address `init` joins, the serving engines' and the
+train plane's (elastic restarts, train observability).
 """
 from __future__ import annotations
 
@@ -280,6 +281,49 @@ class Config:
     # so gang start rides ~3ms zygote forks instead of cold spawns
     # (RAY_TPU_PG_PREWARM_ENABLED=0 disables).
     pg_prewarm_enabled: bool = True
+
+    # ---- elastic training plane (train/elastic.py) ----
+    # How long the elastic supervisor waits for a replacement bundle
+    # (gang back to CREATED) after a rank dies/hangs before it shrinks
+    # the gang to the largest feasible world size.
+    elastic_replace_timeout_s: float = 30.0
+    # Capped exponential backoff + jitter between gang restarts
+    # (RAY_TPU_ELASTIC_BACKOFF_*; FailureConfig fields override).
+    elastic_backoff_initial_s: float = 0.5
+    elastic_backoff_max_s: float = 15.0
+    elastic_backoff_multiplier: float = 2.0
+    # Fraction of the delay randomized away (0.2 => +/-20%).
+    elastic_backoff_jitter: float = 0.2
+    # Cadence of the shrunk supervisor's capacity probe for growing the
+    # gang back toward the target world size.
+    elastic_grow_check_s: float = 10.0
+
+    # ---- train-plane observability (train/observability.py;
+    # RAY_TPU_TRAIN_OBS_*) ----
+    # Kill switch for the whole train-plane observability stack:
+    # per-step phase attribution, per-rank gauge federation, step
+    # spans, and the GCS TrainRunState aggregator's inputs.
+    train_obs_enabled: bool = True
+    # Cadence of the per-rank gauge push (worker -> local node daemon
+    # -> syncer -> GCS). Rides the existing serve-gauge report path.
+    train_obs_push_s: float = 1.0
+    # Node-daemon TTL sweep for per-(run, rank) train gauges: a rank
+    # that stops pushing (dead, SIGSTOPped) ages out of the node's
+    # synced state after this long, but stays in the GCS aggregator's
+    # retained view (marked stale) for blame attribution.
+    train_obs_gauge_ttl_s: float = 30.0
+    # Step window for cross-rank skew: the per-rank gauges carry mean
+    # step time over the last N steps; the GCS computes p99/p50 across
+    # ranks from those windows.
+    train_obs_window_steps: int = 20
+    # Step spans emitted per rank per attempt before span minting stops
+    # (bounds trace volume for long runs; the shared tracing ring
+    # buffer also caps at 10k records). 0 disables step spans entirely.
+    train_obs_trace_steps: int = 512
+    # Peak accelerator FLOP/s used as the MFU denominator when
+    # ScalingConfig.flops_per_step is set. 0 => report achieved FLOP/s
+    # only and skip the MFU estimate.
+    train_obs_peak_flops: float = 0.0
 
     # ---- serving plane (paged KV cache engine; serve/llm.py,
     # serve/kv_cache.py — RAY_TPU_KV_BLOCK_* / RAY_TPU_SERVE_*) ----

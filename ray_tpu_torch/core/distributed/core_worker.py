@@ -1248,14 +1248,19 @@ class DistributedCoreWorker:
         self.queue_location(oid, size)
         return size
 
-    def queue_location(self, oid: ObjectID, size: int) -> None:
+    def queue_location(self, oid: ObjectID, size: int,
+                       owner: Optional[str] = None) -> None:
         """Thread-safe enqueue onto the batched location flusher.
 
         The entry lands in the shared batch directly; the loop is woken
         at most once per burst (coalesced via _loc_wake_pending), so a
-        tight put() loop pays one self-pipe write, not one per object."""
+        tight put() loop pays one self-pipe write, not one per object.
+        `owner` (default: this process) rides the same batch, so the
+        directory learns whose death frees the object without an RPC
+        per put."""
         with self._loc_lock:
-            self._loc_batch.append((oid.binary(), size))
+            self._loc_batch.append((oid.binary(), size,
+                                    owner or self.address))
             if self._loc_wake_pending:
                 return
             self._loc_wake_pending = True
@@ -1268,7 +1273,7 @@ class DistributedCoreWorker:
                     if not self._loc_batch:
                         break
                     batch, self._loc_batch = self._loc_batch, []
-                entries = [(o, self.node_id, s) for o, s in batch]
+                entries = [(o, self.node_id, s, w) for o, s, w in batch]
                 gcs = await self._aget_gcs()
                 sent = False
                 for attempt in range(5):
@@ -1400,6 +1405,14 @@ class DistributedCoreWorker:
                     # not lost, keep polling.
                     num_locations = max(num_locations, 1)
                 owner_definitely_missing = absent
+                if (num_locations == 0 and not (producing or absent)
+                        and self._owner_died(owner)):
+                    # Unreachable owner that its daemon saw die: the
+                    # daemon freed what it owned, so nothing can bring
+                    # the value back.
+                    raise rexc.OwnerDiedError(
+                        ref.hex(), f"object {ref.hex()[:16]} is lost: "
+                        f"its owner {owner} died")
             # 5) object lost (no copies anywhere): lineage reconstruction
             if num_locations == 0 and self._maybe_reconstruct(oid, deadline):
                 continue
@@ -1428,6 +1441,15 @@ class DistributedCoreWorker:
             backoff = min(backoff * 2, 0.05)
 
     OWNER_CLIENT_CAP = 32
+
+    def _owner_died(self, owner_addr: str) -> bool:
+        """Whether a daemon reported the worker at `owner_addr` dead (and
+        freed its objects); asked only once the owner is unreachable."""
+        try:
+            return bool(self.gcs.call("ObjectDirectory", "owner_died",
+                                      owner=owner_addr, timeout=10))
+        except Exception:  # noqa: BLE001 GCS unreachable: indeterminate
+            return False
 
     def _try_fetch_from_owner(self, oid: ObjectID, owner_addr: str
                               ) -> Tuple[bool, bool, bool]:
@@ -1975,7 +1997,8 @@ class DistributedCoreWorker:
                 self.store.put_raw(oid, payload)
                 self.gcs.call("ObjectDirectory", "add_location",
                               object_id=oid.binary(), node_id=self.node_id,
-                              size=len(payload), timeout=30)
+                              size=len(payload), owner=ref.owner_address,
+                              timeout=30)
             except Exception:  # noqa: BLE001
                 pass
 

@@ -28,7 +28,7 @@ import asyncio
 import dataclasses
 import logging
 import time
-from collections import defaultdict, deque
+from collections import OrderedDict, defaultdict, deque
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from ray_tpu_torch.core.config import get_config
@@ -599,25 +599,42 @@ class ObjectDirectory:
     ref: ownership_based_object_directory.h — centralization trades peak
     scalability for simplicity; the owner remains the refcount authority)."""
 
+    # Dead owners remembered for borrowers' OwnerDiedError verdicts.
+    DEAD_OWNERS_CAP = 4096
+
     def __init__(self, gcs: "GcsServer"):
         self._gcs = gcs
         self.locations: Dict[bytes, Set[str]] = defaultdict(set)
         self.sizes: Dict[bytes, int] = {}
+        # Ownership, learned from the location batches: object -> owner
+        # address and owner -> objects, so a daemon that sees a worker
+        # die can free everything it owned (`free_owned`).
+        self.owners: Dict[bytes, str] = {}
+        self.owned: Dict[str, Set[bytes]] = defaultdict(set)
+        self.dead_owners: "OrderedDict[str, float]" = OrderedDict()
+
+    def _record_owner(self, object_id: bytes, owner: Optional[str]) -> None:
+        if owner and object_id not in self.owners:
+            self.owners[object_id] = owner
+            self.owned[owner].add(object_id)
 
     def add_location(self, object_id: bytes, node_id: str,
-                     size: int = 0) -> dict:
+                     size: int = 0, owner: Optional[str] = None) -> dict:
         self.locations[object_id].add(node_id)
         if size:
             self.sizes[object_id] = size
+        self._record_owner(object_id, owner)
         return {"ok": True}
 
     def add_locations(self, entries: List[tuple]) -> dict:
         """Batched registration — one RPC for a burst of task results
-        (the hot path batches like the reference's location pubsub)."""
-        for object_id, node_id, size in entries:
+        (the hot path batches like the reference's location pubsub).
+        Entries are (object, node, size, owner address)."""
+        for object_id, node_id, size, owner in entries:
             self.locations[object_id].add(node_id)
             if size:
                 self.sizes[object_id] = size
+            self._record_owner(object_id, owner)
         return {"ok": True}
 
     def remove_location(self, object_id: bytes, node_id: str) -> dict:
@@ -639,6 +656,13 @@ class ObjectDirectory:
             for nid in self.locations.pop(oid, ()):  # consume
                 by_node[nid].append(oid)
             self.sizes.pop(oid, None)
+            owner = self.owners.pop(oid, None)
+            if owner is not None:
+                mine = self.owned.get(owner)
+                if mine is not None:
+                    mine.discard(oid)
+                    if not mine:
+                        del self.owned[owner]
         for nid, oids in by_node.items():
             client = self._gcs.daemon_client(nid)
             if client is None:
@@ -649,6 +673,23 @@ class ObjectDirectory:
             except Exception as e:  # noqa: BLE001
                 logger.debug("free on %s failed: %s", nid[:8], e)
         return {"ok": True}
+
+    async def free_owned(self, owner: str) -> dict:
+        """A daemon saw the worker at `owner` die: free every object it
+        owned (its puts and the returns of tasks it submitted) on every
+        node that holds a copy, and remember the death so a borrower's
+        `get` raises OwnerDiedError instead of polling forever."""
+        self.dead_owners[owner] = time.time()
+        self.dead_owners.move_to_end(owner)
+        while len(self.dead_owners) > self.DEAD_OWNERS_CAP:
+            self.dead_owners.popitem(last=False)
+        oids = list(self.owned.pop(owner, ()))
+        if oids:
+            await self.free_objects(oids)
+        return {"ok": True, "freed": len(oids)}
+
+    def owner_died(self, owner: str) -> bool:
+        return owner in self.dead_owners
 
     def on_node_dead(self, node_id: str) -> None:
         for oid in list(self.locations):
@@ -1355,6 +1396,7 @@ class MetricsFederation:
             "task_events": self._gcs.task_events.stats(),
             "hung_tasks": self._gcs.task_events.hung_tasks(),
             "serve": self._gcs.serve_gauges.summary(),
+            "train": self._gcs.train_runs.summary(),
             "gcs": self.gcs_load(),
         }
 
@@ -1378,6 +1420,16 @@ class MetricsFederation:
     DOCTOR_MIN_HANDLER_S = 0.05
     DOCTOR_LAG_WARN_S = 0.25
     DOCTOR_DEATH_WINDOW_S = 600.0
+    # Train-plane findings: share of attributed step time spent waiting
+    # on input before a run is called input-bound, the p99/p50 step-time
+    # ratio that flags a straggler rank, the goodput floor under restart
+    # churn, and how recently a run must have reported to be examined.
+    DOCTOR_TRAIN_INPUT_SHARE = 0.25
+    DOCTOR_TRAIN_SKEW = 1.5
+    DOCTOR_TRAIN_GOODPUT = 0.5
+    DOCTOR_TRAIN_WINDOW_S = 600.0
+    DOCTOR_TRAIN_MIN_ATTRIBUTED_S = 0.5
+
     _SHARE_HINTS = {
         "syncer": "raise RAY_TPU_METRICS_SYNC_INTERVAL_MS",
         "task-events": "raise RAY_TPU_TASK_EVENTS_FLUSH_MS or lower "
@@ -1475,12 +1527,63 @@ class MetricsFederation:
                 f">{stale_after:.0f}s: {sorted(stale)[:5]}",
                 "their syncer pushes are stalling — check daemon health",
                 nodes=stale)
+        for run, s in gcs.train_runs.summary()["runs"].items():
+            if s["last_seen_age_s"] > self.DOCTOR_TRAIN_WINDOW_S:
+                continue
+            attributed = sum(v for k, v in s["attributed_s"].items()
+                             if k != "step_s")
+            split, skew = s["split"], s["skew"]
+            if (split and attributed >= self.DOCTOR_TRAIN_MIN_ATTRIBUTED_S
+                    and split["data_wait"] >= self.DOCTOR_TRAIN_INPUT_SHARE):
+                add("train-input-bound", "warning",
+                    50 + split["data_wait"] * 40,
+                    f"train run '{run}' is input-bound: "
+                    f"{split['data_wait']:.0%} of step time waiting on "
+                    f"the input pipeline",
+                    "raise the ingest prefetch depth "
+                    "(RAY_TPU_DATA_STREAM_PREFETCH_DEPTH) or dataset "
+                    "read parallelism; `ray-tpu train trace` shows the "
+                    "per-step data_wait slices", run=run,
+                    data_wait_share=split["data_wait"])
+            stale = skew.get("stale_ranks")
+            # Straggler verdicts only make sense while the run is live:
+            # a finished run's ranks all go quiet, which is not a
+            # straggler — the other findings describe cumulative facts
+            # and stay useful for the whole recency window.
+            if s["active"] and (stale or skew.get("ratio", 0.0)
+                                >= self.DOCTOR_TRAIN_SKEW):
+                blame = skew.get("blame_rank")
+                why = (f"rank(s) {stale} stopped reporting "
+                       f"(SIGSTOP/livelock?)" if stale else
+                       f"p99/p50 step time = {skew['ratio']:.2f}")
+                add("train-straggler",
+                    "critical" if stale else "warning",
+                    65 + (20 if stale else min(15.0, skew.get("ratio", 0))),
+                    f"train run '{run}' has a persistent straggler: "
+                    f"rank {blame} ({why})",
+                    "`ray-tpu stack <node>` the blamed rank's host; a "
+                    "stopped rank is replaced by the elastic supervisor "
+                    "once RAY_TPU_HANG_THRESHOLD_S expires",
+                    run=run, blame_rank=blame, skew=skew)
+            if (s["restarts"] >= 1 and s["goodput"] is not None
+                    and s["goodput"] < self.DOCTOR_TRAIN_GOODPUT):
+                add("train-churn-goodput", "warning",
+                    55 + min(25.0, s["restarts"] * 5),
+                    f"train run '{run}' goodput is {s['goodput']:.0%} "
+                    f"after {s['restarts']} restart(s) "
+                    f"({s['lost_restart_s']:.0f}s lost to restart gaps)",
+                    "check `ray-tpu list events --source elastic` for "
+                    "the causes; longer-lived checkpoints shrink the "
+                    "replay, RAY_TPU_ELASTIC_BACKOFF_* shrinks the gap",
+                    run=run, goodput=s["goodput"],
+                    restarts=s["restarts"])
         findings.sort(key=lambda f: -f["score"])
         return {"ts": now, "healthy": not findings,
                 "findings": findings,
                 "checks": ["gcs-load", "gcs-slow-handler", "gcs-loop-lag",
                            "hung-tasks", "task-event-loss", "node-churn",
-                           "stale-metrics"]}
+                           "stale-metrics", "train-input-bound",
+                           "train-straggler", "train-churn-goodput"]}
 
 
 class ServeGauges:
@@ -1568,6 +1671,180 @@ class ServeGauges:
                 latency[app] = row
         return {"apps": self.merged(), "latency": latency,
                 "counters": counters}
+
+
+class TrainRunState:
+    """Train-plane goodput aggregator (the read side of the train gauge
+    federation): ranks push cumulative step/phase counters to their
+    node daemons, the daemons' `train` state key rides syncer deltas
+    here, and this manager folds them — per run — into a goodput split
+    (productive compute vs data-stall vs sync-stall vs checkpoint vs
+    lost-to-restart), a cross-rank skew window (p99/p50 step time,
+    blame-rank attribution), and an optional MFU estimate from
+    `ScalingConfig.flops_per_step`.
+
+    Unlike ServeGauges this view is RETAINED: daemon-side gauges are
+    TTL-swept, but a gang restart must not erase the dead attempt's
+    accounting and a SIGSTOPped rank must stay attributable after it
+    goes quiet — so every (rank, attempt) entry the syncer ever showed
+    us is kept until the run itself is pruned."""
+
+    # A rank whose last daemon push is older than this is stale: it
+    # stopped making progress without dying (SIGSTOP, livelock) and
+    # becomes the skew blame rank regardless of its last step window.
+    STALE_RANK_S = 5.0
+    # A run with no gauge traffic for this long is no longer "active"
+    # (status lines, doctor); it stays queryable until pruned.
+    ACTIVE_WINDOW_S = 15.0
+    MAX_RUNS = 64
+
+    def __init__(self, gcs: "GcsServer"):
+        self._gcs = gcs
+        # run -> {"ranks": {"rank@attempt": {"g": gauges, "seen_ts"}},
+        #         "first_seen", "last_seen"}
+        self._runs: Dict[str, dict] = {}
+
+    # -- ingest ----------------------------------------------------------
+
+    def refresh(self) -> None:
+        """Fold every alive node's synced `train` state into the
+        retained per-run view (latest push per (rank, attempt) wins —
+        steps are cumulative, so the bigger counter is newer)."""
+        now = time.time()
+        for n in self._gcs.nodes.view.alive_nodes():
+            for run, ranks in (getattr(n, "train", None) or {}).items():
+                ent = self._runs.setdefault(
+                    run, {"ranks": {}, "first_seen": now, "last_seen": now})
+                for key, g in (ranks or {}).items():
+                    prev = ent["ranks"].get(key)
+                    if (prev is not None
+                            and g.get("steps", 0) < prev["g"].get("steps", 0)):
+                        continue
+                    seen = now - float(g.get("ts_age_s", 0.0) or 0.0)
+                    ent["ranks"][key] = {"g": dict(g), "seen_ts": seen}
+                    ent["last_seen"] = max(ent["last_seen"], seen)
+        if len(self._runs) > self.MAX_RUNS:
+            for run, _ in sorted(self._runs.items(),
+                                 key=lambda kv: kv[1]["last_seen"])[
+                                     :len(self._runs) - self.MAX_RUNS]:
+                del self._runs[run]
+
+    def _restart_events(self, run: str) -> List[dict]:
+        return [e for e in self._gcs.event_log.list_events(source="train")
+                if e.get("run") == run]
+
+    # -- derivation ------------------------------------------------------
+
+    def _summarize(self, run: str, ent: dict) -> dict:
+        from ray_tpu_torch.util.metrics import percentile
+
+        now = time.time()
+        ranks = ent["ranks"]
+        # Cumulative attribution across every attempt ever seen.
+        tot = {k: 0.0 for k in ("step_s", "data_wait_s", "compute_s",
+                                "sync_s", "checkpoint_s", "other_s")}
+        latest_attempt = max((r["g"].get("attempt", 0)
+                              for r in ranks.values()), default=0)
+        cur: Dict[int, dict] = {}
+        for r in ranks.values():
+            g = r["g"]
+            for k in tot:
+                tot[k] += float(g.get(k, 0.0) or 0.0)
+            if g.get("attempt", 0) == latest_attempt:
+                cur[int(g.get("rank", 0))] = r
+        # Restart accounting: each gang-start event's gap stalled the
+        # WHOLE gang, so the lost wall is gap * world — comparable to
+        # the per-rank attributed sums it joins in the denominator.
+        events = self._restart_events(run)
+        restarts = sum(1 for e in events if e.get("gap_s", 0.0) > 0.0)
+        lost_s = sum(float(e.get("gap_s", 0.0) or 0.0)
+                     * max(1, int(e.get("world", 1) or 1)) for e in events)
+        attributed = sum(tot.values()) - tot["step_s"]  # phases only
+        denom = attributed + lost_s
+        productive = tot["compute_s"] + tot["other_s"]
+        split = {}
+        goodput = None
+        if denom > 0:
+            split = {
+                "compute": round(productive / denom, 4),
+                "data_wait": round(tot["data_wait_s"] / denom, 4),
+                "sync": round(tot["sync_s"] / denom, 4),
+                "checkpoint": round(tot["checkpoint_s"] / denom, 4),
+                "lost_restart": round(lost_s / denom, 4),
+            }
+            goodput = split["compute"]
+        # Current-attempt step rate + cross-rank skew over the recent
+        # step window. Lockstep data-parallel runs move at the slowest
+        # rank's pace, so the run rate is the min across ranks.
+        rates, window_means, stale_ranks = [], {}, []
+        world = steps = 0
+        run_id = None
+        for rank, r in sorted(cur.items()):
+            g = r["g"]
+            run_id = g.get("run_id") or run_id
+            world = max(world, int(g.get("world", 0) or 0))
+            steps = max(steps, int(g.get("steps", 0) or 0))
+            ws, wt = g.get("window_steps", 0), g.get("window_step_s", 0.0)
+            if ws and wt:
+                rates.append(ws / wt)
+                window_means[rank] = wt / ws
+            # A rank whose loop returned went quiet by design (its last
+            # push says so): not a straggler.
+            if now - r["seen_ts"] > self.STALE_RANK_S and not g.get("finished"):
+                stale_ranks.append(rank)
+        step_rate = round(min(rates), 4) if rates else 0.0
+        skew: Dict[str, Any] = {}
+        if window_means:
+            vals = list(window_means.values())
+            p50 = percentile(vals, 50)
+            p99 = percentile(vals, 99)
+            blame = max(window_means, key=window_means.get)
+            skew = {"p50_step_s": round(p50, 6),
+                    "p99_step_s": round(p99, 6),
+                    "ratio": round(p99 / p50, 3) if p50 > 0 else 0.0,
+                    "blame_rank": blame}
+        if stale_ranks:
+            # A stopped rank cannot report a slow window — staleness IS
+            # the straggler signal, and the stalest rank takes the blame.
+            skew["stale_ranks"] = sorted(stale_ranks)
+            skew["blame_rank"] = min(
+                ((rank, cur[rank]["seen_ts"]) for rank in stale_ranks),
+                key=lambda kv: kv[1])[0]
+        out = {
+            "run": run, "run_id": run_id, "attempt": latest_attempt,
+            "world": world, "steps": steps,
+            "active": (now - ent["last_seen"]) <= self.ACTIVE_WINDOW_S,
+            "last_seen_age_s": round(now - ent["last_seen"], 1),
+            "step_rate": step_rate,
+            "restarts": restarts,
+            "lost_restart_s": round(lost_s, 3),
+            "attributed_s": {k: round(v, 3) for k, v in tot.items()},
+            "split": split, "goodput": goodput, "skew": skew,
+        }
+        flops = next((r["g"].get("flops_per_step")
+                      for r in cur.values()
+                      if r["g"].get("flops_per_step")), None)
+        if flops and step_rate:
+            out["achieved_flops"] = flops * step_rate
+            peak = get_config().train_obs_peak_flops
+            if peak > 0:
+                out["mfu"] = round(out["achieved_flops"] / peak, 4)
+        return out
+
+    # -- RPC surface (service "Train") -----------------------------------
+
+    def summary(self) -> dict:
+        """`ray-tpu train status` / cluster_status()["observability"]
+        ["train"] payload: every retained run's goodput split, step
+        rate, skew window and restart accounting."""
+        self.refresh()
+        return {"runs": {run: self._summarize(run, ent)
+                         for run, ent in self._runs.items()}}
+
+    def run_status(self, run: str) -> Optional[dict]:
+        self.refresh()
+        ent = self._runs.get(run)
+        return self._summarize(run, ent) if ent else None
 
 
 class DiagnosisManager:
@@ -1771,6 +2048,7 @@ class GcsServer:
         self.task_events = GcsTaskManager()
         self.metrics = MetricsFederation(self)
         self.serve_gauges = ServeGauges(self)
+        self.train_runs = TrainRunState(self)
         self.diagnosis = DiagnosisManager(self)
         self.event_log = EventLog()
         self.flight = FlightRecorder(self, self.store)
@@ -1813,6 +2091,7 @@ class GcsServer:
             ("Syncer", self.syncer),
             ("Metrics", self.metrics),
             ("Serve", self.serve_gauges),
+            ("Train", self.train_runs),
             ("Diagnosis", self.diagnosis),
             ("FlightRecorder", self.flight),
         ]:

@@ -235,6 +235,13 @@ class NodeDaemon:
         # serve controller reads one merged view instead of polling
         # every replica per autoscale decision.
         self._serve_gauges: Dict[tuple, dict] = {}
+        # Train-rank gauges: (run, rank) -> {"ts", "gauges"}. Training
+        # ranks on this node push cumulative step/phase counters here
+        # (train/observability.py GaugePusher); the per-run map rides
+        # the syncer delta to the GCS TrainRunState. TTL-swept — but
+        # the GCS retains what it saw, so a SIGSTOPped rank stays
+        # attributable after it ages out here.
+        self._train_gauges: Dict[tuple, dict] = {}
         # Worker-process metric registry dumps: origin -> {"ts", "dump"}.
         # Replicas piggyback theirs on the gauge push, other serve
         # workers (HTTP proxy) use report_metrics; _metrics_dump merges
@@ -383,6 +390,7 @@ class NodeDaemon:
             "idle_workers": len(self._idle),
             "busy_workers": busy,
             "serve": self._serve_state(),
+            "train": self._train_state(),
         }
 
     def _serve_state(self) -> Dict[str, Any]:
@@ -458,12 +466,43 @@ class NodeDaemon:
             "ts": time.monotonic(), "dump": dump}
         return {"ok": True}
 
-    # Training ranks push their step gauges here: the train plane is
-    # ROADMAP queue A, item 10d.
-    async def report_train_gauges(self, **_kw) -> dict:
-        raise NotImplementedError(
-            "report_train_gauges: train is not ported to ray_tpu_torch's "
-            "cluster yet (ROADMAP queue A, item 10d)")
+    def _train_state(self) -> Dict[str, Any]:
+        """Per-run map of this node's training-rank gauges, keyed
+        run -> "rank@attempt" (ranks are NOT summed — the GCS skew
+        computation needs each rank's step window separately). TTL-swept
+        so a finished run's counters stop shipping; the push timestamp
+        rides along as `ts_age_s` so the GCS can spot a rank that went
+        quiet (SIGSTOP) before the TTL reaps it."""
+        ttl = get_config().train_obs_gauge_ttl_s
+        now = time.monotonic()
+        runs: Dict[str, Dict[str, dict]] = {}
+        for key, ent in list(self._train_gauges.items()):
+            age = now - ent["ts"]
+            if age > ttl:
+                del self._train_gauges[key]
+                continue
+            run, rank = key
+            g = dict(ent["gauges"])
+            g["ts_age_s"] = round(age, 1)
+            runs.setdefault(run, {})[f"{rank}@{g.get('attempt', 0)}"] = g
+        return runs
+
+    async def report_train_gauges(self, run: str, rank: int,
+                                  gauges: Dict[str, Any],
+                                  metrics: Optional[list] = None) -> dict:
+        """Training rank -> local daemon gauge push (the train-plane
+        leg of the syncer federation; ranks never talk to the GCS).
+        The optional `metrics` registry dump piggybacks the rank's
+        raytpu_train_* histograms into the node's federation payload,
+        same as serve replicas."""
+        self._train_gauges[(run, int(rank))] = {
+            "ts": time.monotonic(), "gauges": dict(gauges)}
+        if metrics is not None:
+            self._worker_metric_dumps[f"train:{run}:{rank}"] = {
+                "ts": time.monotonic(), "dump": metrics}
+        if self.syncer is not None:
+            self.syncer.mark_dirty()
+        return {"ok": True}
 
     async def _re_register(self) -> None:
         """(Re-)register this node and force the syncer to full-resync —
@@ -1365,6 +1404,19 @@ class NodeDaemon:
                     for lease in list(self._leases.values()):
                         if lease.worker is handle:
                             self._return_lease_internal(lease.lease_id)
+                    if handle.address and handle.proc.returncode != 0:
+                        # A killed or crashed owner cannot free what it
+                        # owned (a clean exit flushed its own frees):
+                        # free its objects everywhere, so the store
+                        # returns to its baseline and its borrowers get
+                        # OwnerDiedError.
+                        try:
+                            await self.gcs.call(
+                                "ObjectDirectory", "free_owned",
+                                owner=handle.address, timeout=30)
+                        except Exception as e:  # noqa: BLE001
+                            logger.debug("free_owned(%s) failed: %s",
+                                         handle.address, e)
 
     # ------------------------------------------------------------------
     # lease protocol (ref: NodeManager::HandleRequestWorkerLease,

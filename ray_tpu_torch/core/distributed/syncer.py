@@ -395,6 +395,7 @@ class ClusterSyncer:
             self.stats_counters["applied_full"] += 1
             self._m_full.inc()
             self._mark_dirty(node_id)
+            self._retain_train(state)
             return {"ok": True, "applied": version}
         if cur is None or base_version != cur:
             if cur is not None and version <= cur:
@@ -411,7 +412,17 @@ class ClusterSyncer:
         self.stats_counters["applied_deltas"] += 1
         self._m_deltas.inc()
         self._mark_dirty(node_id)
+        self._retain_train(state)
         return {"ok": True, "applied": version}
+
+    def _retain_train(self, state: Optional[Dict[str, Any]]) -> None:
+        """Fold a node's train gauges into the GCS's retained run view as
+        they arrive: the daemon sweeps a finished run's gauges after
+        `train_obs_gauge_ttl_s`, and a run no reader asked about before
+        then would otherwise never be retained."""
+        runs = getattr(self._gcs, "train_runs", None)
+        if runs is not None and state and state.get("train"):
+            runs.refresh()
 
     async def stream_cluster_view(self, node_id: str = ""):
         """Server-streaming fan-out: a full snapshot on subscribe, then

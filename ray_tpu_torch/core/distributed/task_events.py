@@ -400,14 +400,18 @@ class TaskEventBuffer:
     def _spans_waiting(self) -> bool:
         if self._spans_pending:
             return True
-        if not get_config().tracing_enabled:
+        cfg = get_config()
+        if not (cfg.tracing_enabled or cfg.serve_trace_enabled
+                or cfg.train_obs_enabled):
             return False
         from ray_tpu_torch.util import tracing
 
         return tracing.has_pending()
 
     def _drain_span_source(self) -> None:
-        if get_config().tracing_enabled:
+        cfg = get_config()
+        if (cfg.tracing_enabled or cfg.serve_trace_enabled
+                or cfg.train_obs_enabled):
             from ray_tpu_torch.util import tracing
 
             self._spans_pending.extend(tracing.drain())

@@ -360,7 +360,8 @@ class WorkerService:
                     except Exception:  # noqa: BLE001 store full
                         pass
                     else:
-                        self.core.queue_location(oid, size)
+                        self.core.queue_location(
+                            oid, size, owner=spec.get("caller_address"))
             else:
                 # No inline copy: the store write must land before the
                 # reply or the caller's get() would race a missing object.
@@ -373,7 +374,8 @@ class WorkerService:
                     # Retried task, contents identical; still re-register —
                     # the first attempt may have died before add_location.
                     pass
-                self.core.queue_location(oid, size)
+                self.core.queue_location(oid, size,
+                                         owner=spec.get("caller_address"))
             out.append(protocol.TaskResult(oid=oid.binary(),
                                            size=size,
                                            inline=inline,
@@ -435,7 +437,8 @@ class WorkerService:
                 if precancelled:
                     raise KeyboardInterrupt  # handler consumes tombstone
                 for i, v in enumerate(result, start=1):
-                    results.append(self._store_stream_item(task_id, i, v))
+                    results.append(self._store_stream_item(
+                        task_id, i, v, spec.get("caller_address")))
             finally:
                 with self._exec_lock:
                     self._executing.pop(spec["task_id"], None)
@@ -458,10 +461,12 @@ class WorkerService:
                              node_id=self.core.node_id))
         return {"results": results, "error": error}
 
-    def _store_stream_item(self, task_id, i: int,
-                           v: Any) -> protocol.TaskResult:
+    def _store_stream_item(self, task_id, i: int, v: Any,
+                           owner: Optional[str] = None
+                           ) -> protocol.TaskResult:
         """Store + register one stream yield so consumers discover it
-        immediately (shared by the sync and async-generator paths)."""
+        immediately (shared by the sync and async-generator paths);
+        `owner` is the caller, whose death frees the item."""
         oid = ObjectID.for_task_return(task_id, i)
         meta, bufs = serialization.serialize(v)
         size = serialization.serialized_size(meta, bufs)
@@ -476,7 +481,7 @@ class WorkerService:
                 self.core.store.put_serialized(oid, meta, bufs)
         except ObjectExistsError:
             pass   # retried stream: identical contents
-        self.core.queue_location(oid, size)
+        self.core.queue_location(oid, size, owner=owner)
         return protocol.TaskResult(oid=oid.binary(), size=size,
                                    inline=inline, is_error=False)
 
@@ -500,7 +505,7 @@ class WorkerService:
                 i += 1
                 results.append(await loop.run_in_executor(
                     self._stream_store_pool, self._store_stream_item,
-                    task_id, i, v))
+                    task_id, i, v, spec.get("caller_address")))
         except BaseException as e:  # noqa: BLE001
             # Close promptly: the user generator's finally blocks must
             # not wait for the loop's asyncgen GC finalizer.
@@ -542,7 +547,8 @@ class WorkerService:
                       else None)
             if is_err and inline is None:
                 return None  # can't rebuild the error reply; re-execute
-            self.core.queue_location(oid, len(payload))
+            self.core.queue_location(oid, len(payload),
+                                     owner=spec.get("caller_address"))
             out.append(protocol.TaskResult(
                 oid=oid.binary(), size=len(payload), inline=inline,
                 is_error=is_err))

@@ -47,6 +47,41 @@ class TrainState:
     opt_state: Any  # torch.optim.AdamW, or Adafactor's per-leaf statistics
 
 
+def train_state_tree(state: TrainState) -> dict:
+    """The state as a nested dict of its tensors, what `train.save_pytree`
+    writes and `train.load_pytree(target=...)` fills in place: "step" (a
+    0-d tensor), "params", and under "opt" each leaf's AdamW moments and
+    step count, keyed by the leaf's index. Moments no step has made yet
+    are made here as the optimizer's first step would make them (zeros),
+    so a fresh state is a target; a DTensor leaf's moments come as
+    DTensors laid out as the leaf, so each rank saves its own shards.
+    After an in-place load, set `state.step = int(tree["step"])`."""
+    tree = {"step": torch.tensor(state.step), "params": state.params}
+    opt = state.opt_state
+    if opt is None:
+        return tree
+    if not isinstance(opt, torch.optim.Optimizer):
+        raise TypeError(f"train_state_tree: {type(opt).__name__} state is "
+                        f"not a torch optimizer's")
+    moments = {}
+    for i, (leaf, local) in enumerate(zip(tree_leaves(state.params),
+                                          opt.param_groups[0]["params"])):
+        st = opt.state[local]
+        if not st:
+            st["step"] = torch.tensor(0.0, dtype=torch.float32)
+            st["exp_avg"] = torch.zeros_like(local, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(local,
+                                                memory_format=torch.preserve_format)
+        moments[str(i)] = {
+            k: (DTensor.from_local(v, leaf.device_mesh, leaf.placements,
+                                   run_check=False, shape=leaf.shape,
+                                   stride=leaf.stride())
+                if isinstance(leaf, DTensor) and v.dim() else v)
+            for k, v in st.items()}
+    tree["opt"] = moments
+    return tree
+
+
 def tree_leaves(tree: dict) -> list[torch.Tensor]:
     """Leaves of a nested dict of tensors, in insertion order."""
     out = []

@@ -524,94 +524,3 @@ def merge_dump_lists(dumps: Sequence[List[dict]]) -> List[dict]:
                     else:
                         have[1] = value
     return list(merged.values())
-
-
-def merge_dumps(dumps: Dict[str, List[dict]]) -> str:
-    """Render {origin -> registry_dump()} as ONE Prometheus exposition.
-    Every sample gains a `node="<origin>"` label (federation's
-    instance label), so identical tag sets from different processes —
-    e.g. raytpu_rpc_handler_seconds{service=...,method=...} on every
-    daemon — stay distinguishable instead of colliding."""
-    meta: Dict[str, tuple] = {}          # name -> (kind, description)
-    lines_by_name: Dict[str, List[str]] = {}
-    for origin, dump in sorted(dumps.items()):
-        for rec in dump:
-            name = rec["name"]
-            meta.setdefault(name, (rec["kind"], rec["description"]))
-            out = lines_by_name.setdefault(name, [])
-            if rec["kind"] == "histogram":
-                bounds = rec.get("boundaries", [])
-                for key, buckets, hsum, total in rec.get("hist", []):
-                    key = _with_node(key, origin)
-                    base = _fmt_tags(key)
-                    cum = 0
-                    for b, c in zip(bounds, buckets):
-                        cum += c
-                        out.append(
-                            f"{name}_bucket{_fmt_tags(key, le=b)} {cum}")
-                    if buckets:
-                        cum += buckets[-1]
-                    out.append(
-                        f"{name}_bucket{_fmt_tags(key, le='+Inf')} {cum}")
-                    out.append(f"{name}_sum{base} {hsum}")
-                    out.append(f"{name}_count{base} {total}")
-            else:
-                for key, value in rec.get("samples", []):
-                    out.append(
-                        f"{name}{_fmt_tags(_with_node(key, origin))} "
-                        f"{value}")
-    text: List[str] = []
-    for name in sorted(meta):
-        kind, desc = meta[name]
-        desc = desc.replace("\\", "\\\\").replace("\n", "\\n")
-        text.append(f"# HELP {name} {desc}")
-        text.append(f"# TYPE {name} {kind}")
-        text.extend(lines_by_name[name])
-    return "\n".join(text) + "\n"
-
-
-def _with_node(key, origin: str) -> _TagKey:
-    items = [(str(k), str(v)) for k, v in key if k != "node"]
-    items.append(("node", origin))
-    return tuple(sorted(items))
-
-
-def process_sample() -> Dict[str, float]:
-    """Best-effort self-metrics for the calling process: RSS bytes,
-    cumulative CPU seconds, open fds, live threads.  Linux /proc is the
-    primary source; getrusage is the portable fallback (its ru_maxrss
-    is a high-water mark, not current RSS — still the right order of
-    magnitude for a leak alarm).  Used by the GCS audit loop so the
-    control plane's own footprint shows up node-labelled in the
-    federated exposition alongside every daemon it monitors."""
-    import os
-    import resource
-
-    out: Dict[str, float] = {}
-    ru = resource.getrusage(resource.RUSAGE_SELF)
-    out["cpu_seconds"] = ru.ru_utime + ru.ru_stime
-    out["rss_bytes"] = float(ru.ru_maxrss) * 1024.0
-    try:
-        with open("/proc/self/statm") as f:
-            rss_pages = int(f.read().split()[1])
-        out["rss_bytes"] = float(rss_pages * os.sysconf("SC_PAGE_SIZE"))
-    except (OSError, ValueError, IndexError):
-        pass
-    try:
-        out["open_fds"] = float(len(os.listdir("/proc/self/fd")))
-    except OSError:
-        pass
-    out["threads"] = float(threading.active_count())
-    return out
-
-
-_registry: Optional[MetricsRegistry] = None
-_registry_lock = threading.Lock()
-
-
-def get_registry() -> MetricsRegistry:
-    global _registry
-    with _registry_lock:
-        if _registry is None:
-            _registry = MetricsRegistry()
-        return _registry

@@ -13,7 +13,7 @@ propagates via a contextvar, `inject()/extract()` move it through task
 specs, and finished spans flush into the GCS TaskEvents sink (kind
 "span"). An OTLP-shaped exporter can be plugged via `set_exporter`.
 The serving-plane spans (`serve_ctx`, `serve_span`, `record_serve_span`)
-are here; the train-plane ones wait for ROADMAP queue A, item 10d.
+and the train-plane ones (`record_train_span`) are here.
 
 Opt-in: RAY_TPU_TRACING_ENABLED=1 (ref: ray.init(_tracing_startup_hook)).
 """
@@ -207,6 +207,31 @@ def record_serve_span(ctx: Optional[Dict[str, Any]], name: str,
     s.finish(end_ts)
 
 
+def train_enabled() -> bool:
+    """Train-plane step/phase tracing — shares the
+    RAY_TPU_TRAIN_OBS_ENABLED kill switch with the rest of the train
+    observability stack (gauges, TrainRunState)."""
+    return get_config().train_obs_enabled
+
+
+def record_train_span(run_id: Optional[str], name: str, start_ts: float,
+                      end_ts: Optional[float] = None,
+                      parent_id: Optional[str] = None,
+                      **attrs) -> Optional[str]:
+    """Record an already-timed train-plane span. The run id IS the
+    trace id (experiment name + fit attempt), so `ray-tpu train trace
+    <run>` is a trace_id filter over the GCS span sink — the same query
+    shape as serve request traces. Step loops measure their own wall
+    windows, so spans are minted after the fact; returns the span id so
+    phase children can parent under their step."""
+    if not run_id or not train_enabled():
+        return None
+    s = Span(name, trace_id=run_id, parent_id=parent_id, attrs=attrs)
+    s.start = start_ts
+    s.finish(end_ts)
+    return s.span_id
+
+
 def drain() -> List[dict]:
     """Take all finished spans (the worker's event flusher ships them to
     the GCS TaskEvents sink)."""
@@ -223,8 +248,8 @@ def drain() -> List[dict]:
 
 def has_pending() -> bool:
     """Cheap liveness probe for the flush loop's idle backoff: a parked
-    worker that suddenly mints spans must wake within one flush period,
-    not sit out a backed-off sleep."""
+    worker that suddenly mints spans (e.g. lands a restarted train gang)
+    must wake within one flush period, not sit out a backed-off sleep."""
     return bool(_buffer)
 
 
@@ -233,3 +258,29 @@ def set_exporter(fn: Optional[Callable[[List[dict]], None]]) -> None:
     OTLP forwarder); pass None to remove."""
     global _exporter
     _exporter = fn
+
+
+def spans_to_chrome_trace(spans: List[dict]) -> List[dict]:
+    """Chrome-tracing events for `ray-tpu timeline` merging. Spans land
+    under the emitting node/worker rows (pid=node, tid=worker pid), the
+    same rows their task slices render on — NOT under a synthetic
+    pid=trace_id process, which scattered every trace into its own
+    process group and never lined up with the task rows in perfetto.
+    The trace/span lineage stays available in args."""
+    out = []
+    for s in spans:
+        node = s.get("node_id")
+        out.append({
+            "name": s["name"],
+            "cat": "span",
+            "ph": "X",
+            "ts": s["start_ts"] * 1e6,
+            "dur": (s["end_ts"] - s["start_ts"]) * 1e6,
+            "pid": f"node:{node[:8]}" if node else "node:?",
+            "tid": f"worker:{s.get('pid', '?')}",
+            "args": {**s.get("attrs", {}),
+                     "trace_id": s.get("trace_id"),
+                     "span_id": s.get("span_id"),
+                     "parent_id": s.get("parent_id")},
+        })
+    return out

@@ -515,3 +515,54 @@ def test_a_second_driver_joins_and_the_other_runtime_is_refused(cluster):
     assert ("is not a ray_tpu_torch head" if cluster is ray_tpu
             else "this head runs ray_tpu_torch") in other.stdout
     cluster.kill(actor)
+
+
+def test_a_killed_owners_objects_are_freed(cluster):
+    """A SIGKILLed worker owned a put object and the store-held return of
+    a task it submitted: the port's daemon frees both, so the store's
+    (used bytes, objects) return to the baseline, and a borrower's `get`
+    raises OwnerDiedError at once. JAX's run prints what its store keeps
+    and what the `get` gives; only the port's half is asserted."""
+
+    @cluster.remote
+    def payload(n):
+        import numpy as np
+
+        return np.ones(n, np.uint8)
+
+    @cluster.remote
+    class Owner:
+        def make(self, n):
+            put = cluster.put(np.ones(n, np.uint8))
+            ret = payload.remote(n)
+            cluster.wait([ret], num_returns=1, timeout=60)
+            return [put, ret], os.getpid()
+
+    store = cluster.api._global_worker().store
+    baseline = (store.used, store.num_objects)
+    owner = Owner.remote()
+    (put, ret), pid = cluster.get(owner.make.remote(1_000_000), timeout=60)
+    held = (store.used, store.num_objects)
+    os.kill(pid, 9)
+    # JAX's daemon frees nothing of a dead owner: no wait for its store.
+    deadline = time.monotonic() + (20 if cluster is ray_tpu_torch else 0)
+    while ((store.used, store.num_objects) != baseline
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    after = (store.used, store.num_objects)
+    t0 = time.monotonic()
+    try:
+        got = type(cluster.get(put, timeout=20)).__name__
+    except Exception as e:  # noqa: BLE001 what each runtime raises
+        got = type(e).__name__
+    waited = time.monotonic() - t0
+    print(f"{cluster.__name__}: store (used, objects) {baseline} before, "
+          f"{held} with the owner, {after} after its SIGKILL; get of its "
+          f"put gave {got} in {waited:.2f} s")
+    if cluster is ray_tpu_torch:
+        assert held[0] >= baseline[0] + 2_000_000, (baseline, held)
+        assert after == baseline, (baseline, held, after)
+        assert got == "OwnerDiedError", got
+        assert waited < 15, waited
+        with pytest.raises(ray_tpu_torch.exceptions.OwnerDiedError):
+            cluster.get(ret, timeout=20)

@@ -18,12 +18,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # transformers and aiohttp too: the card's machine has neither (the HF
 # import reads a config by attribute; the HTTP proxy is the standard
 # library's asyncio).
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "ray_tpu", "transformers",
-             "aiohttp")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "ray_tpu",
+             "transformers", "aiohttp")
 # Modules the walk must reach (the context-parallel and pipeline slice, the
 # HF import and RLlib, DreamerV3 and the offline learners, the task/actor
 # core with its GPU resource primitives, the multi-process runtime, and the
-# serve control plane with its channels and usage stats included).
+# serve control plane with its channels and usage stats included, and the
+# train plane with its chaos injectors and state/timeline readers).
 REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.collectives",
             "ray_tpu_torch.models.training", "ray_tpu_torch.models.hf_convert",
@@ -53,7 +54,12 @@ REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
                 "disagg", "handle", "http_proxy", "multiplex", "observability",
                 "replica", "rpc_ingress", "kv_cache", "llm")),
             "ray_tpu_torch.experimental", "ray_tpu_torch.experimental.channel",
-            "ray_tpu_torch.util.usage_stats")
+            "ray_tpu_torch.util.usage_stats",
+            *(f"ray_tpu_torch.train.{m}" for m in (
+                "backend", "checkpoint", "config", "elastic", "huggingface",
+                "observability", "session", "trainer", "worker_group")),
+            "ray_tpu_torch.util.chaos", "ray_tpu_torch.util.state",
+            "ray_tpu_torch.util.timeline")
 
 _CHECK = r"""
 import importlib, importlib.abc, pkgutil, sys
@@ -136,3 +142,9 @@ def test_entry_points_raise_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         LLMDeployment("tiny")
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchTrainer(lambda: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchTrainer(lambda: None, scaling_config=ScalingConfig(num_workers=2))
