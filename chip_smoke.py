@@ -127,9 +127,9 @@ Run from a checkout of the repository on a machine with a Hopper card
    traffic and a decode round at width 8: greedy tokens equal over the
    turns and held to `forward` as in phase 6; TTFT, decode tokens/s, a
    burst's ms beside its host enqueue ms; (c) right after phase 11b, on
-   its mixtral-8x7b weights (24 layers) once the paged engine is gone: the
-   same mesh engine and traffic, held to the dropless re-prefill as 11b
-   is; (a) this slice's main path, after phase 13: mixtral-8x7b at phase
+   its mixtral-8x7b weights (MIXTRAL_SERVE_LAYERS) once the paged engine
+   is gone: the same mesh engine and traffic, held to the dropless
+   re-prefill as 11b is; (a) this slice's main path, after phase 13: mixtral-8x7b at phase
    11a's cell through the mesh step on `build_mesh(MeshConfig(fsdp=-1,
    ep=1))`, fed by torch_feed, after the plain step from the same params
    on the same batches (whose state is freed first): every step's loss
@@ -243,6 +243,27 @@ Run from a checkout of the repository on a machine with a Hopper card
    phase 4's) and the killed one (one restart, lost_restart_s > 0),
    `util.timeline.fetch_spans` the clean run's train.step spans, and
    `util.state.doctor()` no train finding on the clean run.
+22. the data layer on that runtime (`data_plane_phase`, run by phase 21
+   before its cluster shuts down): it first prints whether pyarrow and
+   pandas import here (nothing in the phase needs them); (a) phase 4's
+   cell trained by `train.TorchTrainer` from
+   `datasets={"train": StreamingIngest(ds)}`, ds phase 21's corpus as
+   `from_numpy` in 8 blocks and one `map_batches`, read in the worker
+   with `iter_device_batches`: losses bit-equal to the direct step's,
+   2L / L / L launches a step counted there, every row once, the
+   worker's step and host ms against the direct step's, the feed's hits
+   and misses, `ds.stats()`; (b) 131,072 rows of 2,049 int32 tokens
+   (1.0 GiB) in 64 blocks made by the read stage from the seed, through
+   `map_batches`, `random_shuffle(seed=0)` and `iter_device_batches(8)`
+   onto the card: every row once and the token sum intact, none of its
+   objects left in the store after it is dropped; seconds, GiB/s,
+   rows/s, the shuffle's bytes and seconds from the data gauges, each
+   operator's stall and spill, the feed's hits and misses, the store's
+   peak; (c) PPO's CartPole rollouts and a SAC Pendulum replay recorded
+   as JSON shards, read back by `read_samples` (rows read = rows
+   written), BC and MARWIL trained 3 iterations and CQL 2 on the card
+   (ms an iteration, finite metrics). A "phase seconds" line then gives
+   each phase group's wall clock.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -255,13 +276,15 @@ as `launches_ulysses`, of 14a's mesh steps as
 `launches_tiny_padded`, of 18a's actor steps as
 `launches_bench_350m_actor_train`, of 19b's worker-process actor steps
 as `launches_bench_350m_cluster_actor_train`, of phase 20's replica as
-`launches_llama3_8b_serve_replica` and of 21a's trainer steps as
-`launches_bench_350m_trainer`), and {"ok": true,
+`launches_llama3_8b_serve_replica`, of 21a's trainer steps as
+`launches_bench_350m_trainer` and of 22a's steps fed by the data layer
+as `launches_bench_350m_data_ingest`), and {"ok": true,
 "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -346,9 +369,11 @@ SERVE_FP32_LOGITS_TOL = 1e-3
 REMAT_GRAD_TOL = 1e-6
 # Phase 11: mixtral-8x7b depth on one card. Training keeps fp32 masters,
 # grads and two AdamW moments, 16 bytes a parameter, 1.451 B a layer: 2
-# layers are 50.6 GB. Serving holds bf16 weights: 24 layers are 70.2 GB.
+# layers are 50.6 GB. Serving holds bf16 weights, 2.925 GB a layer; 8
+# layers (23.4 GB) keep the whole script inside its time budget (24, 70.2
+# GB, fit the card too, at ~60 s more).
 MIXTRAL_TRAIN_LAYERS = 2
-MIXTRAL_SERVE_LAYERS = 24
+MIXTRAL_SERVE_LAYERS = 8
 
 
 def log(msg: str) -> None:
@@ -1000,7 +1025,7 @@ def largest_op_output(torch, fn):
 def serve_main_path(torch, models, attention, seed: int, card: str, cfg=None,
                     teacher=forward_teacher):
     """Phase 6: llama3-8b served by PagedLLMEngine with the knob defaults
-    (phase 11b: `cfg` mixtral-8x7b at 24 layers, held to `teacher`).
+    (phase 11b: `cfg` mixtral-8x7b at MIXTRAL_SERVE_LAYERS, held to `teacher`).
 
     Eight requests from threads: prompts of 128 ... 1900 tokens and a pair
     sharing a 512-token prefix, the second of which arrives once the first
@@ -4036,7 +4061,7 @@ def _gib_s(rec) -> float:
 def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
                       batch: int = 8, seq: int = 2048, device: str = "cuda",
                       reference=None, direct_step_ms=None, phase4_mfu=None,
-                      num_cpus: int = 16) -> dict:
+                      num_cpus: int = 16, then=None) -> dict:
     """Phase 21: bench-350m (`cfg`) trained through `train.TorchTrainer` on
     the one-host runtime, one worker with the card: (a) a clean fit of
     TRAIN_PLANE_STEPS steps saving the whole state after step
@@ -4047,7 +4072,9 @@ def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
     to `reference` (the direct step's on the same seed and batches; made
     here when not given), and its launches, counted in the worker, to
     2L / L / L. The store's (used bytes, objects) must be back at their
-    baseline after (b)."""
+    baseline after (b). `then(rt=..., reference=..., direct_step_ms=...,
+    storage=...)` runs on the same cluster before it shuts down (phase 22);
+    its result is out["then"]."""
     import tempfile
     from types import SimpleNamespace
 
@@ -4249,8 +4276,12 @@ def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
             raise AssertionError(f"21c: the elastic run's record {e}")
         if findings:
             raise AssertionError(f"21c: doctor flags the clean run: {findings}")
+        out["phase_s"] = time.perf_counter() - t_phase
+        if then is not None:
+            out["then"] = then(rt=rt, reference=reference, direct_step_ms=direct_step_ms,
+                               storage=storage)
     except BaseException:
-        log(f"21 [{card}]: failed; host now: {_host_state(torch)}")
+        log(f"21-22 [{card}]: failed; host now: {_host_state(torch)}")
         _dump_node_logs(rt)
         raise
     finally:
@@ -4260,6 +4291,295 @@ def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
             os.environ.pop(peak_var, None)
         else:
             os.environ[peak_var] = peak_before
+    return out
+
+
+# Phase 22b: the tokenised corpus fed through the data plane (131,072 rows of
+# 2,049 int32 tokens: 1.0 GiB) and its blocks.
+DATA_PLANE_ROWS = 131_072
+DATA_PLANE_BLOCKS = 64
+# Phase 22a: the blocks of the trainer's corpus.
+DATA_INGEST_BLOCKS = 8
+
+
+def data_ingest_loop(config) -> None:
+    """Phase 22a's train loop, run by `train.TorchTrainer` in its worker:
+    phase 4's step from the seed, each step's tokens read from the
+    StreamingIngest shard with `iter_device_batches` on `config["device"]`;
+    each step reports its loss, the rows it trained on, this process's
+    kernel launches and times, and the feed its hits and misses."""
+    import torch
+
+    from ray_tpu_torch import models, train
+    from ray_tpu_torch.ops import attention
+
+    cfg, device = config["cfg"], config["device"]
+    init_fn, step_fn = bench_train_step(models, cfg, device)
+    state = init_fn(torch.Generator(device=device).manual_seed(config["seed"]))
+    card = torch.cuda.get_device_name() if device == "cuda" else "cpu"
+    shard = train.get_dataset_shard("train")
+    with shard.iter_device_batches(batch_size=config["batch"], device=device) as feed:
+        for batch in feed:
+            seen = dict(attention.launches)
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, {"tokens": batch["tokens"]})
+            host_ms = (time.perf_counter() - t0) * 1e3
+            loss = float(metrics["loss"])
+            _sync(torch, device)
+            step_ms = (time.perf_counter() - t0) * 1e3
+            train.report({"step": state.step, "loss": loss, "rows": batch["row"].tolist(),
+                          "launches": {n: attention.launches[n] - seen[n] for n in seen},
+                          "step_ms": step_ms, "host_ms": host_ms, "device": card})
+    train.report({"feed": {"hits": feed.hits, "misses": feed.misses}})
+
+
+def _gauge(name: str, dataset: str = "ds"):
+    """The last value of a data gauge in this process's registry."""
+    from ray_tpu_torch.util.metrics import registry_dump
+
+    for m in registry_dump():
+        if m["name"] == name:
+            for key, value in m.get("samples", []):
+                if ("dataset", dataset) in [tuple(kv) for kv in key]:
+                    return value
+    return None
+
+
+def _store_sampler(store):
+    """A thread sampling the store's used bytes every 20 ms; returns the
+    thread, its stop event and the list of samples."""
+    import threading
+
+    stop, samples = threading.Event(), []
+
+    def run():
+        while not stop.is_set():
+            samples.append(store.used)
+            time.sleep(0.02)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, stop, samples
+
+
+def data_plane_phase(torch, models, attention, seed: int, card: str, rt, reference,
+                     direct_step_ms, cfg=None, batch: int = 8, seq: int = 2048,
+                     device: str = "cuda", storage: str = None,
+                     corpus_rows: int = DATA_PLANE_ROWS) -> dict:
+    """Phase 22, on phase 21's cluster (`rt` initialised): (a) phase 4's
+    cell (`cfg`) trained by `train.TorchTrainer` for TRAIN_PLANE_STEPS steps
+    from `datasets={"train": StreamingIngest(ds)}`, ds the seeded corpus of
+    phase 21's loop in DATA_INGEST_BLOCKS blocks and one map_batches stage,
+    read in the worker with `iter_device_batches`: losses bit-equal to
+    `reference` (the direct step's), 2L / L / L launches a step, every row
+    once; (b) a seeded corpus of `corpus_rows` rows of seq + 1 int32 tokens
+    in DATA_PLANE_BLOCKS blocks through map_batches, `random_shuffle(seed=0)`
+    and `iter_device_batches(batch_size=batch)` in the driver: every row
+    once, the tokens' sum intact, and none of its objects left in the store
+    after the dataset is dropped; (c) PPO's CartPole rollouts and a SAC Pendulum
+    replay recorded as JSON shards, read through `read_samples`, and BC,
+    MARWIL (3 iterations each) and CQL (2) trained on them on `device`."""
+    import gc
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch import data as rd, train
+    from ray_tpu_torch.rllib import cql, offline, ppo, sac
+
+    cuda = device == "cuda"
+    cfg = cfg or models.configs.BENCH_350M
+    steps = TRAIN_PLANE_STEPS
+    card_name = torch.cuda.get_device_name(0) if cuda else "cpu"
+    have = {m: importlib.util.find_spec(m) is not None for m in ("pyarrow", "pandas")}
+    log(f"22 [{card}]: importable here: {have}")
+    out = {"importable": have}
+    storage = storage or tempfile.mkdtemp(prefix="chip_smoke_data_")
+    store = rt.api._global_worker().store
+    t_phase = time.perf_counter()
+
+    # (a) the ingest path: StreamingIngest -> TorchTrainer's worker
+    corpus = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (steps, batch, seq + 1), dtype=np.int32)
+    n = steps * batch
+    ds = rd.from_numpy({"tokens": corpus.reshape(n, seq + 1), "row": np.arange(n)},
+                       parallelism=DATA_INGEST_BLOCKS)
+
+    def as_tokens(b):
+        return {"tokens": b["tokens"].astype(np.int32, copy=False), "row": b["row"]}
+
+    ds = ds.map_batches(as_tokens, batch_format="numpy")
+    ingest = rd.StreamingIngest(ds)
+    per_step = 1 if cuda else 0  # the plain versions count nothing
+    expected = {"fa_fwd": 2 * cfg.n_layers * per_step,
+                "fa_bwd_dq": cfg.n_layers * per_step, "fa_bwd_dkv": cfg.n_layers * per_step}
+    t0 = time.perf_counter()
+    result = train.TorchTrainer(
+        data_ingest_loop, train_loop_config={"cfg": cfg, "device": device, "seed": seed,
+                                             "batch": batch},
+        scaling_config=train.ScalingConfig(
+            num_workers=1, use_gpu=cuda, resources_per_worker=None if cuda else {"GPU": 1.0}),
+        datasets={"train": ingest},
+        run_config=train.RunConfig(name="bench350m_ingest", storage_path=storage)).fit()
+    fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        raise AssertionError(f"22a: the fit failed: {result.error}")
+    done = _plane_steps(result)
+    if [m["step"] for m in done] != list(range(1, steps + 1)):
+        raise AssertionError(f"22a: steps {[m['step'] for m in done]}")
+    _check_plane_steps("22a", done, reference, expected, card_name)
+    rows = [r for m in done for r in m["rows"]]
+    if sorted(rows) != list(range(n)):
+        raise AssertionError(f"22a: rows {rows} are not every row of the {n} once")
+    feed = next(m["feed"] for m in result.metrics_history if "feed" in m)
+    stats = rt.get(ingest.coordinator.stats.remote())
+    worker_ms = statistics.median(m["step_ms"] for m in done[1:])
+    out["ingest"] = {
+        "fit_s": fit_s, "losses": [m["loss"] for m in done],
+        "step_ms": [m["step_ms"] for m in done], "host_ms": [m["host_ms"] for m in done],
+        "median_step_ms": worker_ms, "direct_median_step_ms": direct_step_ms,
+        "median_host_ms": statistics.median(m["host_ms"] for m in done[1:]),
+        "launches": {k: sum(m["launches"][k] for m in done) for k in expected},
+        "feed": feed, "stats": stats}
+    log(f"22a [{card}]: {cfg.name} {batch} x {seq} through TorchTrainer from "
+        f"StreamingIngest({DATA_INGEST_BLOCKS} blocks + map_batches), {steps} steps in "
+        f"{fit_s:.1f} s, losses bit-equal to the direct step's, launches {expected} a "
+        f"step in the worker, rows 0-{n - 1} once each; worker step {worker_ms:.2f} ms "
+        f"median (host {out['ingest']['median_host_ms']:.2f}) vs direct {direct_step_ms}; "
+        f"feed hits {feed['hits']}, misses {feed['misses']}; ds.stats():\n{stats}")
+    shutil.rmtree(os.path.join(storage, "bench350m_ingest"), ignore_errors=True)
+    del ds, ingest, result, corpus
+
+    # (b) the data plane at a real size: 1.0 GiB through the shuffle. The
+    # read stage makes each block's tokens from the seed and its first row:
+    # blocks put from the driver would ride in the read tasks as nested
+    # refs, which the owner keeps for a transit grace after their use.
+    per_block = -(-corpus_rows // DATA_PLANE_BLOCKS)
+
+    def corpus_block(b):
+        rows = b["id"]
+        rng = np.random.default_rng([seed + 1, int(rows[0])])
+        return {"tokens": rng.integers(0, cfg.vocab_size, (len(rows), seq + 1),
+                                       dtype=np.int32), "row": rows}
+
+    t0 = time.perf_counter()
+    token_sum = sum(int(corpus_block({"id": np.arange(a, min(a + per_block, corpus_rows))})
+                        ["tokens"].sum(dtype=np.int64))
+                    for a in range(0, corpus_rows, per_block))
+    make_s = time.perf_counter() - t0
+    nbytes = corpus_rows * ((seq + 1) * 4 + 8)
+    before = set(store.list_objects())
+    used_before = store.used
+    ds = (rd.range(corpus_rows, parallelism=DATA_PLANE_BLOCKS)
+          .map_batches(corpus_block, batch_format="numpy").random_shuffle(seed=0))
+    counts = torch.zeros(corpus_rows, dtype=torch.int32, device=device)
+    total = torch.zeros((), dtype=torch.int64, device=device)
+    ones = torch.ones(batch, dtype=torch.int32, device=device)
+    sampler, stop, used = _store_sampler(store)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    with ds.iter_device_batches(batch_size=batch, device=device) as feed:
+        for b in feed:
+            counts.index_add_(0, b["row"], ones[:len(b["row"])])
+            total += b["tokens"].sum(dtype=torch.int64)
+    _sync(torch, device)
+    seconds = time.perf_counter() - t0
+    stop.set()
+    sampler.join(timeout=5)
+    once = bool((counts == 1).all())
+    intact = int(total) == token_sum
+    stages = [{"name": st.name, "tasks": st.tasks, "wall_s": st.wall_s, "stall_s": st.stall_s,
+               "spilled_tasks": st.spilled_tasks, "bytes_out": st.bytes_out}
+              for st in ds._last_stats.stages]
+    shuffle = {"bytes": _gauge("data_shuffle_bytes"), "seconds": _gauge("data_shuffle_seconds"),
+               "gbps": _gauge("data_shuffle_gbps")}
+    hits, misses = feed.hits, feed.misses
+    del ds, feed, b, counts
+    gc.collect()
+    rt.api._global_worker().flush_frees()
+    deadline = time.perf_counter() + 60
+    while set(store.list_objects()) - before and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    left = set(store.list_objects()) - before
+    out["corpus"] = {
+        "rows": corpus_rows, "blocks": DATA_PLANE_BLOCKS, "bytes": nbytes,
+        "make_s": make_s, "seconds": seconds,
+        "gib_s": nbytes / 2**30 / seconds, "rows_s": corpus_rows / seconds,
+        "shuffle": shuffle, "stages": stages, "feed": {"hits": hits, "misses": misses},
+        "peak_store_bytes": max(used), "store_used_before": used_before,
+        "store_used_after": store.used, "objects_left": len(left),
+        "every_row_once": once, "tokens_intact": intact}
+    log(f"22b [{card}]: {corpus_rows} rows x {seq + 1} int32 ({nbytes / 2**30:.3f} GiB) "
+        f"in {DATA_PLANE_BLOCKS} blocks: read (each block's tokens made from the seed) + "
+        f"map_batches -> random_shuffle(seed=0) -> iter_device_batches({batch}) on "
+        f"{card_name}: {seconds:.2f} s, {out['corpus']['gib_s']:.3f} GiB/s, "
+        f"{out['corpus']['rows_s']:.0f} rows/s; shuffle {shuffle}; stages {stages}; feed "
+        f"hits {hits}, misses {misses}; peak store {max(used) / 2**30:.3f} GiB; every row "
+        f"once: {once}, tokens intact: {intact}; store {used_before} bytes before, "
+        f"{store.used} after, {len(left)} of its objects left")
+    if not (once and intact):
+        raise AssertionError("22b: rows missing, repeated or altered by the data plane")
+    if left:
+        raise AssertionError(f"22b: {len(left)} objects of the dataset are still in the store")
+
+    # (c) the offline reader: BC, MARWIL and CQL from JSON shards
+    path = tempfile.mkdtemp(prefix="rtt_offline_", dir=storage)
+    algo = (ppo.PPOConfig().environment("CartPole-v1").resources(device=device)
+            .debugging(seed=seed).build())
+    offline.record_rollouts(algo, path, num_iterations=4, fmt="json")
+    algo.stop()
+    written = 4 * algo.config.num_envs_per_env_runner * algo.config.rollout_fragment_length
+    offline_out = {"rollout_rows_written": written,
+                   "rollout_rows_read": offline.read_samples(path).count()}
+    for name, config in (("bc", offline.BCConfig()), ("marwil", offline.MARWILConfig())):
+        algo = (config.environment("CartPole-v1").offline_data(input_path=path)
+                .resources(device=device).debugging(seed=seed).build())
+        ms, metrics = [], []
+        for _ in range(3):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            metrics.append(algo.train())
+            _sync(torch, device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        algo.stop()
+        offline_out[name] = {"iteration_ms": ms, "metrics": metrics[-1]}
+    algo = (sac.SACConfig().environment("Pendulum-v1").training(learning_starts=1024)
+            .resources(device=device).debugging(seed=seed).build())
+    for _ in range(2):
+        algo.train()
+    replay = tempfile.mkdtemp(prefix="rtt_replay_", dir=storage)
+    cql.record_replay(algo, replay, fmt="json")
+    offline_out["replay_rows_written"] = len(algo.replay)
+    algo.stop()
+    offline_out["replay_rows_read"] = offline.read_samples(replay).count()
+    algo = (cql.CQLConfig().environment("Pendulum-v1").offline_data(input_path=replay)
+            .resources(device=device).debugging(seed=seed).build())
+    ms, metrics = [], []
+    for _ in range(2):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        metrics.append(algo.train())
+        _sync(torch, device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    algo.stop()
+    offline_out["cql"] = {"iteration_ms": ms, "metrics": metrics[-1]}
+    out["offline"] = offline_out
+    learned = [offline_out[k]["metrics"] for k in ("bc", "marwil", "cql")]
+    finite = all(math.isfinite(v) for m in learned for v in m.values()
+                 if isinstance(v, (int, float)))
+    log(f"22c [{card}]: {offline_out['rollout_rows_read']} of "
+        f"{offline_out['rollout_rows_written']} rollout rows and "
+        f"{offline_out['replay_rows_read']} of {offline_out['replay_rows_written']} replay "
+        f"rows read through read_samples; ms an iteration: BC "
+        f"{offline_out['bc']['iteration_ms']}, MARWIL {offline_out['marwil']['iteration_ms']}, "
+        f"CQL {offline_out['cql']['iteration_ms']}; metrics finite: {finite}")
+    if (offline_out["rollout_rows_read"] != written
+            or offline_out["replay_rows_read"] != offline_out["replay_rows_written"]
+            or not finite):
+        raise AssertionError(f"22c: rows read != rows written, or non-finite metrics: "
+                             f"{offline_out}")
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -4297,6 +4617,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    marks = [("start", time.perf_counter())]  # (phase, wall clock after it)
 
     t0 = time.perf_counter()
     _cuda.library_path("flash_attention")
@@ -4305,20 +4626,25 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = check_kernels(torch, attention, gen)
+    marks.append(('1-2 kernels', time.perf_counter()))
     full_grads = check_reference(torch, models)["card_grads"]
     run = main_path(torch, models, attention, args.steps, args.seed)
     log("main path: " + json.dumps(run))
+    marks.append(('3-4 reference and main path', time.perf_counter()))
     serve_ref = check_serving_reference(torch, models, card)
     log("serving reference: " + json.dumps(serve_ref))
     params, serve_run = serve_main_path(torch, models, attention, args.seed, card)
     log("serving main path: " + json.dumps(serve_run))
+    marks.append(('5-6 serving', time.perf_counter()))
     slice_ref = check_serving_slice(torch, models, card)
     log("serving slice reference: " + json.dumps(slice_ref))
     slice_run = serve_slice_main_path(torch, models, attention, params, args.seed, card)
     log("serving slice main path: " + json.dumps(slice_run))
+    marks.append(('7-8 serving slice', time.perf_counter()))
     tp_llama = tp_engine_phase(torch, models, attention, params, models.configs.LLAMA3_8B,
                                args.seed, card, "14b", plain_turns=True)
     log("14b tensor-parallel LLMEngine: " + json.dumps(tp_llama))
+    marks.append(('14b', time.perf_counter()))
     del params
     torch.cuda.empty_cache()
     moe_ref = check_remat_and_moe_reference(torch, models, card, full_grads)
@@ -4326,31 +4652,42 @@ def main() -> int:
     log("remat and MoE reference: " + json.dumps(moe_ref))
     remat = remat_turns(torch, models, attention, args.steps, args.seed, card)
     log("remat turns: " + json.dumps(remat))
+    marks.append(('9-10 remat', time.perf_counter()))
     moe_train = moe_train_path(torch, models, attention, args.steps, args.seed, card)
     log("mixtral train: " + json.dumps(moe_train))
+    marks.append(('11a', time.perf_counter()))
     moe_serve = moe_serve_path(torch, models, attention, args.seed, card)
     log("mixtral serve: " + json.dumps(moe_serve))
+    marks.append(('11b, 14c', time.perf_counter()))
     sharded = mesh_phase(torch, models, attention, args.steps, args.seed, card)
     log("sharded train: " + json.dumps(sharded))
+    marks.append(('12', time.perf_counter()))
     piped = pipeline_phase(torch, models, attention, args.steps, args.seed, card)
     log("pipeline and context parallel: " + json.dumps(piped))
+    marks.append(('13', time.perf_counter()))
     experts = expert_mesh_phase(torch, models, attention, args.steps, args.seed, card)
     log("14a/d expert parallelism: " + json.dumps(experts))
+    marks.append(('14a, 14d', time.perf_counter()))
     late = import_and_rllib_phase(torch, models, attention, args.seed, card)
     log("15-16 HF import and RLlib: " + json.dumps(late))
+    marks.append(('15-16', time.perf_counter()))
     dreamer = dreamer_and_offline_phase(torch, args.seed, card)
     log("17 DreamerV3 and offline learners: " + json.dumps(dreamer))
+    marks.append(('17', time.perf_counter()))
     t0 = time.perf_counter()
     runtime = runtime_phase(torch, models, attention, args.steps, args.seed, card)
     log(f"18 task/actor core ({time.perf_counter() - t0:.1f} s): " + json.dumps(runtime))
+    marks.append(("18", time.perf_counter()))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cluster = cluster_phase(torch, models, attention, CLUSTER_STEPS, args.seed, card)
     log(f"19 multi-process runtime ({time.perf_counter() - t0:.1f} s): "
         + json.dumps(cluster))
+    marks.append(("19", time.perf_counter()))
     t0 = time.perf_counter()
     plane = serve_plane_phase(torch, models, attention, args.seed, card, phase6=serve_run)
     log(f"20 serve plane ({time.perf_counter() - t0:.1f} s): " + json.dumps(plane))
+    marks.append(("20", time.perf_counter()))
     t0 = time.perf_counter()
     direct = cluster["actor_train"]["direct"]
     same = CLUSTER_STEPS == TRAIN_PLANE_STEPS  # 19b's direct run: the same steps
@@ -4358,8 +4695,16 @@ def main() -> int:
         torch, models, attention, args.seed, card,
         reference=direct["losses"] if same else None,
         direct_step_ms=direct["median_step_ms"] if same else None,
-        phase4_mfu=run["mfu_bf16_989"])
-    log(f"21 train plane ({time.perf_counter() - t0:.1f} s): " + json.dumps(trainer))
+        phase4_mfu=run["mfu_bf16_989"],
+        then=functools.partial(data_plane_phase, torch, models, attention, args.seed, card))
+    data = trainer.pop("then")
+    log(f"21 train plane ({trainer['phase_s']:.1f} s): " + json.dumps(trainer))
+    log(f"22 data plane ({data['phase_s']:.1f} s; 21-22 {time.perf_counter() - t0:.1f} s): "
+        + json.dumps(data))
+    marks.append(("21-22", time.perf_counter()))
+    log("phase seconds: " + json.dumps(
+        {name: round(t - prev, 1) for (_, prev), (name, t) in zip(marks, marks[1:])}
+        | {"total": round(marks[-1][1] - marks[0][1], 1)}))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -4398,6 +4743,9 @@ def main() -> int:
             # Phase 21a: the clean fit's steps in TorchTrainer's worker,
             # counted by that process.
             "launches_bench_350m_trainer": trainer["clean"]["launches"][name],
+            # Phase 22a: the steps in TorchTrainer's worker fed by
+            # StreamingIngest through iter_device_batches, counted there.
+            "launches_bench_350m_data_ingest": data["ingest"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

@@ -4,8 +4,9 @@ Same names, defaults and environment variables as the JAX package: each
 knob can be overridden with `RAY_TPU_<NAME>`, parsed to the declared type.
 Only the knobs the port reads are here: those of the multi-process runtime
 (control plane, node daemon, zygote, object store and transfer, tracing and
-diagnosis), the cluster address `init` joins, the serving engines' and the
-train plane's (elastic restarts, train observability).
+diagnosis), the cluster address `init` joins, the serving engines', the
+train plane's (elastic restarts, train observability) and the data layer's
+(the streaming executor).
 """
 from __future__ import annotations
 
@@ -124,6 +125,32 @@ class Config:
     # Kill switch: serve chunk payloads as raw frames (zero-copy);
     # 0 falls back to the legacy bytes-through-pickle path.
     transfer_raw_frames: bool = True
+
+    # ---- streaming data plane (data/streaming; RAY_TPU_DATA_STREAM_*) ----
+    # Default Dataset execution path: streaming operator graph with a
+    # bytes-windowed backpressure budget. 0 falls back to the legacy
+    # block-materializing executor in data/execution.py.
+    data_stream_enabled: bool = True
+    # Total bytes of operator output the whole pipeline may hold
+    # un-consumed before upstream submission stalls (the global window).
+    data_stream_window_bytes: int = 128 * 1024 * 1024
+    # Per-operator cap on output bytes in flight (produced but not yet
+    # consumed downstream); an operator at its cap stalls — the stall
+    # seconds are accounted per operator in Dataset.stats().
+    data_stream_op_inflight_bytes: int = 64 * 1024 * 1024
+    # Device-prefetch depth for iter_device_batches: batches resident
+    # on the card ahead of compute (double buffering at 2).
+    data_stream_prefetch_depth: int = 2
+    # Relay-tree fan-out for streaming all-to-all shuffle pre-staging;
+    # 0 inherits transfer_broadcast_fanout.
+    data_stream_shuffle_fanout: int = 0
+    # Store used/capacity fraction above which the backpressure budget
+    # shrinks and over-budget submissions spill to disk-backed store
+    # space instead of stalling forever.
+    data_stream_spill_threshold: float = 0.8
+    # A byte-stalled operator raises BackpressureTimeout after this
+    # long with no forward progress anywhere in the pipeline.
+    data_stream_stall_timeout_s: float = 120.0
 
     # ---- task lanes (the task path's pinned leases) ----
     # Pre-leased task lanes: after `task_lane_min_calls` submissions of

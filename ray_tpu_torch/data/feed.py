@@ -7,7 +7,9 @@ them in a bounded queue, so the transfer of batch k+1 overlaps the step
 on batch k. A *hit* means the consumer found a batch ready when it asked,
 a *miss* that it waited (the feed is behind the step). `close()` stops
 the producer when the consumer leaves early; an error of the source is
-raised at the consumer.
+raised at the consumer. A wait on the queue is charged to the active train
+step's data_wait phase, and the hits and misses go into the data gauges
+(`data/streaming/metrics.py`) when the feed ends or closes.
 
 `torch_feed` is the transfer: each batch is staged in pinned host memory
 and copied to the card with `non_blocking` on a side stream; the
@@ -16,25 +18,20 @@ the caching allocator from handing the batch's memory to the side stream
 again while the consumer's kernels may still read it. Under a mesh each
 rank copies only its rows (the batch splits over dp and fsdp, outermost
 first) and receives them as a DTensor of the global batch, which the
-train step takes as it takes a host array.
+train step takes as it takes a host array. torch and the mesh modules are
+imported where a feed is made: the data layer's worker processes, which
+import this module with `ray_tpu_torch.data`, never need DTensor.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
-import torch
-from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor
-
-from ray_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, local_batch_rows
-from ray_tpu_torch.parallel.sharding import local_tensor, placements
 
 _SENTINEL = object()
-# The mesh axes a fed batch splits over, as DEFAULT_RULES' "batch".
-FEED_AXES = (AXIS_DATA, AXIS_FSDP)
 
 
 class DevicePrefetcher:
@@ -51,6 +48,8 @@ class DevicePrefetcher:
         self._stop = threading.Event()
         self.hits = 0
         self.misses = 0
+        self._recorded = False
+        self._name = name
         self._thread = threading.Thread(
             target=self._run, name=f"data-prefetch-{name}", daemon=True)
         self._thread.start()
@@ -86,8 +85,16 @@ class DevicePrefetcher:
             self.hits += 1
         except queue.Empty:
             self.misses += 1
+            t0 = time.perf_counter()
             item = self._q.get()
+            # A blocked get is the input pipeline stalling the step loop:
+            # charge it to the active train session's data_wait phase
+            # (a no-op outside a training step loop).
+            from ray_tpu_torch.train import observability
+
+            observability.on_data_wait(time.perf_counter() - t0)
         if item is _SENTINEL:
+            self._record()
             if self._err is not None:
                 raise self._err
             raise StopIteration
@@ -101,6 +108,16 @@ class DevicePrefetcher:
                 self._q.get_nowait()
         except queue.Empty:
             pass
+        self._record()
+
+    def _record(self) -> None:
+        """This prefetcher's hits and misses into the data gauges, once."""
+        if self._recorded:
+            return
+        self._recorded = True
+        from ray_tpu_torch.data.streaming import metrics
+
+        metrics.on_prefetch(self._name, self.hits, self.misses)
 
     def __enter__(self):
         return self
@@ -127,6 +144,10 @@ class TorchFeed(DevicePrefetcher):
     def __next__(self) -> dict:
         batch, ready = super().__next__()
         if ready is not None:
+            import torch
+
+            from ray_tpu_torch.parallel.sharding import local_tensor
+
             stream = torch.cuda.current_stream(ready.device)
             stream.wait_event(ready)
             for t in batch.values():
@@ -136,7 +157,7 @@ class TorchFeed(DevicePrefetcher):
 
 def torch_feed(batch_iter: Iterator[dict], *, device: torch.device | str,
                mesh: DeviceMesh | None = None, dtypes: dict | None = None,
-               prefetch: int = 2) -> TorchFeed:
+               prefetch: int = 2, name: str = "train") -> TorchFeed:
     """Feed numpy batches ({name: (B, ...) array}) to `device`, `prefetch`
     ahead of the consumer, cast to `dtypes` ({name: numpy dtype}) first.
 
@@ -144,7 +165,16 @@ def torch_feed(batch_iter: Iterator[dict], *, device: torch.device | str,
     `mesh` (whose device type replaces `device`) each rank gets a DTensor
     of the global batch holding its rows. Use it as a context manager, or
     call `close()`, when leaving before the source ends."""
+    import torch
+
     if mesh is not None:
+        from torch.distributed.tensor import DTensor
+
+        from ray_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, local_batch_rows
+        from ray_tpu_torch.parallel.sharding import placements
+
+        # The mesh axes a fed batch splits over, as DEFAULT_RULES' "batch".
+        feed_axes = (AXIS_DATA, AXIS_FSDP)
         device = mesh.device_type
     device = torch.device(device)
     if device.type == "cuda":
@@ -172,8 +202,8 @@ def torch_feed(batch_iter: Iterator[dict], *, device: torch.device | str,
             if mesh is None:
                 out[k] = stage(v)
                 continue
-            rows = v[local_batch_rows(mesh, v.shape[0], FEED_AXES)]
-            spec = (FEED_AXES,) + (None,) * (v.ndim - 1)
+            rows = v[local_batch_rows(mesh, v.shape[0], feed_axes)]
+            spec = (feed_axes,) + (None,) * (v.ndim - 1)
             out[k] = DTensor.from_local(stage(rows), mesh, placements(spec, mesh),
                                         run_check=False)
         if device.type != "cuda":
@@ -182,4 +212,4 @@ def torch_feed(batch_iter: Iterator[dict], *, device: torch.device | str,
         ready.record(side)
         return out, ready
 
-    return TorchFeed(batch_iter, to_device, depth=prefetch)
+    return TorchFeed(batch_iter, to_device, depth=prefetch, name=name)

@@ -13,9 +13,9 @@ rows.
 
 Remote env runners, remote evaluation runners and remote learner actors
 run on the task/actor core (`ray_tpu_torch.init(local_mode=True)` hosts
-them in-process). Not here yet: the offline reader (BC, MARWIL and CQL
-training on recorded shards, ROADMAP queue A, item 10b) and the
-usage-stats hook (item 10d).
+them in-process). BC, MARWIL and CQL train on recorded shards read
+through the port's data layer (`offline.read_samples`). Not here yet: the
+usage-stats hook (ROADMAP queue A, item 10d).
 """
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.appo import APPO, APPOConfig

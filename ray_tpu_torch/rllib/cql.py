@@ -7,13 +7,15 @@ loss plus the conservative penalty: logsumexp of Q over uniform-random
 and policy actions minus Q of the dataset actions. Its noise adds the
 random actions and the policy's standard-normal draws for them.
 
-The `CQL` algorithm trains from offline shards that the JAX package reads
-through `ray_tpu.data`; the port's data executor is ROADMAP queue A, item
-10b, so building it raises. The learner runs on
-any batch of transitions.
+The `CQL` algorithm trains from offline shards read through the port's
+`data` layer (`offline.read_samples`); `record_transitions` and
+`record_replay` write such shards from a SAC algorithm.
 """
 from __future__ import annotations
 
+from typing import Any, Dict
+
+import numpy as np
 import torch
 
 from ray_tpu_torch.rllib.algorithm import Algorithm
@@ -94,12 +96,77 @@ class CQLConfig(SACConfig):
 
 
 class CQL(Algorithm):
-    """The JAX package's CQL trains on offline shards read through its
-    data executor; that reader is not ported yet (item 10b)."""
+    """training_step: sample minibatches from the OFFLINE dataset only —
+    the env exists solely for spaces + evaluation."""
+
+    _eval_mode = "sac_mean"
 
     def _setup_learner(self, obs_dim: int, num_actions: int) -> CQLLearner:
-        raise NotImplementedError(
-            "CQL reads its offline data through the data executor "
-            "(read_samples), which is not ported yet (ROADMAP queue A, "
-            "item 10b); train a CQLLearner "
-            "on batches of transitions instead")
+        cfg: CQLConfig = self.config
+        if not cfg.input_path:
+            raise ValueError("CQLConfig.offline_data(input_path=...) first")
+        info = self.space_info
+        if not info["continuous"]:
+            raise ValueError("CQL needs a continuous-control env")
+        from ray_tpu_torch.rllib.offline import read_samples
+
+        rows = read_samples(cfg.input_path).take_all()
+        self._data = {
+            k: np.asarray([r[k] for r in rows], np.float32)
+            for k in ("obs", "actions", "rewards", "next_obs", "terminals")}
+        self._rng = np.random.default_rng(cfg.seed)
+        hp, act_dim = cfg.hyperparams(info), info["act_dim"]
+        seed, hidden, device = cfg.seed, cfg.model_hidden, cfg.device
+        alpha, n_act = cfg.cql_alpha, cfg.cql_n_actions
+
+        def factory(mesh=None):
+            return CQLLearner(obs_dim, act_dim, hp, cql_alpha=alpha,
+                              cql_n_actions=n_act, seed=seed,
+                              hidden=hidden, mesh=mesh, device=device)
+
+        return self._build_learner(factory)
+
+    def training_step(self) -> Dict[str, float]:
+        cfg: CQLConfig = self.config
+        n = len(self._data["obs"])
+        agg: Dict[str, list] = {}
+        for _ in range(cfg.num_updates_per_iteration):
+            idx = self._rng.integers(0, n, cfg.train_batch_size)
+            batch = {k: v[idx] for k, v in self._data.items()}
+            for k, v in self.learner.update(batch).items():
+                agg.setdefault(k, []).append(v)
+        self._broadcast_weights()
+        out = {k: float(np.mean(v)) for k, v in agg.items()}
+        out["num_offline_rows"] = float(n)
+        return out
+
+
+def record_transitions(algo: Any, path: str, num_iterations: int = 4,
+                       fmt: str = "parquet") -> str:
+    """Record continuous-control transitions from a (SAC) algorithm's
+    CURRENT behavior policy. Note: this yields NARROW (near-on-policy)
+    data — the hardest offline-RL regime; prefer record_replay for CQL
+    training sets."""
+    from ray_tpu_torch.rllib.offline import SampleWriter
+
+    writer = SampleWriter(path, fmt=fmt)
+    T = algo.config.rollout_fragment_length
+    for _ in range(num_iterations):
+        out = algo.workers[0].sample_transitions_continuous(T)
+        writer.write(out["batch"])
+    writer.close()
+    return path
+
+
+def record_replay(algo: Any, path: str, fmt: str = "parquet") -> str:
+    """Dump an off-policy algorithm's REPLAY BUFFER as offline shards —
+    diverse data spanning random warmup through the trained policy, the
+    distribution offline methods are designed for (the D4RL-style
+    'replay' datasets)."""
+    from ray_tpu_torch.rllib.offline import SampleWriter
+
+    n = len(algo.replay)
+    writer = SampleWriter(path, fmt=fmt)
+    writer.write({k: v[:n] for k, v in algo.replay._store.items()})
+    writer.close()
+    return path

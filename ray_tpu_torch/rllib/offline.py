@@ -4,14 +4,10 @@
 ref: rllib/offline/json_writer.py (rollout recording) and the BC and MARWIL
 algorithms (rllib/algorithms/bc, rllib/algorithms/marwil). `SampleWriter`,
 `_columnar`, `discounted_returns` and `record_rollouts` are copies: they
-write the same parquet and JSON shards. `BCLearner` and `MARWILLearner`
-run JAX's update functions eagerly on `device` ("cuda" by default) with
-the port's Adam.
-
-The JAX package reads the shards back through its data executor
-(`read_samples`, and `BC`/`MARWIL` training on what it reads); the port's
-executor is ROADMAP queue A, item 10b, so those raise.
-The learners train on any arrays of rows.
+write the same parquet and JSON shards. `read_samples` reads them back
+through the port's `data` layer, and `BC`/`MARWIL` train on what it reads.
+`BCLearner` and `MARWILLearner` run JAX's update functions eagerly on
+`device` ("cuda" by default) with the port's Adam.
 """
 from __future__ import annotations
 
@@ -29,10 +25,6 @@ from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.jax_bridge import rl_params_from_jax, rl_params_to_numpy
 from ray_tpu_torch.rllib.models import apply_mlp_policy, init_mlp_policy
 from ray_tpu_torch.rllib.optim import Adam
-
-_NEEDS_EXECUTOR = ("reads offline shards through the data executor, which is "
-                   "not ported yet (ROADMAP queue A, item 10b)")
-
 
 class SampleWriter:
     """Shard-per-flush columnar sample recorder (ref: JsonWriter —
@@ -86,8 +78,15 @@ class SampleWriter:
 
 
 def read_samples(path: str):
-    """The JAX package returns a Dataset of the shards under `path`."""
-    raise NotImplementedError(f"read_samples {_NEEDS_EXECUTOR}")
+    """Offline shards -> a `ray_tpu_torch.data` Dataset (ref: JsonReader,
+    but on the Dataset layer so shuffle/split/stream come for free)."""
+    from ray_tpu_torch import data as rd
+
+    pq_files = [f for f in sorted(os.listdir(path))
+                if f.endswith(".parquet")]
+    if pq_files:
+        return rd.read_parquet(path)
+    return rd.read_json(path)
 
 
 def _columnar(rows: List[dict]) -> Dict[str, np.ndarray]:
@@ -188,12 +187,31 @@ class BCLearner:
 
 
 class BC(Algorithm):
-    """The JAX package's BC samples minibatches from the offline Dataset;
-    that reader needs the port's runtime."""
+    """training_step: sample minibatches from the OFFLINE dataset (no
+    env rollouts); the env is only used for spaces and evaluation."""
 
     def _setup_learner(self, obs_dim: int, num_actions: int) -> BCLearner:
-        raise NotImplementedError(
-            f"BC {_NEEDS_EXECUTOR}; train a BCLearner on arrays of rows instead")
+        cfg: BCConfig = self.config
+        if not cfg.input_path:
+            raise ValueError("BCConfig.offline_data(input_path=...) first")
+        data = _columnar(read_samples(cfg.input_path).take_all())
+        self._obs = data["obs"].astype(np.float32)
+        self._actions = data["actions"].astype(np.int64)
+        self._rng = np.random.default_rng(cfg.seed)
+        return BCLearner(obs_dim, num_actions, cfg.lr, seed=cfg.seed,
+                         hidden=cfg.model_hidden, device=cfg.device)
+
+    def training_step(self) -> Dict[str, float]:
+        cfg: BCConfig = self.config
+        losses = []
+        n = len(self._obs)
+        for _ in range(cfg.num_updates_per_iteration):
+            idx = self._rng.integers(0, n, cfg.train_batch_size)
+            losses.append(self.learner.update(self._obs[idx],
+                                              self._actions[idx]))
+        self._broadcast_weights()
+        return {"bc_loss": float(np.mean(losses)),
+                "num_offline_rows": float(n)}
 
 
 class MARWILConfig(BCConfig):
@@ -248,13 +266,39 @@ class MARWILLearner(BCLearner):
 
 
 class MARWIL(Algorithm):
-    """Offline training like BC, with per-row Monte-Carlo returns feeding
-    the advantage weights; its reader needs the port's runtime."""
+    """Offline training_step like BC, but with per-row Monte-Carlo
+    returns feeding the advantage weights."""
 
     def _setup_learner(self, obs_dim: int, num_actions: int) -> MARWILLearner:
-        raise NotImplementedError(
-            f"MARWIL {_NEEDS_EXECUTOR}; train a MARWILLearner on arrays of "
-            "rows instead")
+        cfg: MARWILConfig = self.config
+        if not cfg.input_path:
+            raise ValueError(
+                "MARWILConfig.offline_data(input_path=...) first")
+        data = _columnar(read_samples(cfg.input_path).take_all())
+        self._obs = data["obs"].astype(np.float32)
+        self._actions = data["actions"].astype(np.int64)
+        self._returns = discounted_returns(
+            data["rewards"].astype(np.float32),
+            data["dones"].astype(bool), cfg.gamma)
+        self._rng = np.random.default_rng(cfg.seed)
+        return MARWILLearner(obs_dim, num_actions, cfg.lr,
+                             beta=cfg.beta, vf_coeff=cfg.vf_coeff,
+                             seed=cfg.seed, hidden=cfg.model_hidden,
+                             device=cfg.device)
+
+    def training_step(self) -> Dict[str, float]:
+        cfg: MARWILConfig = self.config
+        agg: Dict[str, list] = {}
+        n = len(self._obs)
+        for _ in range(cfg.num_updates_per_iteration):
+            idx = self._rng.integers(0, n, cfg.train_batch_size)
+            for k, v in self.learner.update(self._obs[idx], self._actions[idx],
+                                            self._returns[idx]).items():
+                agg.setdefault(k, []).append(v)
+        self._broadcast_weights()
+        out = {k: float(np.mean(v)) for k, v in agg.items()}
+        out["num_offline_rows"] = float(n)
+        return out
 
 
 def record_rollouts(algo: Algorithm, path: str, num_iterations: int = 4,

@@ -4,9 +4,11 @@ BC and MARWIL updates from JAX's weights on the same rows agree within
 1e-5 at fp32 (loss, params, Adam moments), over three updates;
 `discounted_returns` is exact. `SampleWriter` writes the shards JAX's
 writes (the same columns, dtypes and rows, read back with pyarrow and
-json, never through a data executor), and `record_rollouts` records a port
-PPO's rollouts. What reads shards back (`read_samples`, BC and MARWIL
-training) needs the port's runtime and raises.
+json), and `record_rollouts` records a port PPO's rollouts. `read_samples`
+reads JAX's rows back from JSON and parquet shards through the port's data
+layer, and BC and MARWIL train on them: their first update matches JAX's
+at 1e-5. Each runtime runs in local mode and is shut down before the next
+starts.
 """
 import json
 import os
@@ -126,13 +128,73 @@ def test_record_rollouts_writes_a_port_ppo_rollouts(fmt, tmp_path):
     algo.stop()
 
 
+def _shards(path, fmt):
+    """Two shards of CartPole-shaped rows, written by JAX's SampleWriter."""
+    rng = np.random.default_rng(3)
+    writer = joff.SampleWriter(str(path), fmt=fmt, rows_per_shard=40)
+    for _ in range(2):
+        writer.write({"obs": rng.normal(size=(40, OBS_DIM)).astype(np.float32),
+                      "actions": rng.integers(0, 2, 40).astype(np.int32),
+                      "rewards": rng.normal(size=40).astype(np.float32),
+                      "dones": rng.random(40) < 0.1})
+    writer.close()
+    return str(path)
+
+
+def _offline_run(rt, algo_mod, kind, path):
+    """read_samples' rows, and one offline training iteration of `kind`
+    (BC or MARWIL) from the JAX learner's initial weights, on `rt` in local
+    mode (shut down before returning)."""
+    rt.init(local_mode=True)
+    try:
+        rows = algo_mod.read_samples(path).take_all()
+        config = getattr(algo_mod, f"{kind}Config")().environment("CartPole-v1").offline_data(
+            input_path=path).training(num_updates_per_iteration=1, train_batch_size=32)
+        if algo_mod is offline:
+            config = config.resources(device="cpu")
+        algo = config.rl_module(model_hidden=HIDDEN).debugging(seed=0).build()
+        return rows, algo
+    finally:
+        rt.shutdown()
+
+
+@pytest.mark.parametrize("fmt", ["json", "parquet"])
+@pytest.mark.parametrize("kind", ["BC", "MARWIL"])
+def test_offline_algorithms_train_on_jax_shards(kind, fmt, tmp_path):
+    """read_samples reads JAX's rows from the same shards; BC and MARWIL
+    read them through it and their first update (from JAX's initial
+    weights) matches JAX's: loss and params within 1e-5."""
+    import ray_tpu
+    import ray_tpu_torch
+
+    path = _shards(tmp_path / fmt, fmt)
+    jrows, jalgo = _offline_run(ray_tpu, joff, kind, path)
+    trows, talgo = _offline_run(ray_tpu_torch, offline, kind, path)
+    assert len(trows) == len(jrows) == 80
+    for t, j in zip(trows, jrows):
+        assert list(t) == list(j)
+        for k in j:
+            np.testing.assert_array_equal(np.asarray(t[k]), np.asarray(j[k].tolist()
+                                          if isinstance(j[k], np.ndarray) else j[k]))
+    talgo.learner.set_weights(jalgo.learner.get_weights())
+    want, got = jalgo.train(), talgo.train()
+    loss = "bc_loss" if kind == "BC" else "marwil_loss"
+    _close(got[loss], want[loss], f"{kind} {fmt} loss")
+    assert got["num_offline_rows"] == want["num_offline_rows"] == 80
+    _close(talgo.learner.get_weights(), _np(jalgo.learner.params), f"{kind} {fmt} params")
+
+
 def test_what_reads_offline_shards_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    """What reading offline shards refuses, as JAX does: a directory with
+    no shards, and an offline algorithm built without an input path."""
+    import ray_tpu_torch
+
+    with pytest.raises(FileNotFoundError, match="no files matched"):
         offline.read_samples(str(tmp_path))
     for config in (offline.BCConfig(), offline.MARWILConfig()):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            config.environment("CartPole-v1").offline_data(
-                input_path=str(tmp_path)).resources(device="cpu").build()
+        with pytest.raises(ValueError, match="input_path"):
+            config.environment("CartPole-v1").resources(device="cpu").build()
+    assert not ray_tpu_torch.is_initialized()
     config = offline.MARWILConfig().training(beta=0.5, gamma=0.9, lr=3e-4)
     assert (config.beta, config.gamma, config.lr) == (0.5, 0.9, 3e-4)
     assert config.algo_class is offline.MARWIL

@@ -13,6 +13,8 @@ and the dp LearnerGroup on four gloo ranks matches JAX's learner group on
 four devices of its CPU mesh.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -569,23 +571,78 @@ def test_obs_normalizer_state_survives_save_restore(tmp_path):
 
 
 def test_what_needs_the_runtime_raises():
-    """What the port has not ported raises: CQL's offline reader is item
-    10b, and configs that contradict themselves are errors. Remote runners
-    and learners no longer raise: with the runtime down, building them
-    starts a cluster (`test_remote_ppo_across_processes_matches_jax`)."""
+    """Configs that contradict themselves are errors, and raise before any
+    runtime starts. Remote runners and learners no longer raise: with the
+    runtime down, building them starts a cluster
+    (`test_remote_ppo_across_processes_matches_jax`); CQL reads its shards
+    through the data layer (`test_cql_trains_on_a_recorded_replay_as_jax`)."""
     import ray_tpu_torch
 
     if ray_tpu_torch.is_initialized():
         ray_tpu_torch.shutdown()
     base = lambda: ppo.PPOConfig().environment("CartPole-v1").resources(device="cpu")  # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        cql.CQLConfig().environment("Pendulum-v1").offline_data(
-            input_path="unused").resources(device="cpu").build()
+    with pytest.raises(ValueError, match="input_path"):
+        cql.CQLConfig().environment("Pendulum-v1").resources(device="cpu").build()
     with pytest.raises(ValueError, match="remote_learners"):
         base().learners(remote_learners=True).build()
     with pytest.raises(ValueError, match="continuous"):
         sac.SACConfig().environment("CartPole-v1").resources(device="cpu").build()
     assert not ray_tpu_torch.is_initialized()
+
+
+@pytest.mark.parametrize("fmt", ["json", "parquet"])
+def test_cql_trains_on_a_recorded_replay_as_jax(fmt, tmp_path):
+    """A JAX SAC's replay, recorded by each package's `record_replay` (the
+    same shards), read back by each package's CQL through its data layer
+    (the same rows), and one CQL iteration from JAX's initial state under
+    JAX's noise: metrics and params within 1e-5. Each runtime runs in local
+    mode and is shut down before the next starts."""
+    import ray_tpu
+    import ray_tpu_torch
+
+    sac_algo = (jsac.SACConfig().environment("Pendulum-v1")
+                .env_runners(num_envs_per_env_runner=2, rollout_fragment_length=32)
+                .debugging(seed=0).build())
+    sac_algo.train()
+    paths = {name: mod.record_replay(sac_algo, str(tmp_path / name), fmt=fmt)
+             for name, mod in (("jax", jcql), ("port", cql))}
+    sac_algo.stop()
+    shards = {name: sorted(os.listdir(p)) for name, p in paths.items()}
+    assert len(shards["jax"]) == len(shards["port"]) == 1
+    if fmt == "json":
+        assert (open(os.path.join(paths["jax"], shards["jax"][0])).read()
+                == open(os.path.join(paths["port"], shards["port"][0])).read())
+
+    def build(rt, mod, path):
+        rt.init(local_mode=True)
+        try:
+            config = (mod.CQLConfig().environment("Pendulum-v1").offline_data(input_path=path)
+                      .training(num_updates_per_iteration=1, train_batch_size=32)
+                      .debugging(seed=0))
+            if mod is cql:
+                config = config.resources(device="cpu")
+            return config.build()
+        finally:
+            rt.shutdown()
+
+    jalgo = build(ray_tpu, jcql, paths["jax"])
+    talgo = build(ray_tpu_torch, cql, paths["port"])
+    for k, v in jalgo._data.items():
+        np.testing.assert_array_equal(talgo._data[k], v, err_msg=k)
+    assert len(jalgo._data["obs"]) == 64
+    jl, tl = jalgo.learner, talgo.learner
+    js = jl.get_state()
+    tl.set_state({k: js[k] for k in ("actor", "critic", "target_critic", "log_alpha")})
+    idx = np.random.default_rng(0).integers(0, 64, 32)
+    noise = _cql_noise(jl, {k: v[idx] for k, v in jalgo._data.items()})
+    update = tl.update
+    tl.update = lambda batch, noise_=None: update(batch, noise)
+    want, got = jalgo.train(), talgo.train()
+    keys = ("critic_loss", "cql_penalty", "actor_loss", "alpha", "entropy")
+    _close({k: got[k] for k in keys}, {k: want[k] for k in keys}, "cql metrics")
+    state = tl.get_state()
+    for name in ("actor", "critic", "target_critic", "log_alpha"):
+        _close(state[name], _np(getattr(jl, name)), f"cql {name}")
 
 
 # -- remote runners and learner actors in worker processes -------------------

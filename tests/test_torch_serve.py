@@ -98,7 +98,12 @@ KNOBS = ("address", "kv_block_size", "kv_block_count", "kv_block_prefix_sharing"
          "elastic_backoff_jitter", "elastic_grow_check_s",
          "train_obs_enabled", "train_obs_push_s", "train_obs_gauge_ttl_s",
          "train_obs_window_steps", "train_obs_trace_steps",
-         "train_obs_peak_flops")
+         "train_obs_peak_flops",
+         # the data layer's streaming executor
+         "data_stream_enabled", "data_stream_window_bytes",
+         "data_stream_op_inflight_bytes", "data_stream_prefetch_depth",
+         "data_stream_shuffle_fanout", "data_stream_spill_threshold",
+         "data_stream_stall_timeout_s")
 
 
 @pytest.fixture(scope="module")
