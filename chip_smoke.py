@@ -55,7 +55,8 @@ Run from a checkout of the repository on a machine with a Hopper card
    cut after its first burst, its `export_streams` ticket imported into a
    second engine by `import_prefix`, and the stream resumed there must
    give the uninterrupted tokens;
-8. this slice's main path at llama3-8b on phase 6's weights: (a)
+8. this slice's main path at llama3-8b's widths on the first
+   LLAMA_SLICE_LAYERS (8) of phase 6's 32 layers: (a)
    `PagedLLMEngine` (8 slots, max_len 2048, knob defaults) with
    speculation_k 4 and, in turns, without: 8 concurrent greedy requests
    whose prompts repeat a random 64-token segment 2-8 times, 64 new tokens
@@ -122,7 +123,8 @@ Run from a checkout of the repository on a machine with a Hopper card
    at sp 1 within CP_REF_TOL;
 14. expert parallelism and tensor-parallel serving at world 1, each part
    on a world-1 group it starts and destroys: (b) right after phase 8, on
-   its llama3-8b weights: `LLMEngine(mesh=...)` over a tp mesh of one rank
+   its llama3-8b weights (LLAMA_SLICE_LAYERS, 8 layers):
+   `LLMEngine(mesh=...)` over a tp mesh of one rank
    in turns with `LLMEngine()` (plain, mesh, mesh, plain) on phase 8b's
    traffic and a decode round at width 8: greedy tokens equal over the
    turns and held to `forward` as in phase 6; TTFT, decode tokens/s, a
@@ -262,8 +264,26 @@ Run from a checkout of the repository on a machine with a Hopper card
    peak; (c) PPO's CartPole rollouts and a SAC Pendulum replay recorded
    as JSON shards, read back by `read_samples` (rows read = rows
    written), BC and MARWIL trained 3 iterations and CQL 2 on the card
-   (ms an iteration, finite metrics). A "phase seconds" line then gives
-   each phase group's wall clock.
+   (ms an iteration, finite metrics).
+23. several nodes on one host (`multi_node_phase`): a
+   `cluster_utils.Cluster` whose head has no GPU and a second node
+   (`add_node(num_gpus=1)`) that holds the card; (a) phase 4's step in a
+   num_gpus=1 actor on the second node (its CUDA_VISIBLE_DEVICES "0") in
+   turns with the direct step, losses bit-equal, 2L / L / L launches a
+   step counted there, then its params (1.744 GiB) across the two daemons
+   both ways, bit-equal, with GiB/s, and both nodes' stores back at their
+   baselines once the driver drops them; (b) a client proxy on the head and
+   `init("ray-tpu://...")`: a num_gpus=1 actor's 2 steps equal (a)'s, and
+   200 no-op calls through the client beside a connected driver's; (c)
+   `chaos.NodeKiller` SIGKILLs the GPU node under (b)'s live actor (short
+   health-check knobs for this cluster only), seen through the client:
+   seconds to the dead node,
+   to the actor-died error, to the card's used memory back within 512
+   MiB, and to a replacement node's first step, whose loss equals (a)'s;
+   (d) a num_gpus=1 task in a pip runtime env (a local package, nothing
+   downloaded) runs `flash_attention` forward and backward at bench-350m's
+   shape in its venv worker, within KERNEL_TOLERANCE, 1/1/1 launches. A
+   "phase seconds" line then gives each phase group's wall clock.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -277,13 +297,17 @@ as `launches_ulysses`, of 14a's mesh steps as
 `launches_bench_350m_actor_train`, of 19b's worker-process actor steps
 as `launches_bench_350m_cluster_actor_train`, of phase 20's replica as
 `launches_llama3_8b_serve_replica`, of 21a's trainer steps as
-`launches_bench_350m_trainer` and of 22a's steps fed by the data layer
-as `launches_bench_350m_data_ingest`), and {"ok": true,
+`launches_bench_350m_trainer`, of 22a's steps fed by the data layer
+as `launches_bench_350m_data_ingest`, of 23a's steps on a second node as
+`launches_bench_350m_multi_node`, of 23b's through the client as
+`launches_bench_350m_client` and of 23d's venv call as
+`launches_pip_env_attention`), and {"ok": true,
 "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
@@ -374,6 +398,10 @@ REMAT_GRAD_TOL = 1e-6
 # GB, fit the card too, at ~60 s more).
 MIXTRAL_TRAIN_LAYERS = 2
 MIXTRAL_SERVE_LAYERS = 8
+# Phases 8 and 14b serve llama3-8b's first LLAMA_SLICE_LAYERS layers of
+# phase 6's weights (all 32 before phase 23 existed: cut to keep the
+# script in its time budget; phase 6 serves all 32).
+LLAMA_SLICE_LAYERS = 8
 
 
 def log(msg: str) -> None:
@@ -1381,14 +1409,15 @@ def _verify_least_ms(cfg, entries, k: int) -> list:
             for e in entries]
 
 
-def serve_slice_main_path(torch, models, attention, params, seed: int, card: str) -> dict:
-    """Phase 8: this slice's main path at llama3-8b on phase 6's bf16 weights
-    (see the module docstring)."""
+def serve_slice_main_path(torch, models, attention, params, cfg, seed: int,
+                          card: str) -> dict:
+    """Phase 8: this slice's main path at llama3-8b's widths on phase 6's
+    bf16 weights, its first LLAMA_SLICE_LAYERS layers (`cfg`; see the module
+    docstring)."""
     import numpy as np
 
     from ray_tpu_torch.serve import LLMEngine, PagedLLMEngine
 
-    cfg = models.configs.LLAMA3_8B
     num_slots, max_len, new_tokens = 8, 2048, 64
     torch.cuda.empty_cache()
     log(f"serve [{card}]: phase 8 starts with "
@@ -2312,7 +2341,8 @@ def moe_mesh_path(torch, models, attention, mesh, steps: int, seed: int,
 
 def tp_engine_phase(torch, models, attention, params, cfg, seed: int, card: str,
                     label: str, plain_turns: bool, teacher=forward_teacher) -> dict:
-    """Phase 14b (llama3-8b on phase 8's weights) and 14c (mixtral-8x7b on
+    """Phase 14b (llama3-8b's first LLAMA_SLICE_LAYERS layers, phase 8's
+    weights) and 14c (mixtral-8x7b on
     phase 11b's, `teacher` its dropless re-prefill): the fixed-slot
     `LLMEngine(mesh=...)` over a tp mesh of a world-1 group it starts (and
     destroys when done), 8 slots, max_len 2048, on phase 8b's traffic, then
@@ -3015,6 +3045,7 @@ class Bench350mTrainer:
         from ray_tpu_torch import models
 
         init_fn, self._step = bench_train_step(models, cfg, device)
+        self.device = device
         self.state = init_fn(torch.Generator(device=device).manual_seed(seed))
 
     def step(self, tokens) -> tuple:
@@ -3310,14 +3341,38 @@ class WorkerBench350mTrainer(Bench350mTrainer):
         loss, host_ms = self.step(tokens)
         return loss, host_ms, {n: attention.launches[n] - seen[n] for n in seen}
 
+    def check_params(self, params) -> tuple:
+        """(this host's wall clock when the method started, tensors that
+        differ from this actor's own params or lie elsewhere) for params
+        passed as the argument: the worker fetched them before the call."""
+        import torch
+
+        from ray_tpu_torch import models
+
+        started = time.time()
+        mine = models.training.tree_leaves(self.state.params)
+        got = models.training.tree_leaves(params)
+        bad = sum(1 for g, p in zip(got, mine)
+                  if g.device != p.device or g.dtype != p.dtype or not torch.equal(g, p))
+        return started, bad + abs(len(got) - len(mine))
+
+    def step_from_host(self, tokens) -> tuple:
+        """`step_counted` on tokens sent from the host (a client's driver
+        holds no card), moved to this actor's device first."""
+        return self.step_counted(tokens.to(self.device))
+
     def whereabouts(self) -> dict:
         import torch
 
         from ray_tpu_torch import models
         from ray_tpu_torch.core.distributed import worker_main
 
+        import ray_tpu_torch as rt
+
         leaves = models.training.tree_leaves(self.state.params)
         return {"pid": os.getpid(), "started_by": worker_main.STARTED_BY,
+                "node_id": rt.get_runtime_context().get_node_id(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
                 "torch_at_boot": worker_main.TORCH_AT_BOOT,
                 "device": str(leaves[0].device) if leaves else None,
                 "cuda_devices": torch.cuda.device_count(),
@@ -3358,7 +3413,7 @@ class WorkerBench350mTrainer(Bench350mTrainer):
 
 def cluster_train_turns(torch, models, attention, rt, steps: int, seed: int, card: str,
                         cfg=None, batch: int = 8, seq: int = 2048,
-                        device: str = "cuda") -> tuple:
+                        device: str = "cuda", label: str = "19b") -> tuple:
     """Phase 19b: phase 4's train step inside a num_gpus=1 actor in a worker
     process, in turns with the direct step here on a state of its own from
     the same seed, on phase 4's batches. The worker's launch counters are
@@ -3410,15 +3465,15 @@ def cluster_train_turns(torch, models, attention, rt, steps: int, seed: int, car
             run["losses"].append(loss)
             run["launches_per_step"].append(launched)
         d, a = runs["direct"], runs["actor"]
-        log(f"19b step {i}: loss {d['losses'][i]:.6f} direct {d['step_ms'][i]:.1f} ms "
+        log(f"{label} step {i}: loss {d['losses'][i]:.6f} direct {d['step_ms'][i]:.1f} ms "
             f"(host {d['host_ms'][i]:.1f}), worker actor {a['step_ms'][i]:.1f} ms (host "
             f"{a['host_ms'][i]:.1f}); worker launches {a['launches_per_step'][i]}")
         if a["losses"][i] != d["losses"][i] or not math.isfinite(d["losses"][i]):
-            raise AssertionError(f"19b step {i}: the worker actor's loss {a['losses'][i]!r} "
+            raise AssertionError(f"{label} step {i}: the worker actor's loss {a['losses'][i]!r} "
                                  f"is not the direct step's {d['losses'][i]!r}")
         for who, run in runs.items():
             if run["launches_per_step"][i] != expected:
-                raise AssertionError(f"19b step {i}: {who} launches "
+                raise AssertionError(f"{label} step {i}: {who} launches "
                                      f"{run['launches_per_step'][i]} != {expected}")
     totals = {"direct": dict(attention.launches), "actor": rt.get(actor.launches.remote())}
     out = {"config": cfg.name, "batch": batch, "seq": seq, "steps": steps,
@@ -3427,7 +3482,7 @@ def cluster_train_turns(torch, models, attention, rt, steps: int, seed: int, car
         run["launches"] = {n: sum(c[n] for c in run["launches_per_step"])
                            for n in totals[who]}
         if totals[who] != run["launches"]:
-            raise AssertionError(f"19b: {who} launches outside the steps: {totals[who]}")
+            raise AssertionError(f"{label}: {who} launches outside the steps: {totals[who]}")
         run["median_step_ms"] = statistics.median(run["step_ms"][1:] or run["step_ms"])
         run["median_host_ms"] = statistics.median(run["host_ms"][1:] or run["host_ms"])
     pairs = [a - d for a, d in zip(runs["actor"]["step_ms"][1:], runs["direct"]["step_ms"][1:])]
@@ -3436,8 +3491,8 @@ def cluster_train_turns(torch, models, attention, rt, steps: int, seed: int, car
     out["runtime_adds_ms_paired_median"] = statistics.median(pairs) if pairs else None
     if where["foreign_modules"] or where["device"] != (
             "cuda:0" if device == "cuda" else "cpu"):
-        raise AssertionError(f"19b: the worker actor is not what it should be: {where}")
-    log(f"19b [{card}]: {cfg.name} {batch} x {seq}, {steps} steps in turns, the actor in "
+        raise AssertionError(f"{label}: the worker actor is not what it should be: {where}")
+    log(f"{label} [{card}]: {cfg.name} {batch} x {seq}, {steps} steps in turns, the actor in "
         f"worker process {where['pid']} ({where['started_by']}: "
         f"{'forked by the zygote' if where['started_by'] == 'zygote' else 'cold-spawned'}, "
         f"torch loaded at boot: {where['torch_at_boot']}; ready in "
@@ -3555,15 +3610,16 @@ def _host_state(torch) -> dict:
     return out
 
 
-def _dump_node_logs(rt, lines: int = 25) -> None:
-    """The tail of every log file of this cluster's node (the zygote's, the
-    workers'), and its processes, printed for a failure."""
+def _dump_node_logs(rt, lines: int = 25, node_ids=None) -> None:
+    """The tail of every log file of this cluster's nodes (the zygotes', the
+    workers'; the driver's node unless `node_ids` names them), and their
+    processes, printed for a failure."""
     import subprocess
 
     from ray_tpu_torch.util.profiling import node_log_dir
 
     try:
-        node_ids = [rt.api._worker.node_id]
+        node_ids = list(node_ids or [rt.api._worker.node_id])
     except Exception:  # noqa: BLE001 the runtime may be gone
         node_ids = []
     log_root = os.path.dirname(node_log_dir("x" * 12))
@@ -4584,6 +4640,453 @@ def data_plane_phase(torch, models, attention, seed: int, card: str, rt, referen
     return out
 
 
+MULTI_NODE_STEPS = 4
+# Phase 23c's fault-detection knobs, for its cluster only (the values
+# tests/test_elastic_train.py:238-239 uses).
+MULTI_NODE_HEALTH = {"RAY_TPU_HEALTH_CHECK_PERIOD_MS": "500",
+                     "RAY_TPU_HEALTH_CHECK_FAILURE_THRESHOLD": "3"}
+# 23c: the card's used memory must come back within this of its value
+# before 23a once the GPU node is dead.
+CARD_MEMORY_SLACK = 512 << 20
+# Each phase-23 node's object store: room for 23a's params twice over
+# (cluster_utils' 256 MiB default would push them out of shared memory).
+MULTI_NODE_STORE = 8 << 30
+
+PIP_PROBE_SETUP = """from setuptools import setup
+setup(name="chip_pip_probe", version="0.1", py_modules=["chip_pip_probe"])
+"""
+PIP_PROBE_MODULE = '''"""A package that phase 23d installs into a runtime env's venv."""
+import sys
+
+
+def where():
+    return sys.executable
+'''
+
+
+def _card_used(torch, device: str):
+    """Bytes in use on the card, all processes (None off the card)."""
+    if device != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def _until(pred, timeout: float, period: float = 0.05) -> float:
+    """Seconds until `pred()` holds; raises after `timeout`."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"not within {timeout} s: {pred.__doc__ or pred}")
+        time.sleep(period)
+    return time.perf_counter() - t0
+
+
+def pip_env_attention(seed: int, b: int, t: int, h: int, d: int, device: str) -> dict:
+    """Phase 23d's task, in a pip runtime env's venv worker: import the
+    package the env installed, run `flash_attention` forward and backward
+    (bf16, causal) with this process's own launch counts, then hold each
+    kernel against its plain version on the same inputs within
+    KERNEL_TOLERANCE, as phase 2 does."""
+    import math as _math
+    import os as _os
+    import sys as _sys
+
+    import torch
+
+    import chip_pip_probe
+    from ray_tpu_torch.core.distributed import worker_main
+    from ray_tpu_torch.ops import attention
+
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device=device, dtype=dtype)
+                   for _ in range(4))
+    attention.reset_launches()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = attention.flash_attention(*leaves, causal=True)
+    o.backward(do)
+    launches = dict(attention.launches)
+    finite = all(bool(torch.isfinite(x).all()) for x in [o] + [x.grad for x in leaves])
+    kw = dict(causal=True, sm_scale=1.0 / _math.sqrt(d))
+    tols = attention.KERNEL_TOLERANCE
+    tol = tols["bf16" if device == "cuda" else "fp32"]
+    o_ref, lse_ref = attention.fa_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
+    stats = (q, k, v, do, lse_ref, delta)
+    o_k, lse_k = attention.fa_fwd(q, k, v, **kw)
+    dk, dv = attention.fa_bwd_dkv(*stats, **kw)
+    dk_ref, dv_ref = attention.fa_bwd_dkv_plain(*stats, **kw)
+    errors = {"fa_fwd": max(max_err(o_k, o_ref, tol), max_err(lse_k, lse_ref, tols["lse"])),
+              "fa_bwd_dq": max_err(attention.fa_bwd_dq(*stats, **kw),
+                                   attention.fa_bwd_dq_plain(*stats, **kw), tol),
+              "fa_bwd_dkv": max(max_err(dk, dk_ref, tol), max_err(dv, dv_ref, tol))}
+    return {"launches": launches, "errors": errors, "finite": finite,
+            # flash_attention's forward is fa_fwd on the same inputs.
+            "forward_same": bool(torch.equal(o.detach(), o_k)),
+            "python": _sys.executable, "package_python": chip_pip_probe.where(),
+            "visible": _os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "torch_at_boot": worker_main.TORCH_AT_BOOT}
+
+
+def cross_node_put_get(torch, models, rt, actor, direct_params, card: str,
+                       device: str = "cuda") -> dict:
+    """Phase 23a: the params across the two daemons, each way bit-equal.
+    The driver (on the head) puts the direct step's params and passes the
+    ref to the actor on the second node as its argument, so the actor's
+    worker pulls them across before its method starts (the method reports
+    when, on this one host's wall clock); then the actor returns its own
+    params, which land in its node's store, and the driver's `get` pulls
+    them across. The driver owns both objects, so dropping them frees
+    every copy at once (a ref nested in a message would stay pinned for
+    the ownership protocol's transit grace)."""
+    leaves_want = models.training.tree_leaves(direct_params)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves_want)
+    gib = nbytes / 2**30
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    ref = rt.put(direct_params)
+    put_s = time.perf_counter() - t0
+    submitted = time.time()
+    started, bad_there = rt.get(actor.check_params.remote(ref))
+    pull_s = started - submitted
+    del ref
+    t0 = time.perf_counter()
+    ref = actor.params.remote()
+    rt.wait([ref], fetch_local=False)
+    worker_put_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = rt.get(ref)
+    _sync(torch, device)
+    get_s = time.perf_counter() - t0
+    leaves = models.training.tree_leaves(params)
+    dev = torch.device(device, 0) if device == "cuda" else torch.device("cpu")
+    bad_here = sum(1 for g, p in zip(leaves, leaves_want)
+                   if g.device != dev or g.dtype != p.dtype or not torch.equal(g, p))
+    del ref, params, leaves
+    out = {"params": sum(t.numel() for t in leaves_want), "bytes": nbytes,
+           "driver_put_s": put_s, "worker_pull_s": pull_s,
+           "worker_return_s": worker_put_s, "driver_get_s": get_s,
+           "driver_to_worker": {"put_gib_per_s": gib / put_s,
+                                "get_gib_per_s": gib / pull_s},
+           "worker_to_driver": {"put_gib_per_s": gib / worker_put_s,
+                                "get_gib_per_s": gib / get_s}}
+    log(f"23a [{card}]: {out['params'] / 1e6:.1f} M params ({gib:.3f} GiB) across the "
+        f"daemons: put on the head {put_s * 1e3:.1f} ms "
+        f"({out['driver_to_worker']['put_gib_per_s']:.2f} GiB/s), pulled by the actor's "
+        f"worker on the second node {pull_s * 1e3:.1f} ms "
+        f"({out['driver_to_worker']['get_gib_per_s']:.2f} GiB/s); the actor's return "
+        f"stored there {worker_put_s * 1e3:.1f} ms "
+        f"({out['worker_to_driver']['put_gib_per_s']:.2f} GiB/s), pulled here "
+        f"{get_s * 1e3:.1f} ms ({out['worker_to_driver']['get_gib_per_s']:.2f} GiB/s); "
+        f"bit-equal at both ends")
+    if bad_here or bad_there:
+        raise AssertionError(f"23a: {bad_here} tensors here and {bad_there} in the worker "
+                             f"came back changed or elsewhere")
+    return out
+
+
+def _node_store(rt, node) -> tuple:
+    """A node's object store as its daemon reports it: (used bytes, objects)."""
+    from ray_tpu_torch.core.distributed.rpc import SyncRpcClient
+
+    client = SyncRpcClient(node.address, rt.api._global_worker().loop_thread)
+    try:
+        stats = client.call("NodeDaemon", "node_stats", timeout=10)
+    finally:
+        client.close()
+    return stats["store_used"], stats["store_objects"]
+
+
+def _card_returned(rt, timeout: float = 60.0) -> None:
+    """Wait until the cluster shows its GPU free again after an actor on
+    it was killed (its worker exits, the daemon returns the lease), so the
+    next GPU actor is placed at once rather than after a retry."""
+    _until(lambda: rt.available_resources().get("GPU", 0.0) >= 1.0, timeout, 0.05)
+
+
+def _zygote_ping(node_id: str) -> dict:
+    """The default zygote's own report (threads, torch loaded, CUDA and the
+    driver initialised or not) over its socket in the node's log dir."""
+    import socket
+
+    from ray_tpu_torch.util.profiling import node_log_dir
+
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as sock:
+        sock.settimeout(10)
+        sock.connect(os.path.join(node_log_dir(node_id), "zygote-default.sock"))
+        sock.sendall(b'{"op": "ping"}\n')
+        return json.loads(sock.makefile().readline())
+
+
+def _wait_zygote(node_id: str, timeout: float = 120.0) -> float:
+    """Seconds until a node's default zygote answers its ping: a worker
+    asked for before then is cold-started beside the zygote's own torch
+    import (the daemon waits zygote_boot_wait_s for it)."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            _zygote_ping(node_id)
+            return time.perf_counter() - t0
+        except OSError:
+            if time.perf_counter() - t0 > timeout:
+                raise
+            time.sleep(0.1)
+
+
+def multi_node_phase(torch, models, attention, seed: int, card: str, cfg=None,
+                     device: str = "cuda", batch: int = 8, seq: int = 2048,
+                     steps: int = MULTI_NODE_STEPS) -> dict:
+    """Phase 23: several nodes on one host (`cluster_utils.Cluster`): a head
+    without GPUs and a second node that holds the card. (a) phase 4's step
+    in a num_gpus=1 actor on the second node in turns with the direct step,
+    and its params across the two daemons both ways; (b) the ray-tpu://
+    client; (c) the GPU node SIGKILLed by `chaos.NodeKiller`, then replaced;
+    (d) a pip runtime env's venv worker through the kernels."""
+    import subprocess
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.distributed.driver import _read_handshake, child_env
+    from ray_tpu_torch.util import chaos
+
+    cfg = cfg or models.configs.BENCH_350M
+    if rt.is_initialized():
+        rt.shutdown()
+    if device == "cuda":
+        # One direct step first, so what this process keeps on the card
+        # after a step (its CUDA context, cuBLAS workspaces, the kernels'
+        # module) is in the baseline that 23c holds the card to.
+        init_fn, step_fn = bench_train_step(models, cfg, device)
+        state = init_fn(torch.Generator(device=device).manual_seed(seed))
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (batch, seq + 1), dtype=np.int32)).to(device)
+        state, _ = step_fn(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        del state, tokens, init_fn, step_fn
+        torch.cuda.empty_cache()
+    used_before = _card_used(torch, device)
+    saved = {k: os.environ.get(k) for k in MULTI_NODE_HEALTH}
+    os.environ.update(MULTI_NODE_HEALTH)
+    out = {"card_used_before_gib": None if used_before is None else used_before / 2**30}
+    t0 = time.perf_counter()
+    cluster = Cluster(head_node_args={"num_cpus": 4, "num_gpus": 0,
+                                      "object_store_memory": MULTI_NODE_STORE})
+    proxy = None
+    node_ids = [cluster.head.node_id]
+    try:
+        second = cluster.add_node(num_cpus=8, num_gpus=1,
+                                  object_store_memory=MULTI_NODE_STORE)
+        node_ids.append(second.node_id)
+        cluster.connect()
+        cluster.wait_for_nodes(2)
+        start_s = time.perf_counter() - t0
+        zygote_s = _wait_zygote(second.node_id)
+        res = rt.cluster_resources()
+        nodes = rt.nodes()
+        types = [k for k in res if k.startswith("accelerator_type:")]
+        by_node = {n["NodeID"]: n["Resources"] for n in nodes}
+        out["start"] = {"seconds": start_s, "zygote_s": zygote_s,
+                        "alive": sum(n["Alive"] for n in nodes), "cluster_resources": res}
+        log(f"23a [{card}]: Cluster(head num_gpus=0) + add_node(num_gpus=1) "
+            f"{start_s:.2f} s, the GPU node's zygote up {zygote_s:.2f} s later; "
+            f"cluster_resources() {res}; GPU on "
+            f"{[nid[:8] for nid, r in by_node.items() if r.get('GPU')]}")
+        if (out["start"]["alive"] != 2 or res.get("GPU") != 1.0
+                or by_node[cluster.head.node_id].get("GPU")
+                or by_node[second.node_id].get("GPU") != 1.0
+                or rt.get_runtime_context().get_node_id() != cluster.head.node_id):
+            raise AssertionError(f"23a: the card is not the second node's alone: {nodes}")
+        if device == "cuda" and (len(types) != 1 or types[0].split(":", 1)[1]
+                                 not in torch.cuda.get_device_name(0)
+                                 or not by_node[second.node_id].get(types[0])):
+            raise AssertionError(f"23a: no accelerator_type naming the card on the "
+                                 f"second node: {nodes}")
+
+        # (a) the step on the second node, its params across the daemons.
+        train, actor, state = cluster_train_turns(
+            torch, models, attention, rt, steps, seed, card, cfg=cfg, batch=batch,
+            seq=seq, device=device, label="23a")
+        where = train["worker"]
+        if where["node_id"] != second.node_id or where["visible"] != "0":
+            raise AssertionError(f"23a: the actor is not on the second node's card: {where}")
+        # The zygote has touched neither torch's CUDA state nor the
+        # driver, so a lease's CUDA_VISIBLE_DEVICES takes effect in the
+        # workers it forks (the actor may have been cold-started while
+        # the zygote still booted: `where["started_by"]` says which).
+        out["zygote"] = _zygote_ping(second.node_id)
+        log(f"23a [{card}]: the second node's zygote: {out['zygote']}")
+        if out["zygote"]["cuda_initialized"] or out["zygote"]["cuda_driver_initialized"]:
+            raise AssertionError(f"23a: the zygote broke its fork contract: {out['zygote']}")
+        out["actor_train"] = train
+        stores = (cluster.head, second)
+        baseline = [_node_store(rt, n) for n in stores]
+        out["put_get"] = cross_node_put_get(torch, models, rt, actor, state.params, card,
+                                            device=device)
+        del state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        # Every copy on both nodes freed once the driver's frees flush.
+        rt.api._global_worker().flush_frees()
+        _until(lambda: [_node_store(rt, n) for n in stores] == baseline, 30, 0.1)
+        rt.kill(actor)
+        _card_returned(rt)
+        out["stores"] = {"baseline": baseline, "after": [_node_store(rt, n) for n in stores]}
+        log(f"23a [{card}]: both stores back at their baselines (used bytes, objects) "
+            f"{baseline} after the frees")
+        losses = train["actor"]["losses"]
+
+        # (b) the client: a proxy process hosts a driver on the head.
+        out["round_trips"] = {"driver": round_trips(rt, 200)}
+        proxy = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.util.client.server",
+             "--address", cluster.address, "--port", "0"],
+            stdout=subprocess.PIPE, env=child_env())
+        port = _read_handshake(proxy, r"CLIENT_PROXY_PORT=(?P<port>\d+)",
+                               "client proxy")["port"]
+        rt.shutdown()
+        rt.init(f"ray-tpu://127.0.0.1:{port}")
+        if type(rt.api._worker).__name__ != "ClientWorker":
+            raise AssertionError("23b: init('ray-tpu://...') did not make a client")
+        corpus = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (2, batch, seq + 1), dtype=np.int32))
+        t0 = time.perf_counter()
+        remote = rt.remote(num_gpus=1)(WorkerBench350mTrainer).remote(cfg, seed, device)
+        client_where = rt.get(remote.whereabouts.remote(), timeout=600)
+        client = {"ready_s": time.perf_counter() - t0, "worker": client_where,
+                  "losses": [], "launches_per_step": []}
+        rt.get(remote.reset_launches.remote())
+        for i in range(2):
+            loss, _, launched = rt.get(remote.step_from_host.remote(corpus[i]))
+            client["losses"].append(loss)
+            client["launches_per_step"].append(launched)
+        client["launches"] = rt.get(remote.launches.remote())
+        out["round_trips"]["client"] = round_trips(rt, 200)
+        out["client"] = client
+        expected = train["actor"]["launches_per_step"][0]
+        d, c = out["round_trips"]["driver"], out["round_trips"]["client"]
+        log(f"23b [{card}]: through init('ray-tpu://127.0.0.1:{port}'): the actor on "
+            f"node {client_where['node_id'][:8]} (ready {client['ready_s']:.2f} s), "
+            f"losses {client['losses']} (23a's {losses[:2]}), launches "
+            f"{client['launches_per_step']}; no-op actor call {c['actor_call_us']:.0f} us "
+            f"median through the client vs {d['actor_call_us']:.0f} us from a connected "
+            f"driver (tasks {c['task_us']:.0f} vs {d['task_us']:.0f} us)")
+        if (client["losses"] != losses[:2]
+                or client["launches_per_step"] != [expected] * 2
+                or client_where["node_id"] != second.node_id):
+            raise AssertionError(f"23b: the client's steps differ from 23a's: {client}")
+
+        # (c) the GPU node killed under 23b's live actor (still through the
+        # client, whose proxy runs on the head), then replaced.
+        victim = remote
+        used_live = _card_used(torch, device)
+        killer = chaos.NodeKiller(cluster, interval_s=0.05, seed=seed, max_kills=1)
+        killer.start()
+        _until(lambda: killer.kills, 30, 0.005)
+        t_kill = time.perf_counter()
+        killer.stop()
+        if killer.kills != [second.node_id]:
+            raise AssertionError(f"23c: NodeKiller killed {killer.kills}")
+        loss_s = {}
+        _until(lambda: not any(n["Alive"] for n in rt.nodes()
+                               if n["NodeID"] == second.node_id), 60)
+        loss_s["node_dead_s"] = time.perf_counter() - t_kill
+
+        def actor_died() -> bool:
+            try:
+                rt.get(victim.launches.remote(), timeout=2)
+            except rt.exceptions.ActorDiedError:
+                return True
+            except (rt.exceptions.ActorUnavailableError, rt.exceptions.GetTimeoutError):
+                return False
+            return False
+
+        _until(actor_died, 90, 0.05)
+        loss_s["actor_died_s"] = time.perf_counter() - t_kill
+        if used_before is not None:
+            _until(lambda: _card_used(torch, device) <= used_before + CARD_MEMORY_SLACK,
+                   60, 0.02)
+            loss_s["card_memory_back_s"] = time.perf_counter() - t_kill
+        third = cluster.add_node(num_cpus=8, num_gpus=1,
+                                 object_store_memory=MULTI_NODE_STORE)
+        node_ids.append(third.node_id)
+        cluster.wait_for_nodes(2)
+        _wait_zygote(third.node_id)
+        again = rt.remote(num_gpus=1)(WorkerBench350mTrainer).remote(cfg, seed, device)
+        resumed, _, launched = rt.get(again.step_from_host.remote(corpus[0]))
+        loss_s["kill_to_next_step_s"] = time.perf_counter() - t_kill
+        where_again = rt.get(again.whereabouts.remote())
+        rt.kill(again)
+        _card_returned(rt)
+        rt.shutdown()
+        proxy.terminate()
+        proxy.wait(timeout=30)
+        proxy = None
+        cluster.connect()
+        out["node_loss"] = {**loss_s, "card_used_live_gib":
+                            None if used_live is None else used_live / 2**30,
+                            "card_used_after_gib": None if used_before is None
+                            else _card_used(torch, device) / 2**30,
+                            "replacement_loss": resumed, "replacement": where_again,
+                            "replacement_launches": launched}
+        log(f"23c [{card}]: NodeKiller SIGKILLed the GPU node under 23b's actor; seen "
+            f"through the client: dead in nodes() after "
+            f"{loss_s['node_dead_s']:.2f} s, the actor-died error after "
+            f"{loss_s['actor_died_s']:.2f} s, the card's used memory back within "
+            f"{CARD_MEMORY_SLACK >> 20} MiB of its {out['card_used_before_gib']} GiB after "
+            f"{loss_s.get('card_memory_back_s')} s (it was "
+            f"{out['node_loss']['card_used_live_gib']} GiB live); a replacement node's "
+            f"actor took its first step {loss_s['kill_to_next_step_s']:.2f} s after the "
+            f"kill, loss {resumed} (23a's first {losses[0]})")
+        if resumed != losses[0] or launched != expected or where_again["node_id"] != third.node_id:
+            raise AssertionError(f"23c: the replacement's first step differs: "
+                                 f"{out['node_loss']}")
+
+        # (d) a pip runtime env's venv worker through the kernels.
+        import tempfile
+
+        pkg = tempfile.mkdtemp(prefix="chip_pip_probe_")
+        with open(os.path.join(pkg, "setup.py"), "w") as f:
+            f.write(PIP_PROBE_SETUP)
+        with open(os.path.join(pkg, "chip_pip_probe.py"), "w") as f:
+            f.write(PIP_PROBE_MODULE)
+        shape = (batch, seq, cfg.n_heads, cfg.d_model // cfg.n_heads)
+        t0 = time.perf_counter()
+        task = rt.remote(num_gpus=1, runtime_env={"pip": [pkg]})(pip_env_attention)
+        venv = rt.get(task.remote(seed, *shape, device), timeout=900)
+        venv["seconds"] = time.perf_counter() - t0
+        out["pip_env"] = venv
+        shutil.rmtree(pkg, ignore_errors=True)
+        per_call = {n: (1 if device == "cuda" else 0) for n in KERNELS}
+        log(f"23d [{card}]: a num_gpus=1 task in a pip env (venv python "
+            f"{venv['python']}, torch at boot {venv['torch_at_boot']}, "
+            f"CUDA_VISIBLE_DEVICES={venv['visible']}) ran flash_attention forward and "
+            f"backward at {shape} in {venv['seconds']:.1f} s with the venv's build: "
+            f"launches {venv['launches']}; each kernel against its plain version "
+            f"(max |diff|, tolerance share) {venv['errors']}")
+        if (venv["launches"] != per_call or "venv" not in venv["python"]
+                or venv["package_python"] != venv["python"] or not venv["finite"]
+                or not venv["forward_same"]):
+            raise AssertionError(f"23d: the venv worker did not run the kernels: {venv}")
+    except BaseException:
+        log(f"23 [{card}]: failed; host now: {_host_state(torch)}")
+        _dump_node_logs(rt, node_ids=node_ids)
+        raise
+    finally:
+        if proxy is not None:
+            proxy.kill()
+            proxy.wait(timeout=30)
+        cluster.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
 def import_and_rllib_phase(torch, models, attention, seed: int, card: str) -> dict:
     """Phases 15 and 16."""
     return {"tiny_padded": tiny_padded(torch, models, attention, card),
@@ -4638,14 +5141,20 @@ def main() -> int:
     marks.append(('5-6 serving', time.perf_counter()))
     slice_ref = check_serving_slice(torch, models, card)
     log("serving slice reference: " + json.dumps(slice_ref))
-    slice_run = serve_slice_main_path(torch, models, attention, params, args.seed, card)
+    # Phases 8 and 14b: llama3-8b's widths at LLAMA_SLICE_LAYERS layers,
+    # views of phase 6's weights.
+    slice_cfg = dataclasses.replace(models.configs.LLAMA3_8B, n_layers=LLAMA_SLICE_LAYERS)
+    slice_params = {**params, "blocks": {k: v[:LLAMA_SLICE_LAYERS]
+                                         for k, v in params["blocks"].items()}}
+    slice_run = serve_slice_main_path(torch, models, attention, slice_params, slice_cfg,
+                                      args.seed, card)
     log("serving slice main path: " + json.dumps(slice_run))
     marks.append(('7-8 serving slice', time.perf_counter()))
-    tp_llama = tp_engine_phase(torch, models, attention, params, models.configs.LLAMA3_8B,
+    tp_llama = tp_engine_phase(torch, models, attention, slice_params, slice_cfg,
                                args.seed, card, "14b", plain_turns=True)
     log("14b tensor-parallel LLMEngine: " + json.dumps(tp_llama))
     marks.append(('14b', time.perf_counter()))
-    del params
+    del params, slice_params
     torch.cuda.empty_cache()
     moe_ref = check_remat_and_moe_reference(torch, models, card, full_grads)
     del full_grads
@@ -4702,6 +5211,10 @@ def main() -> int:
     log(f"22 data plane ({data['phase_s']:.1f} s; 21-22 {time.perf_counter() - t0:.1f} s): "
         + json.dumps(data))
     marks.append(("21-22", time.perf_counter()))
+    t0 = time.perf_counter()
+    nodes = multi_node_phase(torch, models, attention, args.seed, card)
+    log(f"23 several nodes ({time.perf_counter() - t0:.1f} s): " + json.dumps(nodes))
+    marks.append(("23", time.perf_counter()))
     log("phase seconds: " + json.dumps(
         {name: round(t - prev, 1) for (_, prev), (name, t) in zip(marks, marks[1:])}
         | {"total": round(marks[-1][1] - marks[0][1], 1)}))
@@ -4746,6 +5259,13 @@ def main() -> int:
             # Phase 22a: the steps in TorchTrainer's worker fed by
             # StreamingIngest through iter_device_batches, counted there.
             "launches_bench_350m_data_ingest": data["ingest"]["launches"][name],
+            # Phase 23a: the steps in a num_gpus=1 actor on the cluster's
+            # second node, counted by that worker; 23b's through the
+            # ray-tpu:// client; 23d's call in a pip env's venv worker.
+            "launches_bench_350m_multi_node":
+                nodes["actor_train"]["launches"][name],
+            "launches_bench_350m_client": nodes["client"]["launches"][name],
+            "launches_pip_env_attention": nodes["pip_env"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

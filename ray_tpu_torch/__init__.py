@@ -25,9 +25,11 @@ shared-memory object store): `init()` starts such a cluster and
 and `experimental` (the shared-memory channel rings); and `train`'s
 plane (`TorchTrainer`, worker groups, sessions, DCP checkpoints, the
 elastic supervisor, train observability) with `util`'s chaos, state and
-timeline readers. Multi-node clusters and the client (ROADMAP queue A,
-item 10a-iii), the DAG layer (10c-ii) and tune (10d-ii) are not ported
-yet.
+timeline readers; several nodes on one host (`cluster_utils`, node chaos),
+one card per GPU lease, the `ray-tpu://` client (`util/client`) and pip,
+conda and container runtime envs. Cross-language calls and the GPU gang
+(ROADMAP queue A, item 10a-iv), the DAG layer (10c-ii) and tune (10d-ii)
+are not ported yet.
 
 A bare `import ray_tpu_torch` stays light, as `import ray_tpu` does: the
 subpackages (`models`, `ops`, `serve`, ...) import on first touch, so the

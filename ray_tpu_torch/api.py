@@ -4,8 +4,9 @@ counterpart of `ray_tpu/api.py`.
 `init(local_mode=True)` builds the in-process `LocalCoreWorker`; `init()`
 starts a single-host cluster (GCS, node daemon, zygote workers, shared-memory
 store) through `core/distributed/driver.py`, and `init(address=...)` or
-`RAY_TPU_ADDRESS` joins a running ray_tpu_torch cluster. The `ray-tpu://`
-client and `register_cross_lang` raise: they are ROADMAP item 10a-iii.
+`RAY_TPU_ADDRESS` joins a running ray_tpu_torch cluster, and
+`init("ray-tpu://host:port")` drives one through its client proxy
+(`util/client`). `register_cross_lang` raises: it is ROADMAP item 10a-iv.
 `shutdown` writes no usage snapshot yet (item 10d; `util/usage_stats`
 records library usage in memory).
 
@@ -46,7 +47,7 @@ def _set_global_worker(worker) -> None:
 
 
 _NOT_PORTED = ("ray_tpu_torch has not ported it yet (ROADMAP queue A, "
-               "item 10a-iii)")
+               "item 10a-iv)")
 
 
 def init(
@@ -70,8 +71,9 @@ def init(
       workers) and connect to it.
     - ``address="host:port"``: connect to an existing ray_tpu_torch head.
     - ``local_mode=True``: run everything in-process (debugging).
-    - ``address="ray-tpu://..."`` drives a cluster through its client
-      proxy: raises NotImplementedError (ROADMAP item 10a-iii).
+    - ``address="ray-tpu://host:port"``: thin-client mode, every driver
+      call forwarded to the cluster's client proxy
+      (``python -m ray_tpu_torch.util.client.server``).
     """
     global _worker
     if address is None:
@@ -88,10 +90,12 @@ def init(
                 "ray_tpu_torch.init() has already been called. Pass "
                 "ignore_reinit_error=True to ignore.")
         if address is not None and address.startswith("ray-tpu://"):
-            raise NotImplementedError(
-                f"init({address!r}): the ray-tpu:// client proxy: "
-                f"{_NOT_PORTED}")
-        if local_mode:
+            # Thin-client mode: drive a remote cluster through its client
+            # proxy (ref: ray.init("ray://host:port") → Ray Client).
+            from ray_tpu_torch.util.client import ClientWorker
+
+            _worker = ClientWorker(address)
+        elif local_mode:
             from ray_tpu_torch.core.local_engine import LocalCoreWorker
 
             _worker = LocalCoreWorker(num_cpus=num_cpus)
@@ -203,7 +207,7 @@ def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
 def register_cross_lang(name: str, func) -> None:
     """Expose a Python function to non-Python clients by name (ref: the
     reference's cross-language function registry). Raises: the C++ client
-    that resolves it is ROADMAP item 10a-iii."""
+    that resolves it is ROADMAP item 10a-iv."""
     raise NotImplementedError(
         f"register_cross_lang({name!r}): the cross-language registry: "
         f"{_NOT_PORTED}")

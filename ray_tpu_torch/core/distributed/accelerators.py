@@ -11,15 +11,18 @@ Behaviour parity with the reference's NVIDIAGPUAcceleratorManager
 - a task or actor asks for a fraction of one GPU (up to 1) or a whole
   number of them;
 - a worker granted GPU ids sees exactly those through
-  ``CUDA_VISIBLE_DEVICES``.
+  ``CUDA_VISIBLE_DEVICES``: the node daemon grants ids from its
+  `ChipAllocator` with each lease and starts (or forks) the lease's worker
+  with `visible_chip_env` of them, before anything in it touches CUDA.
 
 Nothing here probes the CUDA driver: `resources.py` counts the cards in a
 time-boxed subprocess and passes the name in.
 """
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 VISIBLE_DEVICES_ENV = "CUDA_VISIBLE_DEVICES"
 
@@ -51,7 +54,62 @@ def validate_chip_request(quantity: float) -> Tuple[bool, Optional[str]]:
         f"to 1) or a whole number of GPUs")
 
 
-def visible_chip_env(chip_ids: List[int]) -> Dict[str, str]:
+def visible_chip_env(chip_ids: Sequence) -> Dict[str, str]:
     """The env var that scopes a worker process to its granted GPUs."""
     return {VISIBLE_DEVICES_ENV: ",".join(str(i) for i in chip_ids)}
 
+
+
+def granted_chip_ids() -> List[int]:
+    """The GPU ids ``CUDA_VISIBLE_DEVICES`` lists: the daemon sets it to a
+    GPU lease's cards; a process without one lists what its node's own
+    environment sets (usually nothing: empty)."""
+    value = os.environ.get(VISIBLE_DEVICES_ENV, "")
+    return [int(x) for x in value.split(",") if x.strip().isdigit()]
+
+
+class ChipAllocator:
+    """Which cards of a node each lease holds (ref: the raylet's GPU
+    instance accounting, resource_instance_set.h). Each card has a share
+    of 1.0: a request up to 1 takes that much of one card (fractional
+    leases share it), a whole count takes that many free cards. An id is
+    never granted beyond its share, and `release` gives it back."""
+
+    EPS = 1e-9
+
+    def __init__(self, count: int = 0):
+        self.free = [1.0] * int(count)
+
+    def acquire(self, quantity: float,
+                prefer: Iterable[Sequence[int]] = ()
+                ) -> Optional[Tuple[int, ...]]:
+        """Ids for a request of `quantity` GPUs (empty for none), or None
+        when no card set fits. A `prefer`red set that fits wins (the ids
+        an idle worker already sees), then the lowest ids."""
+        q = float(quantity or 0.0)
+        if q <= self.EPS:
+            return ()
+        need = 1 if q <= 1 else int(round(q))
+        share = min(q, 1.0)
+
+        def fits(ids) -> bool:
+            return (len(ids) == need and len(set(ids)) == need
+                    and all(0 <= i < len(self.free)
+                            and self.free[i] + self.EPS >= share
+                            for i in ids))
+
+        chosen = next((tuple(ids) for ids in prefer if fits(ids)), None)
+        if chosen is None:
+            ids = [i for i, f in enumerate(self.free)
+                   if f + self.EPS >= share][:need]
+            chosen = tuple(ids) if fits(ids) else None
+        if chosen is not None:
+            for i in chosen:
+                self.free[i] -= share
+        return chosen
+
+    def release(self, ids: Sequence[int], quantity: float) -> None:
+        share = min(float(quantity or 0.0), 1.0)
+        for i in ids:
+            if 0 <= i < len(self.free):
+                self.free[i] = min(1.0, self.free[i] + share)

@@ -33,6 +33,8 @@ from ray_tpu_torch.core.config import get_config
 from ray_tpu_torch.core.ids import ObjectID
 from ray_tpu_torch.core.object_store import ObjectExistsError, ObjectStore
 from ray_tpu_torch.core.distributed import resources as rs
+from ray_tpu_torch.core.distributed.accelerators import (
+    ChipAllocator, visible_chip_env)
 from ray_tpu_torch.core.distributed.rpc import AsyncRpcClient, RpcServer
 from ray_tpu_torch.core.distributed.transfer import (
     ChunkSink, chunk_ranges, make_transfer_metrics, plan_broadcast_tree)
@@ -53,7 +55,7 @@ ZYGOTE_BOOT_LIMIT_S = 120.0
 
 class WorkerHandle:
     def __init__(self, proc: subprocess.Popen, worker_id: str,
-                 env_key: str = ""):
+                 env_key: str = "", gpu_ids: Tuple[int, ...] = ()):
         self.proc = proc
         self.worker_id = worker_id
         self.address: Optional[str] = None      # set on register
@@ -61,10 +63,27 @@ class WorkerHandle:
         self.actor_id: Optional[str] = None
         self.job_id: Optional[str] = None       # last lease's job (logs)
         self.env_key = env_key        # runtime-env identity of this worker
+        # The card ids its CUDA_VISIBLE_DEVICES was started with (none:
+        # the node's own view, for leases without GPUs). Fixed for the
+        # process's life: CUDA reads the variable once, so the pool is
+        # keyed by them.
+        self.gpu_ids = tuple(gpu_ids)
+        # (runtime, container_name) for containerized workers: the Popen
+        # is only the podman/docker CLIENT — killing it leaves the
+        # container running, so teardown must kill by name.
+        self.container: Optional[Tuple[str, str]] = None
         self.last_idle = time.monotonic()
         self.registered = asyncio.Event()
 
     def kill(self, term: bool = False) -> None:
+        """Stop this worker INCLUDING its container, if any."""
+        if self.container is not None:
+            runtime, name = self.container
+            try:
+                subprocess.run([runtime, "kill", name],
+                               capture_output=True, timeout=20)
+            except Exception:  # noqa: BLE001 best effort
+                pass
         try:
             (self.proc.terminate if term else self.proc.kill)()
         except Exception:  # noqa: BLE001
@@ -74,11 +93,16 @@ class WorkerHandle:
 class Lease:
     def __init__(self, lease_id: str, demand: rs.ResourceSet,
                  worker: WorkerHandle,
-                 placement: Optional[Tuple[str, int]]):
+                 placement: Optional[Tuple[str, int]],
+                 gpu_ids: Tuple[int, ...] = ()):
         self.lease_id = lease_id
         self.demand = demand
         self.worker = worker
         self.placement = placement
+        # The cards this lease holds and its GPU count: kept while a
+        # pinned lease gives its demand back, so no id is granted twice.
+        self.gpu_ids = gpu_ids
+        self.gpu_quantity = demand.get("GPU", 0.0)
         self.granted_at = time.monotonic()
 
 
@@ -181,6 +205,7 @@ class NodeDaemon:
         self._resource_args = (num_cpus, num_gpus, custom_resources)
         self.total: Dict[str, float] = {}
         self.available: Dict[str, float] = {}
+        self._gpus = ChipAllocator(0)    # sized with the resources
         self.labels = labels or {}
         self.store_dir = store_dir or f"/dev/shm/raytpu_{self.node_id[:12]}"
         self.store = ObjectStore(self.store_dir,
@@ -271,6 +296,7 @@ class NodeDaemon:
             None, lambda: rs.detect_node_resources(num_cpus, num_gpus,
                                                    custom=custom))
         self.available = dict(self.total)
+        self._gpus = ChipAllocator(int(self.total.get("GPU", 0)))
         self._soft_limit = int(get_config().num_workers_soft_limit
                                or self.total.get("CPU", 1))
         # GCS load attribution: the daemon's default identity is its
@@ -602,12 +628,41 @@ class NodeDaemon:
     # -- zygote fork path (ref: worker_pool.h:347 PrestartWorkers;
     # worker_zygote.py docstring for the fork-safety contract) ---------
     def _zygote_compatible(self, built_env) -> bool:
-        """Fork is only equivalent to a cold spawn on Linux (every env
-        the port builds runs this interpreter in this mount namespace)."""
+        """Fork is only equivalent to a cold spawn when the child would
+        run THIS platform's python in this mount namespace."""
         if not get_config().zygote_enabled:
             return False
-        # fork+threads semantics unsafe elsewhere
-        return sys.platform.startswith("linux")
+        if not sys.platform.startswith("linux"):
+            return False  # fork+threads semantics unsafe elsewhere
+        if built_env is None:
+            return True
+        if built_env.container:
+            return False  # worker lives in another mount/pid namespace
+        if built_env.python != sys.executable:
+            return False  # conda/venv env: different interpreter binary
+        return True
+
+    def _visible_env(self, gpu_ids) -> Dict[str, str]:
+        """The env that scopes a worker to a lease's card ids (none for no
+        ids): ids index the cards this node sees, which are the host's own
+        unless the daemon itself was started scoped."""
+        if not gpu_ids:
+            return {}
+        node_cards = [c for c in os.environ.get(
+            "CUDA_VISIBLE_DEVICES", "").split(",") if c.strip()]
+        if len(node_cards) >= len(self._gpus.free):
+            return visible_chip_env([node_cards[i] for i in gpu_ids])
+        return visible_chip_env(list(gpu_ids))
+
+    def _acquire_gpus(self, demand, env_key: str):
+        """Card ids for a lease's GPU demand, preferring a set an idle
+        worker of this env already sees (so it can be reused), or None
+        when no set of cards fits."""
+        if demand.get("GPU", 0.0) <= rs.EPS:
+            return ()
+        prefer = [h.gpu_ids for h in self._idle
+                  if h.env_key == env_key and h.gpu_ids]
+        return self._gpus.acquire(demand["GPU"], prefer)
 
     def _zygote_socket_path(self, env_key: str) -> str:
         return os.path.join(self.log_dir,
@@ -679,7 +734,8 @@ class NodeDaemon:
             await asyncio.sleep(0.02)
 
     def _try_fork_worker(self, actor_id: Optional[str], built_env,
-                         env_key: str) -> Optional[WorkerHandle]:
+                         env_key: str, gpu_ids=()
+                         ) -> Optional[WorkerHandle]:
         zh = self._ensure_zygote(env_key, built_env)
         if zh is None:
             return None
@@ -690,7 +746,10 @@ class NodeDaemon:
         try:
             # No wait here: this runs on the daemon's loop. Callers that
             # can wait do so first, in _await_zygote.
-            proc = zh.fork_worker(worker_id, out, err, boot_wait=0.0)
+            # The child sets CUDA_VISIBLE_DEVICES before it imports
+            # anything that could touch the driver (the zygote never has).
+            proc = zh.fork_worker(worker_id, out, err, boot_wait=0.0,
+                                  env=self._visible_env(gpu_ids))
         except ZygoteBooting:
             if time.monotonic() - zh.started_at < ZYGOTE_BOOT_LIMIT_S:
                 return None
@@ -712,27 +771,34 @@ class NodeDaemon:
         self._m_fork_latency.observe(time.monotonic() - t0)
         self._m_forked.inc()
         self._m_spawned.inc()
-        handle = WorkerHandle(proc, worker_id, env_key=env_key)
+        handle = WorkerHandle(proc, worker_id, env_key=env_key,
+                              gpu_ids=gpu_ids)
         handle.actor_id = actor_id
         self._workers[worker_id] = handle
         return handle
 
     def _spawn_worker(self, actor_id: Optional[str] = None,
-                      built_env=None, env_key: str = "") -> WorkerHandle:
+                      built_env=None, env_key: str = "",
+                      gpu_ids=()) -> WorkerHandle:
         if self._zygote_compatible(built_env):
-            handle = self._try_fork_worker(actor_id, built_env, env_key)
+            handle = self._try_fork_worker(actor_id, built_env, env_key,
+                                           gpu_ids)
             if handle is not None:
                 return handle
-        return self._cold_spawn_worker(actor_id, built_env, env_key)
+        return self._cold_spawn_worker(actor_id, built_env, env_key,
+                                       gpu_ids)
 
     def _cold_spawn_worker(self, actor_id: Optional[str] = None,
                            built_env=None,
-                           env_key: str = "") -> WorkerHandle:
+                           env_key: str = "",
+                           gpu_ids=()) -> WorkerHandle:
         from ray_tpu_torch.core.distributed.driver import child_env
 
         worker_id = uuid.uuid4().hex
         env = child_env()
         env["RAY_TPU_WORKER_ID"] = worker_id
+        env.update(self._visible_env(gpu_ids))
+        python = sys.executable
         cwd = None
         if built_env is not None:
             env.update(built_env.env_vars)
@@ -740,15 +806,24 @@ class NodeDaemon:
                 env["PYTHONPATH"] = ":".join(
                     built_env.pythonpath
                     + [p for p in env.get("PYTHONPATH", "").split(":") if p])
+            python = built_env.python
             cwd = built_env.cwd
         cmd = [
-            sys.executable, "-m", "ray_tpu_torch.core.distributed.worker_main",
+            python, "-m", "ray_tpu_torch.core.distributed.worker_main",
             "--gcs-address", self.gcs_address,
             "--daemon-address", self.server.address,
             "--node-id", self.node_id,
             "--store-dir", self.store_dir,
             "--worker-id", worker_id,
         ]
+        container_name = None
+        if built_env is not None and built_env.container:
+            # Container plugin: the worker runs inside podman/docker;
+            # env/cwd must ride the run flags, not Popen's env, and the
+            # container is named so teardown can kill IT (killing the
+            # client process leaves the container running).
+            container_name = f"rtpu-worker-{worker_id[:16]}"
+            cmd = built_env.wrap_command(cmd, env, name=container_name)
         # Per-worker log files; the LogMonitor tails them to the GCS
         # (ref: worker stdout/stderr files under session logs,
         # node.py:1042 + log_monitor.py tailing).
@@ -769,8 +844,11 @@ class NodeDaemon:
             err_f.close()
         self._m_spawned.inc()
         self._m_cold_spawned.inc()
-        handle = WorkerHandle(proc, worker_id, env_key=env_key)
+        handle = WorkerHandle(proc, worker_id, env_key=env_key,
+                              gpu_ids=gpu_ids)
         handle.actor_id = actor_id
+        if container_name is not None:
+            handle.container = (built_env.container[0], container_name)
         self._workers[worker_id] = handle
         return handle
 
@@ -972,6 +1050,7 @@ class NodeDaemon:
             "busy_workers": sum(1 for h in self._workers.values()
                                 if h.busy),
             "pg_bundles": len(self._pg_bundles),
+            "gpu_free": list(self._gpus.free),
             "pg_bundles_uncommitted": sum(
                 1 for b in self._pg_bundles.values()
                 if not b.get("committed", True)),
@@ -1055,44 +1134,49 @@ class NodeDaemon:
             self._pump_lease_queue()
         return {"ok": True}
 
-    def _take_idle_worker(self, env_key: str) -> Optional[WorkerHandle]:
-        """Pop a live, registered, env-matching idle worker — or None.
+    def _take_idle_worker(self, env_key: str,
+                          gpu_ids=()) -> Optional[WorkerHandle]:
+        """Pop a live, registered idle worker of this env that sees exactly
+        these cards — or None. A worker never changes the cards it sees
+        (CUDA reads the variable once), so the pool is keyed by both.
         Non-matching idlers keep their front-to-back (longest-idle-
         first) order, same discipline as _get_idle_worker."""
         kept = []
         found = None
+        gpu_ids = tuple(gpu_ids)
         while self._idle:
             handle = self._idle.popleft()
             if (_alive_now(handle.proc) and handle.address
                     and not handle.busy):
-                if handle.env_key == env_key:
+                if handle.env_key == env_key and handle.gpu_ids == gpu_ids:
                     found = handle
                     break
                 kept.append(handle)
         self._idle.extendleft(reversed(kept))
         return found
 
-    async def _get_idle_worker(self, runtime_env: Optional[dict] = None
-                               ) -> WorkerHandle:
+    async def _get_idle_worker(self, runtime_env: Optional[dict] = None,
+                               gpu_ids=()) -> WorkerHandle:
         from ray_tpu_torch.runtime_env import env_hash
 
         env_key = env_hash(runtime_env)
         # Other-env idlers go back to the FRONT in their original order:
         # _reap_idle_workers assumes self._idle[0] is the longest-idle
         # worker, and these were popped from the front.
-        found = self._take_idle_worker(env_key)
+        found = self._take_idle_worker(env_key, gpu_ids)
         if found is not None:
             return found
         built = await self._built_env(runtime_env)
         await self._await_zygote(env_key, built)
-        found = self._take_idle_worker(env_key)
+        found = self._take_idle_worker(env_key, gpu_ids)
         if found is not None:
             return found
         # Spawn a fresh one and wait for registration — polling the
         # process too: a worker that dies pre-registration (crash, chaos
         # kill) must fail the grant within ~0.1 s, not pin the subtracted
         # resources for the full registration timeout.
-        handle = self._spawn_worker(built_env=built, env_key=env_key)
+        handle = self._spawn_worker(built_env=built, env_key=env_key,
+                                    gpu_ids=gpu_ids)
         loop = asyncio.get_running_loop()
         deadline = loop.time() + get_config().worker_register_timeout_s
         while True:
@@ -1658,22 +1742,35 @@ class NodeDaemon:
         from ray_tpu_torch.core.distributed.runtime_env_agent import (
             RuntimeEnvBuildError)
 
+        from ray_tpu_torch.runtime_env import env_hash
+
+        gpu_ids = self._acquire_gpus(demand, env_hash(runtime_env))
+        if gpu_ids is None:
+            # The GPU count fits but no set of cards does (fractional
+            # shares spread over them): retry once some are returned.
+            self._release_demand(demand, placement)
+            return {"granted": False, "transient": True,
+                    "error": f"no set of cards fits GPU={demand['GPU']} "
+                             f"(free shares {self._gpus.free})"}
         try:
-            worker = await self._get_idle_worker(runtime_env)
+            worker = await self._get_idle_worker(runtime_env, gpu_ids)
         except RuntimeEnvBuildError as e:
             # Definitive: a broken runtime_env spec will not fix itself —
             # the client must fail fast, not retry-rebuild for minutes.
             self._release_demand(demand, placement)
+            self._gpus.release(gpu_ids, demand.get("GPU", 0.0))
             return {"granted": False, "transient": False, "error": str(e)}
         except Exception as e:  # noqa: BLE001
             # Roll back the resource subtraction. Worker-start failures
             # are transient (crash/chaos/slow start) — the resources are
             # back, so the client should retry, not give up.
             self._release_demand(demand, placement)
+            self._gpus.release(gpu_ids, demand.get("GPU", 0.0))
             return {"granted": False, "transient": True, "error": str(e)}
         worker.busy = True
         lease_id = uuid.uuid4().hex
-        self._leases[lease_id] = Lease(lease_id, demand, worker, placement)
+        self._leases[lease_id] = Lease(lease_id, demand, worker, placement,
+                                       gpu_ids)
         self._m_leases.inc()
         if self.syncer is not None:
             self.syncer.mark_dirty()  # availability changed: sync promptly
@@ -1711,6 +1808,7 @@ class NodeDaemon:
             return
         self._ledger(f"return:{lease_id[:8]}", lease.demand)
         self._release_demand(lease.demand, lease.placement)
+        self._gpus.release(lease.gpu_ids, lease.gpu_quantity)
         worker = lease.worker
         if _alive_now(worker.proc) and worker.actor_id is None:
             worker.busy = False
@@ -1930,38 +2028,48 @@ class NodeDaemon:
             if not rs.fits(self.available, demand):
                 return {"ok": False, "error": "insufficient resources"}
             rs.subtract(self.available, demand)
+        from ray_tpu_torch.runtime_env import env_hash
+
+        env_key = env_hash(runtime_env)
+        gpu_ids = self._acquire_gpus(demand, env_key)
+        if gpu_ids is None:
+            self._release_demand(demand, placement)
+            return {"ok": False, "error": "insufficient resources: no set "
+                                          "of cards fits the GPU demand"}
+
+        def undo() -> None:
+            self._release_demand(demand, placement)
+            self._gpus.release(gpu_ids, demand.get("GPU", 0.0))
 
         try:
             built = await self._built_env(runtime_env)
         except asyncio.CancelledError:
             # Client deadline mid-build: roll back and let cancellation
             # propagate — it is not a creation verdict.
-            self._release_demand(demand, placement)
+            undo()
             raise
         except Exception as e:  # noqa: BLE001
-            self._release_demand(demand, placement)
+            undo()
             return {"ok": False,
                     "error": f"runtime_env build failed: {e}",
                     "creation_error": True}
-        from ray_tpu_torch.runtime_env import env_hash
-
-        env_key = env_hash(runtime_env)
         # Warm-pool fast path (ref: the reference pops actor-creation
         # workers from the same pool as task workers): an idle, already-
         # registered worker of the right env skips spawn + registration
         # entirely — actor readiness becomes one create_actor RPC.
-        handle = self._take_idle_worker(env_key)
+        handle = self._take_idle_worker(env_key, gpu_ids)
         if handle is not None:
             handle.actor_id = actor_id
         else:
             await self._await_zygote(env_key, built)
-            handle = self._take_idle_worker(env_key)
+            handle = self._take_idle_worker(env_key, gpu_ids)
             if handle is not None:
                 handle.actor_id = actor_id
             else:
                 handle = self._spawn_worker(actor_id=actor_id,
                                             built_env=built,
-                                            env_key=env_key)
+                                            env_key=env_key,
+                                            gpu_ids=gpu_ids)
         self._maybe_refill_warm_pool(env_key, built)
         loop = asyncio.get_running_loop()
         deadline = loop.time() + get_config().worker_register_timeout_s
@@ -1973,7 +2081,7 @@ class NodeDaemon:
                         or loop.time() >= deadline):
                     handle.kill()
                     self._workers.pop(handle.worker_id, None)
-                    self._release_demand(demand, placement)
+                    undo()
                     return {"ok": False,
                             "error": "actor worker failed to start"}
         handle.busy = True
@@ -1986,17 +2094,23 @@ class NodeDaemon:
                 max_concurrency=max_concurrency,
                 concurrency_groups=concurrency_groups,
                 timeout=get_config().actor_creation_timeout_s)
+        except BaseException:
+            handle.kill()
+            self._workers.pop(handle.worker_id, None)
+            undo()
+            raise
         finally:
             await client.close()
         if not reply.get("ok"):
             handle.kill()
             self._workers.pop(handle.worker_id, None)
-            self._release_demand(demand, placement)
+            undo()
             return {"ok": False, "error": reply.get("error"),
                     "creation_error": True}
-        # Track so the demand is returned if/when the actor dies.
+        # Track so the demand (and the cards) return if/when the actor dies.
         lease_id = f"actor-{actor_id}"
-        self._leases[lease_id] = Lease(lease_id, demand, handle, placement)
+        self._leases[lease_id] = Lease(lease_id, demand, handle, placement,
+                                       gpu_ids)
         return {"ok": True, "worker_address": handle.address}
 
     async def kill_worker(self, worker_address: str) -> dict:

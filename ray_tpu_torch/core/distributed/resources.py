@@ -118,6 +118,30 @@ def probe_gpus(timeout_s: Optional[float] = None) -> Tuple[int, str]:
     return _gpu_probe_cache
 
 
+def probe_gpu_name(timeout_s: float = 10.0) -> str:
+    """The model name of the first card this node sees, from `nvidia-smi`
+    (which reads it without initialising CUDA), or "" when there is no
+    nvidia-smi or no card. For a node whose GPU count is given, not
+    probed: its cards still advertise their ``accelerator_type``."""
+    import os
+    import shutil
+    import subprocess
+
+    exe = shutil.which("nvidia-smi")
+    if not exe:
+        return ""
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
+    try:
+        out = subprocess.run(
+            [exe, "--query-gpu=name", "--format=csv,noheader",
+             f"--id={first or 0}"],
+            capture_output=True, text=True, timeout=timeout_s)
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else ""
+
+
 def probe_gpu_count(timeout_s: Optional[float] = None) -> int:
     """Count local GPUs without ever blocking the caller (`probe_gpus`)."""
     return probe_gpus(timeout_s)[0]
@@ -129,7 +153,9 @@ def detect_node_resources(num_cpus: Optional[float] = None,
                           custom: Optional[ResourceSet] = None) -> ResourceSet:
     """Autodetect this host's resources: GPUs via a time-boxed probe, and
     the card's model as an ``accelerator_type:<model>`` resource (e.g.
-    ``accelerator_type:H100``, ref: nvidia_gpu.py's name parsing)."""
+    ``accelerator_type:H100``, ref: nvidia_gpu.py's name parsing). A given
+    `num_gpus` skips the probe (0 touches nothing of the cards); above 0
+    the model still comes from `probe_gpu_name`."""
     import os
 
     from ray_tpu_torch.core.distributed.accelerators import gpu_extra_resources
@@ -138,7 +164,8 @@ def detect_node_resources(num_cpus: Optional[float] = None,
     res["CPU"] = float(num_cpus if num_cpus is not None
                        else (os.cpu_count() or 1))
     if num_gpus is not None:
-        n, name = float(num_gpus), ""
+        n = float(num_gpus)
+        name = probe_gpu_name() if n > 0 else ""
     else:
         count, name = probe_gpus()
         n = float(count)

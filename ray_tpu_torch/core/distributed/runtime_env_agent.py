@@ -1,19 +1,23 @@
 """Node-side runtime-env builder (the runtime-env agent's job in the
 reference, which fate-shares with the raylet — here it lives inside the
 node daemon; ref: python/ray/runtime_env/ARCHITECTURE.md,
-_private/runtime_env/{working_dir.py,uri_cache.py}).
+_private/runtime_env/{pip.py,working_dir.py,uri_cache.py}).
 
 The port's copy of `ray_tpu/core/distributed/runtime_env_agent.py`,
-importing `ray_tpu_torch` only. It builds env_vars, working_dir,
-py_modules and plugin envs; pip, conda and container envs are refused
-by `ray_tpu_torch.runtime_env.normalize` (ROADMAP queue A, item 10a-iii).
+importing `ray_tpu_torch` only. Each node builds into its own cache
+directory (`node_env_dir`), so two daemons on one host never share a
+build and the JAX package's cross-daemon lock is not needed.
 
 Builds are cached by spec hash under the node's `<base>/<hash>/`:
     pkg/<uri-digest>/  extracted working_dir / py_modules archives
+    venv/              --system-site-packages venv when pip reqs exist
+    READY              marker: the venv build completed
+    conda/, CONDA_READY  a conda env created from a spec dict
     plugins/<path>/    each plugin's build directory
 
-`ensure_env` returns everything `_spawn_worker` needs: env vars,
-sys.path prepends, and the worker cwd.
+`ensure_env` returns everything `_spawn_worker` needs: env vars, the
+python executable, sys.path prepends, the worker cwd, and the container
+that wraps the worker command.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import io
 import logging
 import os
 import shutil
+import subprocess
+import sys
 import tempfile
 import zipfile
 from typing import Dict, List, Optional, Tuple
@@ -41,16 +47,56 @@ def node_env_dir(node_id: str) -> str:
 
 
 class RuntimeEnvBuildError(Exception):
-    """Definitive build failure (a missing package, a failing plugin):
-    callers must fail fast, not retry-rebuild."""
+    """Definitive build failure (bad pip spec, missing package, a failing
+    plugin): callers must fail fast, not retry-rebuild."""
 
 
 class BuiltEnv:
-    def __init__(self, env_vars: Dict[str, str], pythonpath: List[str],
-                 cwd: Optional[str]):
+    def __init__(self, env_vars: Dict[str, str], python: str,
+                 pythonpath: List[str], cwd: Optional[str],
+                 container: Optional[Tuple[str, List[str], str]] = None):
         self.env_vars = env_vars
+        self.python = python
         self.pythonpath = pythonpath
         self.cwd = cwd
+        # Container plugin: (runtime, run_options, image).
+        self.container = container
+
+    def wrap_command(self, cmd: List[str], env: Dict[str, str],
+                     name: Optional[str] = None) -> List[str]:
+        """Wrap the worker argv in `podman/docker run`. env/cwd given to
+        Popen only reach the container CLIENT process — everything the
+        worker needs must ride -e/-w/-v flags (ref: container.py's
+        podman command assembly). `name` makes the container killable by
+        the daemon (`podman kill <name>`) — signalling the client process
+        does NOT stop the container."""
+        if not self.container:
+            return cmd
+        runtime, run_options, image = self.container
+        flags: List[str] = []
+        if name:
+            flags += ["--name", name]
+        # The package checkout must exist at the same path inside.
+        import ray_tpu_torch as _rt
+
+        pkg_root = os.path.dirname(os.path.dirname(
+            os.path.abspath(_rt.__file__)))
+        flags += ["-v", f"{pkg_root}:{pkg_root}"]
+        # Every framework knob resolves from RAY_TPU_* env (config.py);
+        # non-container workers inherit ALL of os.environ — forward the
+        # same configuration surface, not a hand-picked subset (the
+        # lease's CUDA_VISIBLE_DEVICES included).
+        for key, val in env.items():
+            if key.startswith("RAY_TPU_") or key in (
+                    "PYTHONPATH", "CUDA_VISIBLE_DEVICES"):
+                flags += ["-e", f"{key}={val}"]
+        for k, v in self.env_vars.items():
+            flags += ["-e", f"{k}={v}"]
+        if self.cwd:
+            flags += ["-v", f"{self.cwd}:{self.cwd}", "-w", self.cwd]
+        return [runtime, "run", "--rm", "--network=host",
+                "-v", "/dev/shm:/dev/shm", "-v", "/tmp:/tmp",
+                *flags, *run_options, image] + cmd
 
 
 class RuntimeEnvBuilder:
@@ -136,6 +182,7 @@ class RuntimeEnvBuilder:
         env_vars = dict(env.get("env_vars") or {})
         pythonpath: List[str] = []
         cwd: Optional[str] = None
+        python = sys.executable
 
         pkg_dir = os.path.join(root, "pkg")
         os.makedirs(pkg_dir, exist_ok=True)
@@ -146,6 +193,12 @@ class RuntimeEnvBuilder:
         for uri in env.get("py_modules") or ():
             mod_dir = await self._fetch_pkg(uri, pkg_dir)
             pythonpath.append(mod_dir)
+        reqs = env.get("pip")
+        if reqs:
+            python = await self._build_venv(root, reqs)
+        conda = env.get("conda")
+        if conda:
+            python = await self._build_conda(root, conda)
 
         for path, value in (env.get("plugins") or {}).items():
             from ray_tpu_torch.runtime_env import load_plugin
@@ -174,4 +227,127 @@ class RuntimeEnvBuilder:
                 raise RuntimeEnvBuildError(
                     f"runtime_env plugin {path} failed: {e}") from e
             env_vars.update(add)
-        return BuiltEnv(env_vars, pythonpath, cwd)
+        spec = None
+        container = env.get("container")
+        if container:
+            spec = self._container_spec(container)
+        return BuiltEnv(env_vars, python, pythonpath, cwd, container=spec)
+
+    # -- conda plugin (ref: _private/runtime_env/conda.py) -------------
+    def _conda_exe(self) -> str:
+        # lint: allow-knob -- host toolchain discovery in the agent daemon, not a cluster knob
+        exe = os.environ.get("RAY_TPU_CONDA_EXE") or shutil.which("conda")
+        if not exe:
+            raise RuntimeEnvBuildError(
+                "runtime_env requests conda but no conda executable is "
+                "available (set RAY_TPU_CONDA_EXE or install conda)")
+        return exe
+
+    async def _build_conda(self, root: str, conda) -> str:
+        """Named env: resolve its python. Dict spec: create (cached by
+        the env hash, READY marker like the pip venv)."""
+        exe = self._conda_exe()
+        loop = asyncio.get_running_loop()
+        if isinstance(conda, str):
+            def resolve():
+                out = subprocess.run(
+                    [exe, "run", "-n", conda, "python", "-c",
+                     "import sys; print(sys.executable)"],
+                    capture_output=True, text=True, timeout=120)
+                lines = out.stdout.strip().splitlines()
+                if out.returncode != 0 or not lines:
+                    # Some conda versions swallow child stdout on rc=0 —
+                    # either way a clear build error, not an IndexError.
+                    raise RuntimeError(
+                        f"conda env {conda!r} unusable (rc="
+                        f"{out.returncode}): {out.stderr[-800:]}")
+                return lines[-1]
+
+            return await loop.run_in_executor(None, resolve)
+
+        env_dir = os.path.join(root, "conda")
+        python = os.path.join(env_dir, "bin", "python")
+        ready = os.path.join(root, "CONDA_READY")
+        if os.path.exists(ready) and os.path.exists(python):
+            return python
+
+        def create():
+            import json as _json
+
+            shutil.rmtree(env_dir, ignore_errors=True)
+            spec_path = os.path.join(root, "environment.json")
+            with open(spec_path, "w") as f:
+                _json.dump(conda, f)
+            out = subprocess.run(
+                [exe, "env", "create", "-p", env_dir, "-f", spec_path],
+                capture_output=True, text=True, timeout=1800)
+            if out.returncode != 0:
+                raise RuntimeError(
+                    f"conda env create failed: {out.stderr[-2000:]}")
+            with open(ready, "w") as f:
+                f.write("ok")
+
+        await loop.run_in_executor(None, create)
+        return python
+
+    # -- container plugin (ref: _private/runtime_env/container.py) -----
+    def _container_spec(self, container: dict
+                        ) -> Tuple[str, List[str], str]:
+        image = container.get("image")
+        if not image:
+            raise RuntimeEnvBuildError("container runtime_env needs "
+                                       "an 'image'")
+        # lint: allow-knob -- host toolchain discovery in the agent daemon, not a cluster knob
+        runtime = (os.environ.get("RAY_TPU_CONTAINER_RUNTIME")
+                   or shutil.which("podman") or shutil.which("docker"))
+        if not runtime:
+            raise RuntimeEnvBuildError(
+                "runtime_env requests a container but neither podman nor "
+                "docker is available (set RAY_TPU_CONTAINER_RUNTIME)")
+        return (runtime, [str(o) for o in container.get("run_options",
+                                                        ())], str(image))
+
+    async def _build_venv(self, root: str, reqs: List[str]) -> str:
+        """--system-site-packages venv + pip install (ref: pip.py builds
+        a virtualenv per requirements hash). Runs in a thread; serialized
+        per env by ensure_env's in-flight future."""
+        venv_dir = os.path.join(root, "venv")
+        python = os.path.join(venv_dir, "bin", "python")
+        ready = os.path.join(root, "READY")
+        if os.path.exists(ready) and os.path.exists(python):
+            return python
+
+        def build():
+            shutil.rmtree(venv_dir, ignore_errors=True)
+            subprocess.run(
+                [sys.executable, "-m", "venv", "--system-site-packages",
+                 venv_dir],
+                check=True, capture_output=True, timeout=300)
+            # When this process itself runs inside a venv,
+            # --system-site-packages exposes the BASE python's packages,
+            # not ours (torch may live in the parent venv). A .pth makes
+            # the parent's site-packages visible too; venv-local installs
+            # still take precedence on sys.path.
+            import site
+
+            parent_sites = [p for p in site.getsitepackages()
+                            if os.path.isdir(p)]
+            vsite = os.path.join(
+                venv_dir, "lib",
+                f"python{sys.version_info.major}.{sys.version_info.minor}",
+                "site-packages")
+            with open(os.path.join(vsite, "_raytpu_parent.pth"), "w") as f:
+                f.write("\n".join(parent_sites) + "\n")
+            out = subprocess.run(
+                [python, "-m", "pip", "install", "--no-input",
+                 "--disable-pip-version-check", "--no-build-isolation",
+                 *reqs],
+                capture_output=True, text=True, timeout=600)
+            if out.returncode != 0:
+                raise RuntimeError(
+                    f"pip install failed: {out.stderr[-2000:]}")
+            with open(ready, "w") as f:
+                f.write("ok")
+
+        await asyncio.get_running_loop().run_in_executor(None, build)
+        return python

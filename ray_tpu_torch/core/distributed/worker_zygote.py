@@ -31,7 +31,14 @@ Wire protocol (newline-delimited JSON over a unix stream socket):
     <- {"ok": true, "pid": 1234}
     -> {"op": "ping"}
     <- {"ok": true, "pid": .., "forks": N, "threads": 1,
-        "torch_loaded": true, "cuda_initialized": false}
+        "torch_loaded": true, "cuda_initialized": false,
+        "cuda_driver_initialized": false}
+
+A forked child sets the `env` it is sent (a lease's
+``CUDA_VISIBLE_DEVICES``) before anything in it touches CUDA; that holds
+only while the zygote has initialised neither torch's CUDA state nor the
+driver itself, and has never asked torch for a device count (torch caches
+it), which is what `ping` reports.
 """
 from __future__ import annotations
 
@@ -132,6 +139,25 @@ def _child_main(req: dict, args) -> None:
         os._exit(1)
 
 
+def cuda_driver_initialized() -> bool:
+    """Whether this process has initialised the CUDA driver (cuInit),
+    found without initialising it: before cuInit, cuDeviceGetCount
+    answers CUDA_ERROR_NOT_INITIALIZED (3). A process that has not even
+    mapped libcuda has not."""
+    try:
+        with open("/proc/self/maps") as f:
+            if "libcuda.so" not in f.read():
+                return False
+        import ctypes
+
+        lib = ctypes.CDLL("libcuda.so.1",
+                          mode=os.RTLD_NOLOAD | os.RTLD_LAZY)
+        count = ctypes.c_int()
+        return lib.cuDeviceGetCount(ctypes.byref(count)) != 3
+    except (OSError, AttributeError):
+        return False
+
+
 def _reap_children() -> None:
     """Collect exited fork children so liveness checks in the daemon
     (which reads /proc, not waitpid — it is not the parent) see them
@@ -226,7 +252,9 @@ def serve(args) -> None:
                                   "torch_loaded": torch is not None,
                                   "cuda_initialized": bool(
                                       torch is not None
-                                      and torch.cuda.is_initialized())})
+                                      and torch.cuda.is_initialized()),
+                                  "cuda_driver_initialized":
+                                      cuda_driver_initialized()})
                 elif op == "shutdown":
                     _reply(sock, {"ok": True})
                     os._exit(0)

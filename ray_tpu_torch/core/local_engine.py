@@ -23,7 +23,11 @@ Where it parts from the JAX package's local engine:
   on them (`bundle_labels`, `wait_placement_group`); there,
   ``placement_group()`` raises;
 - actor instances get no `__raytpu_apply__` (the compiled-DAG hook): the
-  DAG layer is ROADMAP queue A, item 10c-ii.
+  DAG layer is ROADMAP queue A, item 10c-ii;
+- a ref's release never waits on a lock (`_ref_removed`): it runs from
+  ``ObjectRef.__del__``, so from a garbage collection that any allocation
+  may start, also one inside the store's lock. There, the store's plain
+  lock deadlocks its own thread in that case.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import contextlib
 import inspect
 import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -63,11 +67,18 @@ def _as_caller(state: tuple):
         yield
 
 
+# How long a ref's release waits for the engine's lock before it leaves the
+# release to the lock's next holder (`LocalCoreWorker._ref_removed`).
+_RELEASE_LOCK_WAIT_S = 0.05
+
+
 class _Store:
     """In-memory object store with completion futures."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        # RLock: a collection started by an allocation inside this lock can
+        # run ObjectRef.__del__, which deletes from this store on this thread.
+        self._lock = threading.RLock()
         self._cond = threading.Condition(self._lock)
         self._data: Dict[ObjectID, bytes] = {}
         self._events: Dict[ObjectID, threading.Event] = {}
@@ -216,6 +227,8 @@ class LocalCoreWorker:
         # triggered while _ref_added already holds the lock on this thread.
         self._lock = threading.RLock()
         self._refcounts: Dict[ObjectID, int] = defaultdict(int)
+        # Releases that found the lock taken, done by its next holder.
+        self._dropped: deque = deque()
         # Stored object -> the refs serialized inside it, each counted once
         # for as long as the object is stored (ref: reference_count.h's
         # contained-in refs).
@@ -229,10 +242,32 @@ class LocalCoreWorker:
     # ---- reference counting ----
     def _ref_added(self, ref: ObjectRef) -> None:
         with self._lock:
+            self._release_dropped()
             self._refcounts[ref.id()] += 1
 
     def _ref_removed(self, ref: ObjectRef) -> None:
-        self._release(ref.id())
+        """Called from ObjectRef.__del__, so by whatever thread a collection
+        started on, maybe one that holds the store's lock while another
+        thread holds this one and waits for the store's. So it waits for
+        this lock a moment at most (not at all behind a release already
+        left over), and else leaves the release to the lock's next holder."""
+        behind = bool(self._dropped)
+        self._dropped.append(ref.id())
+        if (self._lock.acquire(blocking=False) if behind
+                else self._lock.acquire(timeout=_RELEASE_LOCK_WAIT_S)):
+            try:
+                self._release_dropped()
+            finally:
+                self._lock.release()
+
+    def _release_dropped(self) -> None:
+        """Do the releases left over; the caller holds the lock."""
+        while self._dropped:
+            try:
+                oid = self._dropped.popleft()
+            except IndexError:  # a nested call took the last one
+                return
+            self._release(oid)
 
     def _release(self, oid: ObjectID) -> None:
         with self._lock:

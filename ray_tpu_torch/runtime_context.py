@@ -3,7 +3,7 @@ copy of `ray_tpu/runtime_context.py`."""
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 
 class RuntimeContext:
@@ -21,6 +21,15 @@ class RuntimeContext:
 
     def get_pid(self) -> int:
         return os.getpid()
+
+    def get_gpu_ids(self) -> List[int]:
+        """The ids of the cards this worker's lease granted (ref:
+        ray.get_gpu_ids): the node daemon starts the worker with
+        ``CUDA_VISIBLE_DEVICES`` set to them."""
+        from ray_tpu_torch.core.distributed.accelerators import (
+            granted_chip_ids)
+
+        return granted_chip_ids()
 
     def get_actor_id(self) -> Optional[str]:
         return getattr(self._worker, "current_actor_id", None)

@@ -2,22 +2,31 @@
 port's copy of `ray_tpu/runtime_env.py`.
 
 Reference: python/ray/runtime_env/ARCHITECTURE.md + _private/runtime_env/
-(plugins working_dir.py, py_modules.py; URI cache uri_cache.py).
+(plugins pip.py, conda.py, container.py, working_dir.py, py_modules.py;
+URI cache uri_cache.py).
 Same split here: the DRIVER normalizes the spec (packs local dirs into
 content-addressed archives in the GCS KV), each NODE DAEMON builds envs
 on demand into a local cache keyed by the spec hash, and workers are
-spawned inside the built env (env vars, cwd, sys.path).
+spawned inside the built env (env vars, cwd, sys.path, venv python).
 
 Supported fields:
     env_vars:    {"NAME": "value"}                  (applied at spawn)
     working_dir: "/local/dir"  -> packed, extracted as the worker's cwd
                  (also first on sys.path)
     py_modules:  ["/local/pkg_dir_or_file.py", ...] -> packed, on sys.path
-    pip, conda, container: venv, conda and podman/docker envs are ROADMAP
-                 queue A, item 10a-iii; a spec that names one raises
-                 NotImplementedError
+    pip:         ["requests==...", "/local/pkg"]    -> venv with
+                 --system-site-packages (and the parent's site dirs in a
+                 .pth, so torch and ray_tpu_torch still import) + pip
+                 install (offline-capable only for local paths in a
+                 zero-egress cluster)
+    conda:       "existing-env-name" or {yaml spec dict} -> workers run
+                 on that conda env's python (ref: runtime_env/conda.py);
+                 not together with pip
+    container:   {"image": ..., "run_options": [...]} -> the worker
+                 command is wrapped in podman/docker run
+                 (ref: runtime_env/container.py)
     tpu_profiling: the profiling plugin (its trace-dir variable is read
-                 by `worker_main`) is ROADMAP queue A, item 10d: a spec
+                 by `worker_main`) is ROADMAP queue A, item 10d-ii: a spec
                  that names it raises NotImplementedError
     plugins:     {"pkg.module:PluginClass": config} -> custom plugin
                  classes loaded BY THE NODE DAEMON and run at build
@@ -73,17 +82,12 @@ def load_plugin(path: str) -> RuntimeEnvPlugin:
 
 
 _NO_PROFILING = ("runtime_env field 'tpu_profiling': the profiling plugin is "
-                 "not ported to ray_tpu_torch yet (ROADMAP queue A, item 10d)")
+                 "not ported to ray_tpu_torch yet (ROADMAP queue A, item "
+                 "10d-ii)")
 
 
 def _refuse_unported(env) -> None:
-    """pip, conda and container envs wait for item 10a-iii, the profiling
-    plugin for item 10d."""
-    for field in ("pip", "conda", "container"):
-        if env.get(field):
-            raise NotImplementedError(
-                f"runtime_env field {field!r} is not ported to ray_tpu_torch "
-                f"yet (ROADMAP queue A, item 10a-iii)")
+    """The profiling plugin waits for item 10d-ii."""
     if env.get("tpu_profiling"):
         raise NotImplementedError(_NO_PROFILING)
 
@@ -102,8 +106,7 @@ class RuntimeEnv(dict):
         unknown = set(extra) - set(_SUPPORTED)
         if unknown:
             raise ValueError(f"unsupported runtime_env fields: {unknown}")
-        _refuse_unported({"pip": pip, "conda": conda, "container": container,
-                          "tpu_profiling": tpu_profiling})
+        _refuse_unported({"tpu_profiling": tpu_profiling})
         super().__init__()
         if env_vars:
             if not all(isinstance(k, str) and isinstance(v, str)
@@ -114,6 +117,12 @@ class RuntimeEnv(dict):
             self["working_dir"] = working_dir
         if py_modules:
             self["py_modules"] = list(py_modules)
+        if pip:
+            self["pip"] = list(pip)
+        if conda:
+            self["conda"] = conda
+        if container:
+            self["container"] = dict(container)
         if plugins:
             self["plugins"] = dict(plugins)
 
@@ -187,6 +196,28 @@ def normalize(env: Optional[Dict[str, Any]], kv_put) -> Optional[dict]:
                     raise ValueError(f"py_module {m!r} does not exist")
                 uris.append(_upload_pkg(kv_put, _zip_path(m)))
         out["py_modules"] = uris
+    if env.get("pip"):
+        out["pip"] = [str(r) for r in env["pip"]]
+    conda = env.get("conda")
+    if conda:
+        if env.get("pip"):
+            # Same rule as the reference: pip deps belong INSIDE the
+            # conda spec (dependencies: [pip: [...]]), not alongside it.
+            raise ValueError("runtime_env cannot set both 'conda' and "
+                             "'pip'; add pip deps to the conda spec")
+        if not isinstance(conda, (str, dict)):
+            raise ValueError("conda must be an env name or a spec dict")
+        out["conda"] = conda
+    container = env.get("container")
+    if container:
+        if not isinstance(container, dict) or not container.get("image"):
+            raise ValueError("container must be {'image': ..., "
+                             "'run_options': [...]}")
+        out["container"] = {
+            "image": str(container["image"]),
+            "run_options": [str(o) for o in
+                            container.get("run_options") or ()],
+        }
     plugins = env.get("plugins")
     if plugins:
         if not isinstance(plugins, dict):

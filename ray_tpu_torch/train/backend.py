@@ -36,8 +36,8 @@ class Backend:
 
 class TorchBackend(Backend):
     """A torch.distributed process group across the workers: NCCL (with
-    gloo for CPU tensors) and one card per rank when `device` is CUDA,
-    gloo alone on the CPU."""
+    gloo for CPU tensors) and one card per rank when `device` is CUDA (the
+    card the rank's lease granted), gloo alone on the CPU."""
 
     def __init__(self, device: str = "cuda"):
         self.device = torch.device(device).type
@@ -52,7 +52,10 @@ class TorchBackend(Backend):
         if self.device == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("TorchBackend(device='cuda'): no CUDA device")
-            card = torch.device("cuda", rank % torch.cuda.device_count())
+            # The card this worker sees: its lease's, which the node
+            # daemon scoped CUDA_VISIBLE_DEVICES to, so it is cuda:0 here
+            # whatever the card's id on the host.
+            card = torch.device("cuda", 0)
             torch.cuda.set_device(card)
             dist.init_process_group("cpu:gloo,cuda:nccl", init_method=init,
                                     rank=rank, world_size=world_size,

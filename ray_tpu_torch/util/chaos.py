@@ -1,8 +1,7 @@
 """Chaos harness: random worker/node killers for fault-injection tests.
 Counterpart of `ray_tpu/util/chaos.py`. The node-level injectors
-(`NodeKiller`, `DelayedPartition`) act on a multi-node test cluster,
-which the port has not yet (ROADMAP queue A, item 10a-iii): without one
-they raise NotImplementedError.
+(`NodeKiller`, `DelayedPartition`) act on a `ray_tpu_torch.cluster_utils`
+cluster and its nodes.
 
 ref: python/ray/_private/test_utils.py:1429-1640 (ResourceKillerActor /
 WorkerKillerActor / NodeKillerActor + get_and_run_resource_killer).
@@ -84,14 +83,6 @@ class WorkerKiller:
         return self.kills
 
 
-def _need_cluster(obj, attr: str, who: str) -> None:
-    if getattr(obj, attr, None) is None:
-        raise NotImplementedError(
-            f"{who} acts on a multi-node test cluster (cluster_utils), "
-            f"which ray_tpu_torch has not ported yet (ROADMAP queue A, "
-            f"item 10a-iii)")
-
-
 class NodeKiller:
     """Kills whole (non-head) nodes of a cluster_utils.Cluster — gang /
     lineage recovery must absorb it (ref: NodeKillerActor,
@@ -99,7 +90,6 @@ class NodeKiller:
 
     def __init__(self, cluster, interval_s: float = 2.0, seed: int = 0,
                  max_kills: int = 1):
-        _need_cluster(cluster, "remove_node", "NodeKiller")
         self.cluster = cluster
         self.interval_s = interval_s
         self.max_kills = max_kills
@@ -192,7 +182,6 @@ class DelayedPartition:
     heal() SIGCONTs it; stop() heals and joins."""
 
     def __init__(self, node, delay_s: float = 1.0):
-        _need_cluster(node, "proc", "DelayedPartition")
         self.node = node
         self.delay_s = delay_s
         self._timer: Optional[threading.Timer] = None

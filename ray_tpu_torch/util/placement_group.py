@@ -7,7 +7,7 @@ PACK/SPREAD/STRICT_PACK/STRICT_SPREAD). The local engine keeps records and
 creates a group at once; the multi-process runtime reserves the bundles
 through the GCS. The slice-atomic gang (`tpu_slice_placement_group` in the
 JAX package) and its GPU counterpart, a host-local GPU gang, are ROADMAP
-queue A, item 10a-iii.
+queue A, item 10a-iv.
 """
 from __future__ import annotations
 

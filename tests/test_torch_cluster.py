@@ -473,6 +473,9 @@ def test_the_zygote_keeps_its_fork_contract(cluster):
     assert reply.get("cuda_initialized", False) is False
     if cluster.__name__ == "ray_tpu_torch":
         assert reply["torch_loaded"] is True
+        # Nor the driver itself: a forked child's CUDA_VISIBLE_DEVICES
+        # (its lease's cards) takes effect only before cuInit.
+        assert reply["cuda_driver_initialized"] is False
 
 
 _JOIN = r"""

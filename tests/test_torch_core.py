@@ -635,21 +635,102 @@ def test_a_ref_inside_a_stored_object_keeps_its_object():
     assert _in_local_mode(ray_tpu_torch, program) == ([5, False, 7], {}, {})
 
 
+def test_a_ref_dropped_inside_the_store_lock_does_not_deadlock():
+    """A collection can run ObjectRef.__del__ at any allocation, also one
+    inside the local store's lock. Dropping the last ref there frees the
+    object on the same thread; and while another thread holds the engine's
+    lock and waits for the store's, the drop returns at once and the
+    lock's next holder frees the object. The JAX package's local store
+    deadlocks in the first case (its lock is not reentrant), so it is not
+    run here."""
+    import threading
+
+    def on_thread(fn, timeout=10.0):
+        done = []
+        t = threading.Thread(target=lambda: done.append(fn()), daemon=True)
+        t.start()
+        t.join(timeout)
+        assert not t.is_alive(), "deadlocked"
+        return done[0]
+
+    def program(rt):
+        worker = rt.api._worker
+        store = worker._store
+
+        def same_thread():
+            ref = rt.put(np.arange(4))
+            oid = ref.id()
+            with store._lock:
+                del ref
+            return store.contains(oid)
+
+        freed_same = not on_thread(same_thread)
+
+        ref = rt.put(np.arange(4))
+        oid = ref.id()
+        holding_store = threading.Event()
+        waiting = threading.Event()
+
+        def engine_side():
+            with worker._lock:
+                holding_store.wait(10)
+                waiting.set()
+                store.contains(oid)      # waits for the store's lock
+
+        def store_side():
+            nonlocal ref
+            with store._lock:
+                holding_store.set()
+                waiting.wait(10)
+                time.sleep(0.2)          # the other thread is now blocked
+                del ref
+            return True
+
+        b = threading.Thread(target=engine_side, daemon=True)
+        b.start()
+        returned = on_thread(store_side)
+        b.join(10)
+        assert not b.is_alive(), "deadlocked"
+        rt.put(0)                        # the lock's next holder
+        return freed_same, returned, store.contains(oid)
+
+    assert _in_local_mode(ray_tpu_torch, program) == (True, True, False)
+
+
 def test_what_needs_the_multiprocess_runtime_raises(monkeypatch):
     """What the port has not ported raises and names its ROADMAP item: the
-    ray-tpu:// client and the cross-language registry (10a-iii), DAG nodes
-    (10c-ii); a serve deployment's `bind` runs. `init()` and an implicit init start a cluster instead
+    cross-language registry (10a-iv), DAG nodes (10c-ii); a serve
+    deployment's `bind` runs. A ray-tpu:// address, given to `init` or
+    through RAY_TPU_ADDRESS, connects through a client proxy (a proxy
+    process that hosts its own cluster's driver). `init()` and an implicit
+    init start a cluster instead
     (`test_init_starts_a_cluster_and_an_address_joins_it`)."""
+    import subprocess
+    import sys
+
+    from ray_tpu_torch.core.distributed.driver import _read_handshake, child_env
+    from ray_tpu_torch.util.client import ClientWorker
+
     for runtime in RUNTIMES:
         if runtime.is_initialized():
             runtime.shutdown()
+    proxy = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.util.client.server",
+         "--port", "0"], stdout=subprocess.PIPE, env=child_env())
     try:
-        with pytest.raises(NotImplementedError, match="item 10a-iii"):
-            ray_tpu_torch.init("ray-tpu://head:10001")
-        monkeypatch.setenv("RAY_TPU_ADDRESS", "ray-tpu://head:10001")
+        port = _read_handshake(proxy, r"CLIENT_PROXY_PORT=(?P<port>\d+)",
+                               "client proxy")["port"]
+        address = f"ray-tpu://127.0.0.1:{port}"
+        assert isinstance(ray_tpu_torch.init(address), ClientWorker)
+        assert ray_tpu_torch.get(ray_tpu_torch.remote(lambda: 6 * 7).remote(),
+                                 timeout=60) == 42
+        ray_tpu_torch.shutdown()
+        monkeypatch.setenv("RAY_TPU_ADDRESS", address)
         reset_config()
-        with pytest.raises(NotImplementedError, match="'ray-tpu://head:10001'.*item 10a-iii"):
-            ray_tpu_torch.init()
+        assert isinstance(ray_tpu_torch.init(), ClientWorker)
+        assert ray_tpu_torch.get(ray_tpu_torch.put("through the proxy"),
+                                 timeout=30) == "through the proxy"
+        ray_tpu_torch.shutdown()
         monkeypatch.delenv("RAY_TPU_ADDRESS")
         reset_config()
         assert not ray_tpu_torch.is_initialized()
@@ -662,7 +743,7 @@ def test_what_needs_the_multiprocess_runtime_raises(monkeypatch):
         with pytest.raises(RuntimeError, match="already been called"):
             ray_tpu_torch.init(local_mode=True)
         assert ray_tpu_torch.init(local_mode=True, ignore_reinit_error=True) is not None
-        with pytest.raises(NotImplementedError, match="item 10a-iii"):
+        with pytest.raises(NotImplementedError, match="item 10a-iv"):
             ray_tpu_torch.register_cross_lang("f", lambda: 1)
 
         @ray_tpu_torch.remote
@@ -683,6 +764,8 @@ def test_what_needs_the_multiprocess_runtime_raises(monkeypatch):
     finally:
         ray_tpu_torch.shutdown()
         reset_config()
+        proxy.terminate()
+        proxy.wait(timeout=30)
 
 
 _JOIN_BY_ENV = (

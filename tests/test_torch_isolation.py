@@ -26,7 +26,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "ray_tpu",
 # core with its GPU resource primitives, the multi-process runtime, and the
 # serve control plane with its channels and usage stats included, and the
 # train plane with its chaos injectors and state/timeline readers, and the
-# data layer with its streaming executor).
+# data layer with its streaming executor, and several nodes on one host with
+# the client proxy and the in-process daemon harnesses).
 REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.collectives",
             "ray_tpu_torch.models.training", "ray_tpu_torch.models.hf_convert",
@@ -66,7 +67,11 @@ REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
                 "block", "dataset", "execution", "feed", "plan", "read_api",
                 "stats", "tfrecord", "streaming", "streaming.executor",
                 "streaming.metrics", "streaming.prefetch", "streaming.shuffle",
-                "streaming.split")))
+                "streaming.split")),
+            "ray_tpu_torch.cluster_utils",
+            "ray_tpu_torch.core.distributed.virtual_node",
+            "ray_tpu_torch.util.client", "ray_tpu_torch.util.client.client",
+            "ray_tpu_torch.util.client.server")
 
 _CHECK = r"""
 import importlib, importlib.abc, pkgutil, sys

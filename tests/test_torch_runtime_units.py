@@ -318,9 +318,21 @@ def test_runtime_env_validation_and_hash_match_jax(tmp_path, name):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("pip", ["numpy"]), ("conda", "base"), ("container", {"image": "x"})])
+    ("pip", ["numpy"]), ("conda", "base"), ("container", {"image": "x"}),
+    ("conda", {"name": "e", "dependencies": ["python"]}),
+    ("container", {"image": "x", "run_options": ["--ipc=host"]})])
 def test_unported_runtime_env_fields_name_their_item(tmp_path, field, value):
-    with pytest.raises(NotImplementedError, match="item 10a-iii"):
-        tenv.normalize({field: value}, lambda *a: None)
-    with pytest.raises(NotImplementedError, match="item 10a-iii"):
-        tenv.RuntimeEnv(**{field: value})
+    """pip, conda and container envs are ported: a spec normalizes and
+    validates as JAX's does (their builds: tests/test_torch_runtime_envs.py).
+    The one field still waiting, tpu_profiling, names its item."""
+    assert (tenv.normalize({field: value}, lambda *a: None)
+            == jenv.normalize({field: value}, lambda *a: None))
+    assert tenv.RuntimeEnv(**{field: value}) == jenv.RuntimeEnv(**{field: value})
+    for env in (tenv, jenv):
+        with pytest.raises(ValueError, match="conda"):
+            env.normalize({"pip": ["x"], "conda": "envname"}, lambda *a: None)
+        with pytest.raises(ValueError, match="container"):
+            env.normalize({"container": {"run_options": []}}, lambda *a: None)
+    with pytest.raises(NotImplementedError, match="item 10d-ii"):
+        tenv.normalize({"tpu_profiling": {"jax_trace_dir": "x"}},
+                       lambda *a: None)

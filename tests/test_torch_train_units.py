@@ -585,11 +585,44 @@ def test_chaos_signals_reach_the_rank(pkg, monkeypatch):
         ("NodeDaemon", "signal_worker", int(s)) for s in
         (signal.SIGSTOP, signal.SIGSTOP, signal.SIGCONT, signal.SIGCONT,
          signal.SIGKILL, signal.SIGKILL)]
-    if pkg is ray_tpu_torch:
-        with pytest.raises(NotImplementedError, match="10a-iii"):
-            chaos.NodeKiller(None)
-        with pytest.raises(NotImplementedError, match="10a-iii"):
-            chaos.DelayedPartition(SimpleNamespace())
+    # The node-level injectors act on a cluster_utils cluster (a stub here;
+    # tests/test_torch_client.py drives them on real clusters): NodeKiller
+    # removes up to max_kills non-head nodes, seeded, and DelayedPartition
+    # SIGSTOPs a node's daemon after its delay and SIGCONTs it on heal.
+    head = SimpleNamespace(node_id="head")
+    cluster = SimpleNamespace(
+        head=head, nodes=[head] + [SimpleNamespace(node_id=f"n{i}")
+                                   for i in range(4)])
+    removed = []
+
+    def remove_node(node):
+        cluster.nodes.remove(node)
+        removed.append(node.node_id)
+
+    cluster.remove_node = remove_node
+    killer = chaos.NodeKiller(cluster, interval_s=0.01, seed=5,
+                              max_kills=2).start()
+    deadline = time.monotonic() + 10
+    while len(killer.kills) < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert killer.stop() == removed and len(removed) == 2
+    assert "head" not in removed
+    rng = __import__("random").Random(5)
+    pool = [f"n{i}" for i in range(4)]
+    expect = [pool.pop(pool.index(rng.choice(pool))) for _ in range(2)]
+    assert removed == expect      # the same seeded choice in both packages
+    daemon = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"])
+    try:
+        part = chaos.DelayedPartition(SimpleNamespace(proc=daemon),
+                                      delay_s=0.05).start()
+        assert part.partitioned.wait(10)
+        assert _wait_state(daemon.pid, "Tt") in "Tt"
+        part.stop()
+        assert not part.partitioned.is_set()
+        assert _wait_state(daemon.pid, "SR") in "SR"
+    finally:
+        daemon.kill()
+        daemon.wait()
 
 
 # -- HF glue -------------------------------------------------------------------
