@@ -33,8 +33,8 @@ Run from a checkout of the repository on a machine with a Hopper card
    `PagedLLMEngine` on the card and on the CPU (block 16, chunk 128, one
    prompt longer than a chunk): equal greedy tokens, and the prefill and
    decode logits of the engine's device calls within `SERVE_REF_TOL`;
-6. serving main path: llama3-8b (full width and depth, random weights from
-   the seed) served by `PagedLLMEngine` with 8 slots, max_len 2048 and the
+6. serving main path: llama3-8b (full width, LLAMA_SERVE_LAYERS (8) of
+   its 32 layers, random weights from the seed) served by `PagedLLMEngine` with 8 slots, max_len 2048 and the
    knob defaults. Eight requests from threads (prompts of 128 to 1900
    tokens and a pair sharing a 512-token prefix, six greedy, two at
    temperature 0.8) must all finish without error, launch no attention
@@ -56,7 +56,7 @@ Run from a checkout of the repository on a machine with a Hopper card
    second engine by `import_prefix`, and the stream resumed there must
    give the uninterrupted tokens;
 8. this slice's main path at llama3-8b's widths on the first
-   LLAMA_SLICE_LAYERS (8) of phase 6's 32 layers: (a)
+   LLAMA_SLICE_LAYERS (4) of phase 6's layers: (a)
    `PagedLLMEngine` (8 slots, max_len 2048, knob defaults) with
    speculation_k 4 and, in turns, without: 8 concurrent greedy requests
    whose prompts repeat a random 64-token segment 2-8 times, 64 new tokens
@@ -123,7 +123,7 @@ Run from a checkout of the repository on a machine with a Hopper card
    at sp 1 within CP_REF_TOL;
 14. expert parallelism and tensor-parallel serving at world 1, each part
    on a world-1 group it starts and destroys: (b) right after phase 8, on
-   its llama3-8b weights (LLAMA_SLICE_LAYERS, 8 layers):
+   its llama3-8b weights (LLAMA_SLICE_LAYERS, 4 layers):
    `LLMEngine(mesh=...)` over a tp mesh of one rank
    in turns with `LLMEngine()` (plain, mesh, mesh, plain) on phase 8b's
    traffic and a decode round at width 8: greedy tokens equal over the
@@ -204,7 +204,8 @@ Run from a checkout of the repository on a machine with a Hopper card
    `serve.run(serve.deployment(LLMDeployment).options(ray_actor_options=
    {"num_gpus": 1}).bind("llama3-8b", num_slots=8, max_len=2048,
    seed=--seed), _http=True, route_prefix="/llm")` at full width and
-   depth with the knob defaults, and the seconds until `serve.status()`
+   phase 6's depth (the config, cut to LLAMA_SERVE_LAYERS, bound in place
+   of its registry name) with the knob defaults, and the seconds until `serve.status()`
    shows it ready; (b) phase 6's eight requests at once, four streamed
    over HTTP as JSONL and four through the handle: all finish, the
    replica's own counters show no attention launch, every stream rides
@@ -254,8 +255,8 @@ Run from a checkout of the repository on a machine with a Hopper card
    with `iter_device_batches`: losses bit-equal to the direct step's,
    2L / L / L launches a step counted there, every row once, the
    worker's step and host ms against the direct step's, the feed's hits
-   and misses, `ds.stats()`; (b) 131,072 rows of 2,049 int32 tokens
-   (1.0 GiB) in 64 blocks made by the read stage from the seed, through
+   and misses, `ds.stats()`; (b) 65,536 rows of 2,049 int32 tokens
+   (0.5 GiB) in 32 blocks made by the read stage from the seed, through
    `map_batches`, `random_shuffle(seed=0)` and `iter_device_batches(8)`
    onto the card: every row once and the token sum intact, none of its
    objects left in the store after it is dropped; seconds, GiB/s,
@@ -284,6 +285,19 @@ Run from a checkout of the repository on a machine with a Hopper card
    downloaded) runs `flash_attention` forward and backward at bench-350m's
    shape in its venv worker, within KERNEL_TOLERANCE, 1/1/1 launches. A
    "phase seconds" line then gives each phase group's wall clock.
+24. a compiled DAG (`compiled_dag_phase`, run by phase 23 between (a) and
+   (b)): 23a's actor is created inside a one-host GPU gang
+   (`gpu_host_placement_group`, {CPU: 1, GPU: 1}) that must land on the
+   second node (c); (a) InputNode (a batch index) -> `dag_batch` on an
+   exclusive lane on the head -> the actor's step -> the loss, compiled
+   with `experimental_compile` (a ring on the head written by mmap, a push
+   into the GPU node's ring, a push back into the head's), CLUSTER_STEPS
+   steps in turns with the direct step continuing 23a's state: losses
+   bit-equal, 2L / L / L launches a step counted in the worker; (b) 1,000
+   no-op executes of a compiled DAG to the actor on the GPU node and to an
+   actor on the head, each beside 1,000 no-op `.remote()` calls (median and
+   p99 us), then `teardown()` and a normal call the actor answers; the gang
+   is removed and the card free before (b) of phase 23.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -300,8 +314,9 @@ as `launches_bench_350m_cluster_actor_train`, of phase 20's replica as
 `launches_bench_350m_trainer`, of 22a's steps fed by the data layer
 as `launches_bench_350m_data_ingest`, of 23a's steps on a second node as
 `launches_bench_350m_multi_node`, of 23b's through the client as
-`launches_bench_350m_client` and of 23d's venv call as
-`launches_pip_env_attention`), and {"ok": true,
+`launches_bench_350m_client`, of 23d's venv call as
+`launches_pip_env_attention` and of 24a's steps through the compiled DAG
+as `launches_bench_350m_compiled_dag`), and {"ok": true,
 "device": {...}}.
 """
 from __future__ import annotations
@@ -351,6 +366,10 @@ WGMMA_ENTRY_REGISTERS = 168
 # Phase 5: fp32 logits card vs CPU (atol, rtol); the sums run in another
 # order on the card, and TF32 is off.
 SERVE_REF_TOL = (1e-4, 1e-4)
+# The engines of phases 5, 7 and 9c: every sequence there stays under 230
+# tokens, and the CPU's plain attention reads the whole max_len window each
+# step, so a short one keeps the CPU runs short.
+SERVE_REF_MAX_LEN = 256
 # Phase 6: a greedy token may differ from the teacher-forced forward's
 # argmax only where forward's top-2 logit gap is at most this. Both run in
 # bf16, by different attention arithmetic (fp32 softmax over bf16 KV
@@ -393,19 +412,41 @@ SERVE_FP32_LOGITS_TOL = 1e-3
 REMAT_GRAD_TOL = 1e-6
 # Phase 11: mixtral-8x7b depth on one card. Training keeps fp32 masters,
 # grads and two AdamW moments, 16 bytes a parameter, 1.451 B a layer: 2
-# layers are 50.6 GB. Serving holds bf16 weights, 2.925 GB a layer; 8
-# layers (23.4 GB) keep the whole script inside its time budget (24, 70.2
-# GB, fit the card too, at ~60 s more).
+# layers are 50.6 GB. Serving holds bf16 weights, 2.925 GB a layer; 4
+# layers (11.7 GB) keep the whole script inside its time limit (24, 70.2
+# GB, would fit the card too).
 MIXTRAL_TRAIN_LAYERS = 2
-MIXTRAL_SERVE_LAYERS = 8
-# Phases 8 and 14b serve llama3-8b's first LLAMA_SLICE_LAYERS layers of
-# phase 6's weights (all 32 before phase 23 existed: cut to keep the
-# script in its time budget; phase 6 serves all 32).
-LLAMA_SLICE_LAYERS = 8
+MIXTRAL_SERVE_LAYERS = 4
+# Phases 6 and 20 serve llama3-8b at full width and LLAMA_SERVE_LAYERS of
+# its 32 layers; phases 8 and 14b serve the first LLAMA_SLICE_LAYERS layers
+# of phase 6's weights. Both depths are cut only to keep the whole script
+# well inside its time limit on a slow host (proof hosts differ up to
+# ~1.65x); a layer adds the same work to every step.
+LLAMA_SERVE_LAYERS = 8
+LLAMA_SLICE_LAYERS = 4
+
+
+_STARTED = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print a line, prefixed with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _STARTED:7.1f} s] {msg}", flush=True)
+
+
+def host_load() -> dict:
+    """This process's CPU seconds so far, its reaped children's, and its
+    live children (a phase that leaves processes behind slows every later
+    one)."""
+    try:
+        with open(f"/proc/{os.getpid()}/task/{os.getpid()}/children") as f:
+            children = len(f.read().split())
+    except OSError:
+        children = None
+    t = os.times()
+    return {"cpu_s": round(t.user + t.system, 1),
+            "children_cpu_s": round(t.children_user + t.children_system, 1),
+            "children": children, "cpus": os.cpu_count()}
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -704,7 +745,10 @@ def main_path(torch, models, attention, steps: int, seed: int) -> dict:
     want = {f"{n}_wgmma_kernel<{cfg.head_dim}>": c for n, c in expected.items()}
     if profile["attention_launches"] != want:
         raise AssertionError(f"profiled step launched {profile['attention_launches']},"
-                             f" not {want}")
+                             f" not {want}"
+                             f" (wrapper counts {profile['counted_launches']}, "
+                             f"{profile['kernels']} kernel records, launch calls "
+                             f"{profile['trace_completeness']})")
     median_ms = statistics.median(step_ms[1:] or step_ms)
     tokens_per_s = batch * seq / (median_ms / 1e3)
     fpt = 6.0 * cfg.num_params + 6 * cfg.n_layers * cfg.d_model * seq
@@ -757,7 +801,8 @@ def check_serving_reference(torch, models, card: str, label: str = "serving refe
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (200, 37, 128)]
     tokens, chunks = {}, {}
     for device in ("cpu", "cuda"):
-        eng = PagedLLMEngine(cfg, params, num_slots=4, max_len=512, block_size=16,
+        eng = PagedLLMEngine(cfg, params, num_slots=4, max_len=SERVE_REF_MAX_LEN,
+                             block_size=16,
                              prefill_chunk=128, device=device)
         try:
             tokens[device] = [eng.generate(p, max_tokens=24, timeout=600)
@@ -1087,7 +1132,8 @@ def serve_main_path(torch, models, attention, seed: int, card: str, cfg=None,
         weights_gib = sum(w.numel() * w.element_size() for w in
                           models.training.tree_leaves(engine.params)) / 2**30
         pool_gib = 2 * engine.cache.k.numel() * engine.cache.k.element_size() / 2**30
-        log(f"serve [{card}]: {cfg.name} engine built in {build_s:.1f} s; weights "
+        log(f"serve [{card}]: {cfg.name} ({cfg.n_layers} layers) engine built in "
+            f"{build_s:.1f} s; weights "
             f"{weights_gib:.2f} GiB, KV pool {engine.num_blocks} blocks of "
             f"{engine.block_size} = {pool_gib:.2f} GiB, prefill_chunk "
             f"{engine.prefill_chunk}, max_burst {engine.max_burst}")
@@ -1240,7 +1286,8 @@ def serve_main_path(torch, models, attention, seed: int, card: str, cfg=None,
     finally:
         engine.shutdown()
     return engine.params, {
-            "config": cfg.name, "num_slots": num_slots, "max_len": max_len,
+            "config": cfg.name, "n_layers": cfg.n_layers, "num_slots": num_slots,
+            "max_len": max_len,
             "block_size": engine.block_size, "prefill_chunk": engine.prefill_chunk,
             "max_burst": engine.max_burst, "num_blocks": engine.num_blocks,
             "weights_gib": weights_gib, "kv_pool_gib": pool_gib, "build_s": build_s,
@@ -1323,7 +1370,7 @@ def check_serving_slice(torch, models, card: str, devices=("cpu", "cuda")) -> di
     fixed_prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 90)]
     fixed_prompts.append(fixed_prompts[0])
     mig_prompt = rng.integers(0, cfg.vocab_size, 40).tolist()
-    paged_kw = dict(num_slots=4, max_len=512, block_size=16, prefill_chunk=128)
+    paged_kw = dict(num_slots=4, max_len=SERVE_REF_MAX_LEN, block_size=16, prefill_chunk=128)
     got = {}
     for device in devices:
         res = got[device] = {}
@@ -1338,7 +1385,8 @@ def check_serving_slice(torch, models, card: str, devices=("cpu", "cuda")) -> di
             finally:
                 eng.shutdown()
         for k in (0, 4):
-            eng = LLMEngine(cfg, params, num_slots=4, max_len=512, prefix_cache_size=4,
+            eng = LLMEngine(cfg, params, num_slots=4, max_len=SERVE_REF_MAX_LEN,
+                            prefix_cache_size=4,
                             speculation_k=k, device=device)
             try:
                 res[f"fixed_k{k}"] = [eng.generate(p, max_tokens=40, timeout=600)
@@ -1714,7 +1762,10 @@ def moe_train_path(torch, models, attention, steps: int, seed: int, card: str) -
     want = {f"{n}_wgmma_kernel<{cfg.head_dim}>": c for n, c in expected.items()}
     if profile["attention_launches"] != want:
         raise AssertionError(f"profiled mixtral step launched "
-                             f"{profile['attention_launches']}, not {want}")
+                             f"{profile['attention_launches']}, not {want}"
+                             f" (wrapper counts {profile['counted_launches']}, "
+                             f"{profile['kernels']} kernel records, launch calls "
+                             f"{profile['trace_completeness']})")
     profile["moe_groups_ms"] = moe_groups(profile)
     # Active-parameter MFU: 6 N_active + 6 L d T FLOPs a token over the bf16
     # peak, N_active counting top_k of the n_experts experts of each layer
@@ -1955,7 +2006,10 @@ def bench_1b4_path(torch, models, attention, mesh, steps: int, seed: int, card: 
     want = {f"{n}_wgmma_kernel<{cfg.head_dim}>": c for n, c in expected.items()}
     if profile["attention_launches"] != want:
         raise AssertionError(f"profiled bench-1b4 step launched "
-                             f"{profile['attention_launches']}, not {want}")
+                             f"{profile['attention_launches']}, not {want}"
+                             f" (wrapper counts {profile['counted_launches']}, "
+                             f"{profile['kernels']} kernel records, launch calls "
+                             f"{profile['trace_completeness']})")
     # The optimizer's share: Adafactor alone on fixed grads of the same leaves.
     leaves = models.training.tree_leaves(state.params)
     grads = [p.detach() * 1e-3 for p in leaves]
@@ -2511,8 +2565,9 @@ HF_SERVE_LOGITS_TOL = 0.25
 # noise: params, optimizer moments and metrics within atol + rtol * |CPU's|
 # (as the CPU tests hold the port to JAX).
 RL_CARD_CPU_TOL = (1e-5, 1e-5)
-# Phase 19b: steps a turn of the worker actor and the direct step.
-CLUSTER_STEPS = 10
+# Phases 19b and 24a: steps a turn of the worker actor (or the compiled
+# DAG) and the direct step.
+CLUSTER_STEPS = 6
 # Phase 17c: a DreamerV3 update makes ~70,000 categorical draws (argmax of
 # logits + Gumbel noise); where a draw's top two lie closer than the
 # devices' rounding, card and CPU pick different samples and the updates
@@ -3361,6 +3416,10 @@ class WorkerBench350mTrainer(Bench350mTrainer):
         holds no card), moved to this actor's device first."""
         return self.step_counted(tokens.to(self.device))
 
+    def echo(self, x):
+        """Phase 24b's no-op: the argument back."""
+        return x
+
     def whereabouts(self) -> dict:
         import torch
 
@@ -3413,11 +3472,13 @@ class WorkerBench350mTrainer(Bench350mTrainer):
 
 def cluster_train_turns(torch, models, attention, rt, steps: int, seed: int, card: str,
                         cfg=None, batch: int = 8, seq: int = 2048,
-                        device: str = "cuda", label: str = "19b") -> tuple:
+                        device: str = "cuda", label: str = "19b",
+                        actor_options=None) -> tuple:
     """Phase 19b: phase 4's train step inside a num_gpus=1 actor in a worker
     process, in turns with the direct step here on a state of its own from
     the same seed, on phase 4's batches. The worker's launch counters are
-    its own and come back from the actor. Returns (results, the actor, the
+    its own and come back from the actor; `actor_options` are more options
+    of the actor (23a's placement group). Returns (results, the actor, the
     direct step's state)."""
     import numpy as np
 
@@ -3425,7 +3486,8 @@ def cluster_train_turns(torch, models, attention, rt, steps: int, seed: int, car
     init_fn, step_fn = bench_train_step(models, cfg, device)
     state = init_fn(torch.Generator(device=device).manual_seed(seed))
     t0 = time.perf_counter()
-    actor = rt.remote(num_gpus=1)(WorkerBench350mTrainer).remote(cfg, seed, device)
+    actor = rt.remote(num_gpus=1, **(actor_options or {}))(WorkerBench350mTrainer).remote(
+        cfg, seed, device)
     where = rt.get(actor.whereabouts.remote(), timeout=600)
     where["ready_s"] = time.perf_counter() - t0
     corpus = torch.from_numpy(np.random.default_rng(seed).integers(
@@ -3551,14 +3613,30 @@ def cluster_put_get(torch, models, rt, actor, direct_params, card: str,
 
 
 class _Echo:
-    """Phase 19d's actor: one method that does nothing."""
+    """Phase 19d's actor: methods that do nothing."""
 
     def ping(self):
         return None
 
+    def echo(self, x):
+        return x
+
 
 def _noop():
     return None
+
+
+def _time_calls(call, n: int) -> dict:
+    """Median and p99 round trip of `call()` (which waits for its result) in
+    microseconds, over `n` calls after 20 unmeasured ones."""
+    for _ in range(20):
+        call()
+    us = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        us.append((time.perf_counter() - t0) * 1e6)
+    return {"median_us": statistics.median(us), "p99_us": sorted(us)[int(0.99 * (n - 1))]}
 
 
 def round_trips(rt, n: int = 1000) -> dict:
@@ -3567,17 +3645,10 @@ def round_trips(rt, n: int = 1000) -> dict:
     task = rt.remote(_noop)
     actor = rt.remote(_Echo).remote()
     out = {}
-    for what, call in (("task_us", lambda: task.remote()),
-                       ("actor_call_us", lambda: actor.ping.remote())):
-        for _ in range(20):
-            rt.get(call())
-        us = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            rt.get(call())
-            us.append((time.perf_counter() - t0) * 1e6)
-        out[what] = statistics.median(us)
-        out[what.replace("_us", "_p99_us")] = sorted(us)[int(0.99 * (n - 1))]
+    for what, call in (("task", lambda: rt.get(task.remote())),
+                       ("actor_call", lambda: rt.get(actor.ping.remote()))):
+        timed = _time_calls(call, n)
+        out[f"{what}_us"], out[f"{what}_p99_us"] = timed["median_us"], timed["p99_us"]
     rt.kill(actor)
     return out
 
@@ -3809,7 +3880,8 @@ def serve_plane_phase(torch, models, attention, seed: int, card: str, phase6=Non
     alone = rng.integers(0, cfg.vocab_size, 1900).tolist()
     if cuda:
         torch.cuda.empty_cache()
-    out = {"config": cfg.name, "num_slots": num_slots, "max_len": max_len}
+    out = {"config": cfg.name, "n_layers": cfg.n_layers, "num_slots": num_slots,
+           "max_len": max_len}
     rt.init(num_cpus=num_cpus, num_gpus=None if cuda else 1)
     try:
         store = rt.api._global_worker().store
@@ -3827,7 +3899,8 @@ def serve_plane_phase(torch, models, attention, seed: int, card: str, phase6=Non
         out["warmup_s"] = time.perf_counter() - t0
         controller = rt.get_actor("serve:controller")
         replica = rt.get_actor(rt.get(controller.get_routing.remote("llm"))["replicas"][0])
-        log(f"20a [{card}]: serve.run of {cfg.name}'s LLMDeployment (num_gpus=1, "
+        log(f"20a [{card}]: serve.run of {cfg.name}'s LLMDeployment ({cfg.n_layers} "
+            f"layers, num_gpus=1, "
             f"{num_slots} slots, max_len {max_len}) ready in {out['ready_s']:.1f} s "
             f"(serve.status); warmup {out['warmup_s']:.1f} s")
 
@@ -3992,9 +4065,9 @@ def serve_plane_phase(torch, models, attention, seed: int, card: str, phase6=Non
     return out
 
 
-TRAIN_PLANE_STEPS = 10
+TRAIN_PLANE_STEPS = 6
 # Step after which phase 21's loop saves the whole train state.
-TRAIN_PLANE_CKPT_STEP = 5
+TRAIN_PLANE_CKPT_STEP = 3
 # How long attempt 0 of 21b waits, after reporting its checkpoint, for the
 # SIGKILL the driver sends; a run that outlives it fails.
 TRAIN_PLANE_KILL_DEADLINE_S = 300.0
@@ -4350,10 +4423,11 @@ def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
     return out
 
 
-# Phase 22b: the tokenised corpus fed through the data plane (131,072 rows of
-# 2,049 int32 tokens: 1.0 GiB) and its blocks.
-DATA_PLANE_ROWS = 131_072
-DATA_PLANE_BLOCKS = 64
+# Phase 22b: the tokenised corpus fed through the data plane (65,536 rows of
+# 2,049 int32 tokens: 0.5 GiB, sized for the script's time limit) and its
+# blocks (16 MiB each).
+DATA_PLANE_ROWS = 65_536
+DATA_PLANE_BLOCKS = 32
 # Phase 22a: the blocks of the trainer's corpus.
 DATA_INGEST_BLOCKS = 8
 
@@ -4508,7 +4582,7 @@ def data_plane_phase(torch, models, attention, seed: int, card: str, rt, referen
     shutil.rmtree(os.path.join(storage, "bench350m_ingest"), ignore_errors=True)
     del ds, ingest, result, corpus
 
-    # (b) the data plane at a real size: 1.0 GiB through the shuffle. The
+    # (b) the data plane at a real size: 0.5 GiB through the shuffle. The
     # read stage makes each block's tokens from the seed and its first row:
     # blocks put from the driver would ride in the read tasks as nested
     # refs, which the owner keeps for a transit grace after their use.
@@ -4834,6 +4908,161 @@ def _wait_zygote(node_id: str, timeout: float = 120.0) -> float:
             time.sleep(0.1)
 
 
+# Phase 24b: no-op executes of a compiled DAG, and no-op actor calls.
+DAG_NOOP_CALLS = 1000
+# The custom resource of phase 23's head node: it places 24's lane stage
+# and its head-node actor there.
+DAG_HEAD_RESOURCE = "dag_head"
+
+
+def dag_batch(seed: int, vocab: int, batch: int, seq: int, i: int):
+    """Phase 24a's batch `i`, made with numpy as the phases' corpora are,
+    as a host tensor: the lane stage that makes it sees no card."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng([seed, 24, i]).integers(
+        0, vocab, (batch, seq + 1), dtype=np.int32))
+
+
+def _dag_transports(compiled, drv_node: str) -> list:
+    """Each ring of a compiled DAG: the node it lies on ("head" or "gpu")
+    and how its writer reaches it ("mmap" on the writer's node, "push"
+    through the ring node's daemon)."""
+    return [{"node": "head" if r["node"] == drv_node else "gpu",
+             "created_by": "driver" if r["daemon"] is None else "daemon"}
+            for r in compiled._rings]
+
+
+def compiled_dag_phase(torch, models, attention, rt, actor, state, head_id: str,
+                       gpu_id: str, card: str, seed: int, cfg=None, batch: int = 8,
+                       seq: int = 2048, device: str = "cuda", steps: int = CLUSTER_STEPS,
+                       actor_step_ms=None, noop_calls: int = DAG_NOOP_CALLS) -> dict:
+    """Phase 24, on phase 23's cluster and 23a's actor (on the GPU node):
+    (a) InputNode (a batch index) -> `dag_batch` on an exclusive lane on the
+    head -> the actor's `step_from_host` -> (loss, host ms, launches), in
+    turns with the direct step on `state`, which continues 23a's; losses
+    bit-equal, 2L/L/L launches a step counted in the worker; (b) no-op
+    compiled executes against no-op `.remote()` calls, to the actor on the
+    GPU node and to an actor on the head; then the actor serves a call."""
+    from ray_tpu_torch.dag import InputNode
+
+    cfg = cfg or models.configs.BENCH_350M
+    t_phase = time.perf_counter()
+    _, step_fn = bench_train_step(models, cfg, device)
+    per_step = 1 if device == "cuda" else 0  # the plain versions count nothing
+    expected = {"fa_fwd": 2 * cfg.n_layers * per_step,
+                "fa_bwd_dq": cfg.n_layers * per_step, "fa_bwd_dkv": cfg.n_layers * per_step}
+    make = rt.remote(num_cpus=1, resources={DAG_HEAD_RESOURCE: 1})(dag_batch)
+    with InputNode() as inp:
+        dag = actor.step_from_host.bind(make.bind(seed, cfg.vocab_size, batch, seq, inp))
+    rt.get(actor.reset_launches.remote())
+    t0 = time.perf_counter()
+    compiled = dag.experimental_compile()
+    out = {"compile_s": time.perf_counter() - t0,
+           "lanes": {name.rsplit(".", 1)[-1]: ("head" if lane.node_id == head_id else
+                                               "gpu" if lane.node_id == gpu_id else lane.node_id)
+                     for name, lane in compiled._stage_lanes},
+           "transports": _dag_transports(compiled, head_id)}
+    if out["lanes"] != {"dag_batch": "head"} or out["transports"] != [
+            {"node": "head", "created_by": "driver"}, {"node": "gpu", "created_by": "daemon"},
+            {"node": "head", "created_by": "driver"}]:
+        compiled.teardown()
+        raise AssertionError(f"24a: the DAG is not laid out as planned: {out}")
+    runs = {who: {"losses": [], "step_ms": [], "launches_per_step": []}
+            for who in ("direct", "dag")}
+    attention.reset_launches()
+    try:
+        for i in range(steps):
+            tokens = dag_batch(seed, cfg.vocab_size, batch, seq, i).to(device)
+            for who in (("direct", "dag") if i % 2 == 0 else ("dag", "direct")):
+                _sync(torch, device)
+                seen = dict(attention.launches)
+                t0 = time.perf_counter()
+                if who == "direct":
+                    state, metrics = step_fn(state, {"tokens": tokens})
+                    loss = float(metrics["loss"])
+                    launched = {n: attention.launches[n] - seen[n] for n in seen}
+                else:
+                    loss, _, launched = compiled.execute(i).get(timeout=600)
+                _sync(torch, device)
+                run = runs[who]
+                run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                run["losses"].append(loss)
+                run["launches_per_step"].append(launched)
+            d, g = runs["direct"], runs["dag"]
+            log(f"24a step {i}: loss {d['losses'][i]:.6f} direct {d['step_ms'][i]:.1f} ms, "
+                f"compiled DAG (batch made on the head's lane, the step on the GPU node) "
+                f"{g['step_ms'][i]:.1f} ms; worker launches {g['launches_per_step'][i]}")
+            if g["losses"][i] != d["losses"][i] or not math.isfinite(d["losses"][i]):
+                raise AssertionError(f"24a step {i}: the compiled DAG's loss {g['losses'][i]!r} "
+                                     f"is not the direct step's {d['losses'][i]!r}")
+            for who, run in runs.items():
+                if run["launches_per_step"][i] != expected:
+                    raise AssertionError(f"24a step {i}: {who} launches "
+                                         f"{run['launches_per_step'][i]} != {expected}")
+    finally:
+        compiled.teardown()
+    totals = rt.get(actor.launches.remote(), timeout=60)
+    for who, run in runs.items():
+        run["launches"] = {n: sum(c[n] for c in run["launches_per_step"]) for n in expected}
+        run["median_step_ms"] = statistics.median(run["step_ms"][1:] or run["step_ms"])
+    if totals != runs["dag"]["launches"]:
+        raise AssertionError(f"24a: worker launches outside the DAG's steps: {totals}")
+    out.update(runs)
+    out["launches"] = runs["dag"]["launches"]
+    out["actor_remote_median_step_ms"] = actor_step_ms
+    log(f"24a [{card}]: {cfg.name} {batch} x {seq}, {steps} steps through a compiled DAG "
+        f"(compiled in {out['compile_s']:.2f} s; rings {out['transports']}) in turns with the "
+        f"direct step, losses bit-equal: execute + get {runs['dag']['median_step_ms']:.2f} ms "
+        f"median, direct {runs['direct']['median_step_ms']:.2f} ms, 23a's "
+        f"actor.step_counted.remote() from this driver {actor_step_ms} ms; worker launches "
+        f"{out['launches']}")
+
+    # (b) what a compiled call costs, across nodes and on one node.
+    noop = {}
+    with InputNode() as inp:
+        across = actor.echo.bind(inp)
+    cd = across.experimental_compile()
+    try:
+        noop["gpu_node_transports"] = _dag_transports(cd, head_id)
+        noop["gpu_node_dag"] = _time_calls(lambda: cd.execute(1).get(timeout=60), noop_calls)
+    finally:
+        cd.teardown()
+    noop["gpu_node_remote"] = _time_calls(
+        lambda: rt.get(actor.echo.remote(1), timeout=60), noop_calls)
+    near = rt.remote(resources={DAG_HEAD_RESOURCE: 1})(_Echo).remote()
+    with InputNode() as inp:
+        local = near.echo.bind(inp)
+    cd = local.experimental_compile()
+    try:
+        noop["head_transports"] = _dag_transports(cd, head_id)
+        noop["head_dag"] = _time_calls(lambda: cd.execute(1).get(timeout=60), noop_calls)
+    finally:
+        cd.teardown()
+    noop["head_remote"] = _time_calls(lambda: rt.get(near.echo.remote(1), timeout=60),
+                                      noop_calls)
+    rt.kill(near)
+    back = rt.get(actor.echo.remote("back in call service"), timeout=60)
+    out["noop"] = noop
+    out["after_teardown"] = back
+    log(f"24b [{card}]: {noop_calls} no-op round trips (median / p99 us): compiled DAG to the "
+        f"GPU node's actor {noop['gpu_node_dag']['median_us']:.0f} / "
+        f"{noop['gpu_node_dag']['p99_us']:.0f} (rings {noop['gpu_node_transports']}) vs "
+        f".remote() {noop['gpu_node_remote']['median_us']:.0f} / "
+        f"{noop['gpu_node_remote']['p99_us']:.0f}; to an actor on the head "
+        f"{noop['head_dag']['median_us']:.0f} / {noop['head_dag']['p99_us']:.0f} (rings "
+        f"{noop['head_transports']}) vs .remote() {noop['head_remote']['median_us']:.0f} / "
+        f"{noop['head_remote']['p99_us']:.0f}; after teardown the actor answered {back!r}")
+    if (back != "back in call service"
+            or noop["gpu_node_transports"] != [{"node": "gpu", "created_by": "daemon"},
+                                               {"node": "head", "created_by": "driver"}]
+            or noop["head_transports"] != [{"node": "head", "created_by": "driver"}] * 2):
+        raise AssertionError(f"24b: {out}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, state
+
+
 def multi_node_phase(torch, models, attention, seed: int, card: str, cfg=None,
                      device: str = "cuda", batch: int = 8, seq: int = 2048,
                      steps: int = MULTI_NODE_STEPS) -> dict:
@@ -4842,7 +5071,9 @@ def multi_node_phase(torch, models, attention, seed: int, card: str, cfg=None,
     in a num_gpus=1 actor on the second node in turns with the direct step,
     and its params across the two daemons both ways; (b) the ray-tpu://
     client; (c) the GPU node SIGKILLed by `chaos.NodeKiller`, then replaced;
-    (d) a pip runtime env's venv worker through the kernels."""
+    (d) a pip runtime env's venv worker through the kernels. Phase 24 runs
+    between (a) and (b) on (a)'s actor, which a one-host GPU gang places
+    (24c)."""
     import subprocess
 
     import numpy as np
@@ -4851,6 +5082,9 @@ def multi_node_phase(torch, models, attention, seed: int, card: str, cfg=None,
     from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.core.distributed.driver import _read_handshake, child_env
     from ray_tpu_torch.util import chaos
+    from ray_tpu_torch.util.placement_group import (gpu_host_placement_group,
+                                                    remove_placement_group)
+    from ray_tpu_torch.util.scheduling_strategies import PlacementGroupSchedulingStrategy
 
     cfg = cfg or models.configs.BENCH_350M
     if rt.is_initialized():
@@ -4873,6 +5107,7 @@ def multi_node_phase(torch, models, attention, seed: int, card: str, cfg=None,
     out = {"card_used_before_gib": None if used_before is None else used_before / 2**30}
     t0 = time.perf_counter()
     cluster = Cluster(head_node_args={"num_cpus": 4, "num_gpus": 0,
+                                      "resources": {DAG_HEAD_RESOURCE: 4},
                                       "object_store_memory": MULTI_NODE_STORE})
     proxy = None
     node_ids = [cluster.head.node_id]
@@ -4905,10 +5140,23 @@ def multi_node_phase(torch, models, attention, seed: int, card: str, cfg=None,
             raise AssertionError(f"23a: no accelerator_type naming the card on the "
                                  f"second node: {nodes}")
 
+        # 24c: the actor's card is reserved by a one-host GPU gang, which
+        # must land on the second node.
+        t0 = time.perf_counter()
+        gang = gpu_host_placement_group(1, gpus_per_host=1, cpus_per_host=1)
+        if not gang.ready(timeout=120):
+            raise AssertionError("24c: the one-host GPU gang was not placed")
+        out["gang"] = {"ready_s": time.perf_counter() - t0, "bundle_nodes": [
+            "gpu" if n == second.node_id else n
+            for n in rt.api._global_worker().get_placement_group(gang.id)["nodes"]]}
+        if out["gang"]["bundle_nodes"] != ["gpu"]:
+            raise AssertionError(f"24c: the gang is not on the GPU node: {out['gang']}")
+
         # (a) the step on the second node, its params across the daemons.
         train, actor, state = cluster_train_turns(
             torch, models, attention, rt, steps, seed, card, cfg=cfg, batch=batch,
-            seq=seq, device=device, label="23a")
+            seq=seq, device=device, label="23a", actor_options={
+                "scheduling_strategy": PlacementGroupSchedulingStrategy(gang, 0)})
         where = train["worker"]
         if where["node_id"] != second.node_id or where["visible"] != "0":
             raise AssertionError(f"23a: the actor is not on the second node's card: {where}")
@@ -4925,18 +5173,36 @@ def multi_node_phase(torch, models, attention, seed: int, card: str, cfg=None,
         baseline = [_node_store(rt, n) for n in stores]
         out["put_get"] = cross_node_put_get(torch, models, rt, actor, state.params, card,
                                             device=device)
-        del state
         if device == "cuda":
             torch.cuda.empty_cache()
         # Every copy on both nodes freed once the driver's frees flush.
         rt.api._global_worker().flush_frees()
         _until(lambda: [_node_store(rt, n) for n in stores] == baseline, 30, 0.1)
-        rt.kill(actor)
-        _card_returned(rt)
         out["stores"] = {"baseline": baseline, "after": [_node_store(rt, n) for n in stores]}
         log(f"23a [{card}]: both stores back at their baselines (used bytes, objects) "
             f"{baseline} after the frees")
         losses = train["actor"]["losses"]
+
+        # Phase 24: the step through a compiled DAG on the same actor, the
+        # direct step continuing 23a's state; what a compiled call costs.
+        out["compiled_dag"], state = compiled_dag_phase(
+            torch, models, attention, rt, actor, state, cluster.head.node_id,
+            second.node_id, card, seed, cfg=cfg, batch=batch, seq=seq, device=device,
+            actor_step_ms=train["actor"]["median_step_ms"])
+        del state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        rt.kill(actor)
+        # 24c: the gang goes before 23c, or its bundle would be rescheduled
+        # onto the replacement node when 23c kills this one, and reserve
+        # that node's card.
+        remove_placement_group(gang)
+        out["gang"]["card_free_s"] = _until(
+            lambda: rt.available_resources().get("GPU", 0.0) >= 1.0, 60)
+        log(f"24c [{card}]: 23a's actor ran in a one-host GPU gang ({{CPU: 1, GPU: 1}}, "
+            f"placed in {out['gang']['ready_s']:.2f} s on the {out['gang']['bundle_nodes'][0]} "
+            f"node); the gang removed, the card free again after "
+            f"{out['gang']['card_free_s']:.2f} s")
 
         # (b) the client: a proxy process hosts a driver on the head.
         out["round_trips"] = {"driver": round_trips(rt, 200)}
@@ -5122,6 +5388,11 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     marks = [("start", time.perf_counter())]  # (phase, wall clock after it)
 
+    def mark(phase: str) -> None:
+        marks.append((phase, time.perf_counter()))
+        log(f"phase {phase}: {marks[-1][1] - marks[-2][1]:.1f} s; host {host_load()}")
+
+
     t0 = time.perf_counter()
     _cuda.library_path("flash_attention")
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -5129,16 +5400,18 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = check_kernels(torch, attention, gen)
-    marks.append(('1-2 kernels', time.perf_counter()))
+    mark("1-2 kernels")
     full_grads = check_reference(torch, models)["card_grads"]
     run = main_path(torch, models, attention, args.steps, args.seed)
     log("main path: " + json.dumps(run))
-    marks.append(('3-4 reference and main path', time.perf_counter()))
+    mark("3-4 reference and main path")
     serve_ref = check_serving_reference(torch, models, card)
     log("serving reference: " + json.dumps(serve_ref))
-    params, serve_run = serve_main_path(torch, models, attention, args.seed, card)
+    serve_cfg = dataclasses.replace(models.configs.LLAMA3_8B, n_layers=LLAMA_SERVE_LAYERS)
+    params, serve_run = serve_main_path(torch, models, attention, args.seed, card,
+                                        cfg=serve_cfg)
     log("serving main path: " + json.dumps(serve_run))
-    marks.append(('5-6 serving', time.perf_counter()))
+    mark("5-6 serving")
     slice_ref = check_serving_slice(torch, models, card)
     log("serving slice reference: " + json.dumps(slice_ref))
     # Phases 8 and 14b: llama3-8b's widths at LLAMA_SLICE_LAYERS layers,
@@ -5149,11 +5422,11 @@ def main() -> int:
     slice_run = serve_slice_main_path(torch, models, attention, slice_params, slice_cfg,
                                       args.seed, card)
     log("serving slice main path: " + json.dumps(slice_run))
-    marks.append(('7-8 serving slice', time.perf_counter()))
+    mark("7-8 serving slice")
     tp_llama = tp_engine_phase(torch, models, attention, slice_params, slice_cfg,
                                args.seed, card, "14b", plain_turns=True)
     log("14b tensor-parallel LLMEngine: " + json.dumps(tp_llama))
-    marks.append(('14b', time.perf_counter()))
+    mark("14b")
     del params, slice_params
     torch.cuda.empty_cache()
     moe_ref = check_remat_and_moe_reference(torch, models, card, full_grads)
@@ -5161,42 +5434,43 @@ def main() -> int:
     log("remat and MoE reference: " + json.dumps(moe_ref))
     remat = remat_turns(torch, models, attention, args.steps, args.seed, card)
     log("remat turns: " + json.dumps(remat))
-    marks.append(('9-10 remat', time.perf_counter()))
+    mark("9-10 remat")
     moe_train = moe_train_path(torch, models, attention, args.steps, args.seed, card)
     log("mixtral train: " + json.dumps(moe_train))
-    marks.append(('11a', time.perf_counter()))
+    mark("11a")
     moe_serve = moe_serve_path(torch, models, attention, args.seed, card)
     log("mixtral serve: " + json.dumps(moe_serve))
-    marks.append(('11b, 14c', time.perf_counter()))
+    mark("11b, 14c")
     sharded = mesh_phase(torch, models, attention, args.steps, args.seed, card)
     log("sharded train: " + json.dumps(sharded))
-    marks.append(('12', time.perf_counter()))
+    mark("12")
     piped = pipeline_phase(torch, models, attention, args.steps, args.seed, card)
     log("pipeline and context parallel: " + json.dumps(piped))
-    marks.append(('13', time.perf_counter()))
+    mark("13")
     experts = expert_mesh_phase(torch, models, attention, args.steps, args.seed, card)
     log("14a/d expert parallelism: " + json.dumps(experts))
-    marks.append(('14a, 14d', time.perf_counter()))
+    mark("14a, 14d")
     late = import_and_rllib_phase(torch, models, attention, args.seed, card)
     log("15-16 HF import and RLlib: " + json.dumps(late))
-    marks.append(('15-16', time.perf_counter()))
+    mark("15-16")
     dreamer = dreamer_and_offline_phase(torch, args.seed, card)
     log("17 DreamerV3 and offline learners: " + json.dumps(dreamer))
-    marks.append(('17', time.perf_counter()))
+    mark("17")
     t0 = time.perf_counter()
     runtime = runtime_phase(torch, models, attention, args.steps, args.seed, card)
     log(f"18 task/actor core ({time.perf_counter() - t0:.1f} s): " + json.dumps(runtime))
-    marks.append(("18", time.perf_counter()))
+    mark("18")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cluster = cluster_phase(torch, models, attention, CLUSTER_STEPS, args.seed, card)
     log(f"19 multi-process runtime ({time.perf_counter() - t0:.1f} s): "
         + json.dumps(cluster))
-    marks.append(("19", time.perf_counter()))
+    mark("19")
     t0 = time.perf_counter()
-    plane = serve_plane_phase(torch, models, attention, args.seed, card, phase6=serve_run)
+    plane = serve_plane_phase(torch, models, attention, args.seed, card, phase6=serve_run,
+                              cfg=serve_cfg)
     log(f"20 serve plane ({time.perf_counter() - t0:.1f} s): " + json.dumps(plane))
-    marks.append(("20", time.perf_counter()))
+    mark("20")
     t0 = time.perf_counter()
     direct = cluster["actor_train"]["direct"]
     same = CLUSTER_STEPS == TRAIN_PLANE_STEPS  # 19b's direct run: the same steps
@@ -5210,14 +5484,15 @@ def main() -> int:
     log(f"21 train plane ({trainer['phase_s']:.1f} s): " + json.dumps(trainer))
     log(f"22 data plane ({data['phase_s']:.1f} s; 21-22 {time.perf_counter() - t0:.1f} s): "
         + json.dumps(data))
-    marks.append(("21-22", time.perf_counter()))
+    mark("21-22")
     t0 = time.perf_counter()
     nodes = multi_node_phase(torch, models, attention, args.seed, card)
     log(f"23 several nodes ({time.perf_counter() - t0:.1f} s): " + json.dumps(nodes))
-    marks.append(("23", time.perf_counter()))
+    mark("23")
     log("phase seconds: " + json.dumps(
         {name: round(t - prev, 1) for (_, prev), (name, t) in zip(marks, marks[1:])}
-        | {"total": round(marks[-1][1] - marks[0][1], 1)}))
+        | {"24 (within 23)": round(nodes["compiled_dag"]["phase_s"], 1),
+           "total": round(marks[-1][1] - marks[0][1], 1)}))
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -5266,6 +5541,10 @@ def main() -> int:
                 nodes["actor_train"]["launches"][name],
             "launches_bench_350m_client": nodes["client"]["launches"][name],
             "launches_pip_env_attention": nodes["pip_env"]["launches"][name],
+            # Phase 24a: the steps in 23a's actor driven through a compiled
+            # DAG, counted by that worker.
+            "launches_bench_350m_compiled_dag":
+                nodes["compiled_dag"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

@@ -27,9 +27,11 @@ plane (`TorchTrainer`, worker groups, sessions, DCP checkpoints, the
 elastic supervisor, train observability) with `util`'s chaos, state and
 timeline readers; several nodes on one host (`cluster_utils`, node chaos),
 one card per GPU lease, the `ray-tpu://` client (`util/client`) and pip,
-conda and container runtime envs. Cross-language calls and the GPU gang
-(ROADMAP queue A, item 10a-iv), the DAG layer (10c-ii) and tune (10d-ii)
-are not ported yet.
+conda and container runtime envs; `dag` (`.bind()` graphs, executed by
+task submission or compiled into stage loops over shared-memory rings and
+cross-node pushes), cross-language calls (`util/cross_lang`,
+`register_cross_lang`) and the GPU host gang (`util/placement_group`,
+`util/gpu`). Tune and workflows are not ported yet.
 
 A bare `import ray_tpu_torch` stays light, as `import ray_tpu` does: the
 subpackages (`models`, `ops`, `serve`, ...) import on first touch, so the
@@ -58,8 +60,8 @@ from ray_tpu_torch.core.streaming import ObjectRefGenerator
 from ray_tpu_torch.remote_function import RemoteFunction
 from ray_tpu_torch.runtime_context import get_runtime_context
 
-_SUBPACKAGES = ("core", "data", "models", "ops", "parallel", "rllib", "serve",
-                "train", "util")
+_SUBPACKAGES = ("core", "dag", "data", "models", "ops", "parallel", "rllib",
+                "serve", "train", "util")
 
 
 def __getattr__(name):
@@ -75,7 +77,7 @@ def __getattr__(name):
 
 
 __all__ = [
-    "core", "data", "models", "ops", "parallel", "serve", "train",
+    "core", "dag", "data", "models", "ops", "parallel", "serve", "train",
     "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
     "kill", "cancel", "get_actor", "register_cross_lang", "cluster_resources",
     "available_resources", "nodes", "ObjectRef", "ObjectRefGenerator",

@@ -14,7 +14,7 @@ from typing import Any, List, Optional, Union
 from ray_tpu_torch.core.ids import ActorID
 from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.task_spec import TaskOptions
-from ray_tpu_torch.remote_function import _NO_DAG, _merge_options
+from ray_tpu_torch.remote_function import _merge_options
 
 
 def method(*, concurrency_group: Optional[str] = None, **_ignored):
@@ -82,7 +82,9 @@ class ActorMethod:
         return refs
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(_NO_DAG)
+        from ray_tpu_torch.dag.api import actor_method_bind
+
+        return actor_method_bind(self._handle, self._method_name, args, kwargs)
 
 
 class ActorHandle:
@@ -145,4 +147,6 @@ class ActorClass:
                            methods)
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(_NO_DAG)
+        from ray_tpu_torch.dag.api import actor_class_bind
+
+        return actor_class_bind(self, args, kwargs)

@@ -6,9 +6,10 @@ starts a single-host cluster (GCS, node daemon, zygote workers, shared-memory
 store) through `core/distributed/driver.py`, and `init(address=...)` or
 `RAY_TPU_ADDRESS` joins a running ray_tpu_torch cluster, and
 `init("ray-tpu://host:port")` drives one through its client proxy
-(`util/client`). `register_cross_lang` raises: it is ROADMAP item 10a-iv.
-`shutdown` writes no usage snapshot yet (item 10d; `util/usage_stats`
-records library usage in memory).
+(`util/client`). `register_cross_lang` names a Python function for the C++
+worker API (`cpp/`, `util/cross_lang.py`). `shutdown` writes no usage
+snapshot yet (item 10d; `util/usage_stats` records library usage in
+memory).
 
 Analogue of the reference driver API (ref: python/ray/_private/worker.py —
 init :1217, get :2574, put :2686, wait :2751, remote :3144, shutdown :1795).
@@ -44,10 +45,6 @@ def is_initialized() -> bool:
 def _set_global_worker(worker) -> None:
     global _worker
     _worker = worker
-
-
-_NOT_PORTED = ("ray_tpu_torch has not ported it yet (ROADMAP queue A, "
-               "item 10a-iv)")
 
 
 def init(
@@ -206,11 +203,19 @@ def get_actor(name: str, namespace: Optional[str] = None) -> ActorHandle:
 
 def register_cross_lang(name: str, func) -> None:
     """Expose a Python function to non-Python clients by name (ref: the
-    reference's cross-language function registry). Raises: the C++ client
-    that resolves it is ROADMAP item 10a-iv."""
-    raise NotImplementedError(
-        f"register_cross_lang({name!r}): the cross-language registry: "
-        f"{_NOT_PORTED}")
+    reference's cross-language function registry used by the C++/Java
+    worker APIs). The C++ client resolves `name` via the GCS KV and
+    submits tasks running `func` on Python workers."""
+    worker = _global_worker()
+    if hasattr(worker, "_export_function"):
+        # Canonical export path: dedup cache + overwrite=False.
+        key = worker._export_function(func)
+    else:  # local mode / thin client: direct KV export
+        from ray_tpu_torch.core.distributed import protocol
+
+        key, blob = protocol.function_key(func)
+        worker.kv_put(b"fn", key, blob)
+    worker.kv_put(b"xlang", name.encode(), key)
 
 
 def cluster_resources() -> dict:

@@ -500,6 +500,9 @@ class Config:
     # busy peer on the same core can make progress.
     channel_backoff_us_min: float = 1.0
     channel_backoff_us_max: float = 200.0
+    # CompiledDAG.teardown() wait on stage loops before raising with
+    # the straggler list.
+    dag_teardown_timeout_s: float = 10.0
     # ---- usage stats (util/usage_stats.py; opt-in, off by default like
     # the reference's RAY_USAGE_STATS_ENABLED gate) ----
     usage_stats_enabled: bool = False

@@ -10,5 +10,6 @@ grants each lease card ids and scopes its worker to them), and the
 in-process harnesses of `virtual_node.py`. Several daemons run on one
 machine through `ray_tpu_torch.cluster_utils`, and objects move between
 them through `transfer`/`pull_manager`; the client proxy is
-`ray_tpu_torch.util.client`. Cross-language calls are ROADMAP queue A,
-item 10a-iv."""
+`ray_tpu_torch.util.client`. Remote writers of the compiled DAG's rings push
+through the daemon's `channel_*` endpoints; C++ workers and clients
+(`cpp/`, `util/cross_lang.py`) speak the same wire protocol."""

@@ -25,6 +25,9 @@ import re
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 VISIBLE_DEVICES_ENV = "CUDA_VISIBLE_DEVICES"
+# A GPU host's index within its gang of hosts, the counterpart of a TPU
+# host's ``TPU_WORKER_ID``: set by whoever starts the node.
+WORKER_ID_ENV = "GPU_WORKER_ID"
 
 # "<vendor> <MODEL>...": the model is the second word, up to a non
 # alphanumeric ("Tesla V100-SXM2-16GB" -> "V100").
@@ -58,6 +61,17 @@ def visible_chip_env(chip_ids: Sequence) -> Dict[str, str]:
     """The env var that scopes a worker process to its granted GPUs."""
     return {VISIBLE_DEVICES_ENV: ",".join(str(i) for i in chip_ids)}
 
+
+def get_worker_id() -> Optional[int]:
+    """This host's index in its gang of GPU hosts: ``GPU_WORKER_ID``, or
+    None (a host that was not given one). The node daemon labels itself
+    ``GPU_WORKER_ID`` with it, which the bundles of
+    `util.placement_group.gpu_host_placement_group` prefer."""
+    raw = os.environ.get(WORKER_ID_ENV, "").strip()
+    try:
+        return int(raw) if raw else None
+    except ValueError:
+        return None
 
 
 def granted_chip_ids() -> List[int]:

@@ -499,13 +499,14 @@ class _PinnedLane:
     """
 
     def __init__(self, core: "DistributedCoreWorker", key, demand, sched,
-                 fn_key: bytes, name: str):
+                 fn_key: bytes, name: str, exclusive: bool = False):
         self.core = core
         self.key = key
         self.demand = demand
         self.sched = sched
         self.fn_key = fn_key
         self.name = name
+        self.exclusive = exclusive   # compiled-DAG stage lane: not shared
         self.lane_id = uuid.uuid4().hex
         self.state = "opening"        # opening -> ready -> closed
         self.inflight = 0
@@ -613,13 +614,26 @@ class _PinnedLane:
             raise RpcError("lane worker retiring")
         return reply
 
+    async def apply_async(self, blob: bytes, name: str = "dag_stage"):
+        """Long-running lane body (compiled-DAG stage loop): returns the
+        in-flight call's coroutine result dict when the loop exits."""
+        if self._open_task is not None:
+            await asyncio.shield(self._open_task)
+            self._open_task = None
+        if self.state != "ready":
+            raise RpcError("lane closed")
+        return await self._client.call("Worker", "lane_apply",
+                                       blob=Raw(blob), name=name,
+                                       timeout=None)
+
     def close(self, reason: str = "") -> None:
         """Idempotent teardown: unregister, close the worker lane,
         return (unpin) the lease, drop the dedicated connection."""
         if self.state == "closed":
             return
         self.state = "closed"
-        if self.core._pinned_lanes.get(self.key) is self:
+        if not self.exclusive \
+                and self.core._pinned_lanes.get(self.key) is self:
             del self.core._pinned_lanes[self.key]
         self.core._lane_stat("closed")
         asyncio.ensure_future(self._close_async())
@@ -2381,6 +2395,55 @@ class DistributedCoreWorker:
                 closers.append(lane._close_async())
         if closers:
             await asyncio.gather(*closers, return_exceptions=True)
+
+    # ------------------------------------------------------------------
+    # exclusive lanes (compiled-DAG FunctionNode stages)
+    # ------------------------------------------------------------------
+    def open_exclusive_lane(self, fn, *, num_cpus: float = 1.0,
+                            resources: Optional[Dict[str, float]] = None,
+                            timeout: float = 120.0) -> "_PinnedLane":
+        """Sync facade: lease + pin a dedicated worker for one
+        compiled-DAG FunctionNode stage and open a lane on it. The lane
+        is NOT in the shared registry — the DAG owns its lifecycle (and
+        the idle reaper never touches it)."""
+        fn_key = self._export_function(fn)
+        demand = {"CPU": float(num_cpus)} if num_cpus else {}
+        for k, v in (resources or {}).items():
+            demand[k] = float(v)
+        sched = self._scheduling_fields(TaskOptions())
+        name = getattr(fn, "__qualname__", "dag_stage")
+
+        async def open_lane():
+            lane = _PinnedLane(self, None, demand, sched, fn_key, name,
+                               exclusive=True)
+            try:
+                await lane._open_task
+            finally:
+                lane._open_task = None
+            return lane
+
+        return self.loop_thread.run(open_lane(), timeout=timeout)
+
+    def lane_apply(self, lane: "_PinnedLane", blob: bytes,
+                   name: str = "dag_stage") -> Future:
+        """Kick off a long-running lane body (a stage loop); returns a
+        concurrent future resolving to the worker's {"error": ...} reply
+        when the loop exits — the compiled DAG's loop-ref analogue."""
+        return asyncio.run_coroutine_threadsafe(
+            lane.apply_async(blob, name), self.loop_thread.loop)
+
+    def close_exclusive_lane(self, lane: "_PinnedLane",
+                             timeout: float = 10.0) -> None:
+        async def close():
+            if lane.state != "closed":
+                lane.state = "closed"
+                self._lane_stat("closed")
+                await lane._close_async()
+
+        try:
+            self.loop_thread.run(close(), timeout=timeout)
+        except Exception:  # noqa: BLE001 — teardown is best-effort
+            pass
 
     async def _run_task_to_completion_async(self, spec, demand, sched,
                                             return_ids, fut):

@@ -21,6 +21,7 @@ import asyncio
 import logging
 import os
 import random
+import struct
 import subprocess
 import sys
 import threading
@@ -207,6 +208,14 @@ class NodeDaemon:
         self.available: Dict[str, float] = {}
         self._gpus = ChipAllocator(0)    # sized with the resources
         self.labels = labels or {}
+        # Auto-label with this host's GPU worker id so host gangs
+        # (gpu_host_placement_group bundle ordering) can prefer it.
+        if "GPU_WORKER_ID" not in self.labels:
+            from ray_tpu_torch.core.distributed.accelerators import get_worker_id
+
+            wid = get_worker_id()
+            if wid is not None:
+                self.labels["GPU_WORKER_ID"] = str(wid)
         self.store_dir = store_dir or f"/dev/shm/raytpu_{self.node_id[:12]}"
         self.store = ObjectStore(self.store_dir,
                                  capacity=object_store_memory or 0)
@@ -254,6 +263,11 @@ class NodeDaemon:
         # NOT in self._workers: the OOM sweep and idle reaping never see
         # them — killing the template would re-cold-start the node.
         self._zygotes: Dict[str, ZygoteHandle] = {}
+        # Cross-host channel rings this daemon hosts or pushes into:
+        # path -> {"ch": Channel, "lock": threading.Lock}. The lock
+        # serializes channel_push executor threads per ring, which also
+        # makes the versioned-write dedupe check sound.
+        self._channels: Dict[str, dict] = {}
         # Serve replica gauges: (app, replica) -> {"ts", "gauges"}.
         # Replicas on this node push queue depth / KV-pool occupancy
         # here; the aggregate rides the SYNCER delta to the GCS so the
@@ -384,6 +398,13 @@ class NodeDaemon:
         for zh in list(self._zygotes.values()):
             zh.kill()
         self._zygotes.clear()
+        for ent in list(self._channels.values()):
+            try:
+                ent["ch"].close()
+                ent["ch"].unlink()
+            except Exception:  # noqa: BLE001
+                pass
+        self._channels.clear()
         for sink in list(self._recv_partials.values()):
             try:
                 sink.abort()
@@ -1843,37 +1864,129 @@ class NodeDaemon:
         return {"ok": True}
 
     # ------------------------------------------------------------------
-    # cross-host channel endpoints (compiled execution plane): the shm
-    # rings are `experimental/channel.py`; a writer on this host mmaps a
-    # ring directly, a writer on another host would push through these
-    # endpoints, which come with the DAG layer and cross-host channels
-    # (ROADMAP queue A, item 10c-ii). Until then each endpoint raises.
+    # cross-host channel endpoints (compiled execution plane): remote
+    # writers push serialized ring payloads as raw frames; this daemon
+    # lands them in the LOCAL shm ring its readers poll.
     # ------------------------------------------------------------------
-    @staticmethod
-    def _no_channels(name: str):
-        raise NotImplementedError(
-            f"NodeDaemon.{name}: cross-host channels come with the DAG "
-            f"layer, which ray_tpu_torch has not ported yet (ROADMAP queue "
-            f"A, item 10c-ii)")
+    def _is_channel_path(self, path) -> bool:
+        """True for a ring file: its real name starts ``rtpu_chan_`` and it
+        lies in this daemon's store directory (rings `channel_create`
+        made) or in `Channel.create`'s default directory (rings a process
+        of this node made). Every endpoint that names a path refuses any
+        other file, so an RPC caller cannot read, map or write it."""
+        from ray_tpu_torch.experimental.channel import DEFAULT_DIRECTORY
+
+        if not isinstance(path, str) or not path:
+            return False
+        real = os.path.realpath(path)
+        return (os.path.basename(real).startswith("rtpu_chan_")
+                and os.path.dirname(real) in {
+                    os.path.realpath(self.store_dir),
+                    os.path.realpath(DEFAULT_DIRECTORY)})
+
+    def _channel_entry(self, path: str, capacity: int, n_readers: int,
+                       n_slots: int) -> dict:
+        from ray_tpu_torch.experimental.channel import Channel
+
+        ent = self._channels.get(path)
+        if ent is None:
+            ent = {"ch": Channel(path, capacity, n_readers, n_slots),
+                   "lock": threading.Lock()}
+            self._channels[path] = ent
+        return ent
 
     def channel_create(self, n_readers: int,
                        capacity: Optional[int] = None,
                        n_slots: Optional[int] = None) -> dict:
-        self._no_channels("channel_create")
+        """Create a ring on THIS node for readers that live here."""
+        from ray_tpu_torch.experimental import channel as chmod
+
+        os.makedirs(self.store_dir, exist_ok=True)
+        ch = chmod.Channel.create(
+            n_readers, capacity or chmod.DEFAULT_CAPACITY,
+            n_slots or chmod.DEFAULT_SLOTS, directory=self.store_dir)
+        self._channels[ch.path] = {"ch": ch, "lock": threading.Lock()}
+        return {"path": ch.path, "capacity": ch.capacity,
+                "n_readers": ch.n_readers, "n_slots": ch.n_slots}
 
     async def channel_push(self, path: str, capacity: int, n_readers: int,
                            n_slots: int, version: int, data,
                            push_timeout: Optional[float] = None) -> dict:
-        self._no_channels("channel_push")
+        """Land one versioned payload in a local ring. Blocks (in an
+        executor thread) until the ring has a free slot, so the writer's
+        backpressure crosses the RPC hop. `version <= w_seq` is acked
+        without writing — the dedupe that makes writer retries safe."""
+        from ray_tpu_torch.experimental.channel import (
+            ChannelClosedError, ChannelTimeoutError)
+
+        if not self._is_channel_path(path):
+            return {"error": "not a channel path"}
+        if not os.path.exists(path):
+            return {"closed": True}
+        ent = self._channel_entry(path, capacity, n_readers, n_slots)
+        ch, lock = ent["ch"], ent["lock"]
+        version = int(version)
+
+        def _push():
+            with lock:
+                if version <= ch.version():
+                    return {"ok": True, "version": version,
+                            "deduped": True}
+                ch.write_bytes(data, timeout=push_timeout)
+                return {"ok": True, "version": version}
+
+        try:
+            return await asyncio.get_running_loop().run_in_executor(
+                None, _push)
+        except ChannelClosedError:
+            return {"closed": True}
+        except ChannelTimeoutError:
+            return {"timeout": True}
+        except Exception as e:  # noqa: BLE001
+            return {"error": str(e)}
 
     def channel_version(self, path: str) -> dict:
-        self._no_channels("channel_version")
+        from ray_tpu_torch.experimental.channel import _HDR
+
+        if not self._is_channel_path(path):
+            return {"version": 0, "closed": True,
+                    "error": "not a channel path"}
+        try:
+            with open(path, "rb") as f:
+                hdr = f.read(_HDR.size)
+            _, closed, _, _, _, wseq = _HDR.unpack_from(hdr, 0)
+            return {"version": wseq, "closed": bool(closed)}
+        except (OSError, struct.error):
+            return {"version": 0, "closed": True}
 
     def channel_close(self, path: str) -> dict:
-        self._no_channels("channel_close")
+        """Set the ring's closed flag: every blocked read/write raises."""
+        if not self._is_channel_path(path):
+            return {"ok": False, "error": "not a channel path"}
+        try:
+            fd = os.open(path, os.O_RDWR)
+            try:
+                os.pwrite(fd, struct.pack("<I", 1), 4)
+            finally:
+                os.close(fd)
+            return {"ok": True}
+        except OSError as e:
+            return {"ok": False, "error": str(e)}
 
     def channel_unlink(self, path: str) -> dict:
-        self._no_channels("channel_unlink")
+        if not self._is_channel_path(path):
+            return {"ok": False, "error": "not a channel path"}
+        ent = self._channels.pop(path, None)
+        if ent is not None:
+            try:
+                ent["ch"].unlink()
+            except Exception:  # noqa: BLE001
+                pass
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        return {"ok": True}
 
     def _find_pg_bundle(self, pg_id: str, demand) -> Optional[int]:
         for (pid, idx), bundle in self._pg_bundles.items():

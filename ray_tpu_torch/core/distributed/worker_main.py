@@ -268,6 +268,10 @@ class WorkerService:
         # spec template the per-call delta frames are expanded against
         # (fn_key/name/job_id travel ONCE at lane_open, never per call).
         self._lanes: Dict[str, dict] = {}
+        # Compiled-DAG stage loops (lane_apply) get their own threads:
+        # they run for the DAG's lifetime, and parking one in
+        # _task_pool would wedge the retirement drain.
+        self._lane_pool: Optional[ThreadPoolExecutor] = None
 
     def _record_event(self, spec: dict, state: str, start_ts: float,
                       end_ts: float, error: Optional[str] = None,
@@ -904,6 +908,31 @@ class WorkerService:
         self._maybe_retire()
         return reply
 
+    async def lane_apply(self, blob, name: str = "dag_stage") -> dict:
+        """Run a long-lived body (a compiled-DAG FunctionNode stage loop)
+        in this pinned worker: `blob` is a cloudpickled zero-arg
+        callable; the call returns when the loop exits (channel close at
+        teardown). The RPC reply doubles as the loop ref."""
+        loop = asyncio.get_running_loop()
+        if self._lane_pool is None:
+            self._lane_pool = ThreadPoolExecutor(
+                max_workers=4, thread_name_prefix="lane")
+
+        def run():
+            fn = serialization.cloudpickle.loads(blob)
+            return fn()
+
+        try:
+            await loop.run_in_executor(self._lane_pool, run)
+            return {"error": None}
+        except BaseException as e:  # noqa: BLE001
+            if isinstance(e, rexc.RayTpuError):
+                err = e
+            else:
+                err = rexc.TaskError.from_exception(
+                    e, name, pid=os.getpid(), node_id=self.core.node_id)
+            return {"error": err}
+
     async def lane_close(self, lane_id: str) -> dict:
         self._lanes.pop(lane_id, None)
         return {"ok": True}
@@ -925,6 +954,17 @@ class WorkerService:
         except BaseException as e:  # noqa: BLE001
             logger.exception("actor construction failed")
             return {"ok": False, "error": repr(e)}
+        # Generic escape hatch used by compiled DAGs (the reference's
+        # `__ray_call__`, actor.py): run an arbitrary function with the
+        # actor instance as first argument, on the actor's own thread, so
+        # a stage loop sees the CUDA device and grad mode a call sees.
+        def __raytpu_apply__(fn, *a, **kw):
+            return fn(instance, *a, **kw)
+
+        try:
+            instance.__raytpu_apply__ = __raytpu_apply__
+        except AttributeError:
+            pass  # __slots__ class: compiled DAG loops unsupported on it
         try:
             self.actor = ActorRuntime(instance, max_concurrency,
                                       concurrency_groups)

@@ -22,8 +22,6 @@ Where it parts from the JAX package's local engine:
 - placement groups are records, created at once, and the public API works
   on them (`bundle_labels`, `wait_placement_group`); there,
   ``placement_group()`` raises;
-- actor instances get no `__raytpu_apply__` (the compiled-DAG hook): the
-  DAG layer is ROADMAP queue A, item 10c-ii;
 - a ref's release never waits on a lock (`_ref_removed`): it runs from
   ``ObjectRef.__del__``, so from a garbage collection that any allocation
   may start, also one inside the store's lock. There, the store's plain
@@ -172,6 +170,18 @@ class _LocalActor:
         self.creation_error: Optional[BaseException] = None
         try:
             self.instance = cls(*args, **kwargs)
+            # Same compiled-DAG escape hatch the distributed worker
+            # installs (the reference's `__ray_call__`): it runs as a
+            # method call, so under the caller's `_thread_state`.
+            inst = self.instance
+
+            def __raytpu_apply__(fn, *a, **kw):
+                return fn(inst, *a, **kw)
+
+            try:
+                inst.__raytpu_apply__ = __raytpu_apply__
+            except AttributeError:
+                pass
         except BaseException as e:  # noqa: BLE001
             self.creation_error = e
 

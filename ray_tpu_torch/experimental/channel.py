@@ -74,6 +74,8 @@ _WSEQ_OFF = 32      # header: magic(4) closed(4) cap@8 n_readers@16
 
 DEFAULT_CAPACITY = 4 << 20
 DEFAULT_SLOTS = 8
+# Where `Channel.create` puts a ring unless told otherwise.
+DEFAULT_DIRECTORY = "/dev/shm"
 
 
 class ChannelClosedError(Exception):
@@ -116,7 +118,7 @@ class Channel:
     @classmethod
     def create(cls, n_readers: int, capacity: int = DEFAULT_CAPACITY,
                n_slots: int = DEFAULT_SLOTS,
-               directory: str = "/dev/shm") -> "Channel":
+               directory: str = DEFAULT_DIRECTORY) -> "Channel":
         path = os.path.join(directory, f"rtpu_chan_{uuid.uuid4().hex}")
         ch = cls(path, capacity, n_readers, n_slots)
         with open(path, "wb") as f:

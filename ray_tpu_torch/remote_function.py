@@ -12,10 +12,6 @@ from typing import Any, Dict, List, Optional, Union
 from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.task_spec import TaskOptions
 
-_NO_DAG = (".bind() builds a DAG node; ray_tpu_torch has no DAG layer yet "
-           "(ROADMAP queue A, item 10c-ii)")
-
-
 def _merge_options(base: TaskOptions, **updates) -> TaskOptions:
     known = {f.name for f in dataclasses.fields(TaskOptions)}
     clean: Dict[str, Any] = {}
@@ -57,7 +53,9 @@ class RemoteFunction:
             return refs[0]
         return refs
 
-    def bind(self, *args, **kwargs):
-        """A lazy DAG node (ref: python/ray/dag/dag_node.py): raises, the DAG
-        layer comes with the serve control plane."""
-        raise NotImplementedError(_NO_DAG)
+    @property
+    def bind(self):
+        """Build a lazy DAG node (ref: python/ray/dag/dag_node.py)."""
+        from ray_tpu_torch.dag.api import function_bind
+
+        return functools.partial(function_bind, self)

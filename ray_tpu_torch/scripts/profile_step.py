@@ -51,7 +51,10 @@ def profile_step(step_fn, state, tokens, *, detail: bool = False,
     records the ops' input dtypes, which `ops_ms` then tells apart."""
     from torch.profiler import ProfilerActivity, profile
 
+    from ray_tpu_torch.ops import attention
+
     torch.cuda.synchronize()
+    before = dict(attention.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
@@ -60,6 +63,10 @@ def profile_step(step_fn, state, tokens, *, detail: bool = False,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     out = trace_summary(prof, wall_ms)
+    # The wrappers' own counts over the same step: a second witness beside
+    # the trace's kernel records.
+    out["counted_launches"] = {n: c - before.get(n, 0)
+                               for n, c in attention.launches.items()}
     if detail:
         ops = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
                if e.key.startswith("aten::") and e.self_device_time_total > 0}
@@ -71,7 +78,9 @@ def profile_step(step_fn, state, tokens, *, detail: bool = False,
 def trace_summary(prof, wall_ms: float) -> dict:
     """From a finished torch.profiler run over `wall_ms` of host time:
     device ms by kernel group, the device's busy ms and idle share, the
-    launches of each attention kernel by name, the top 15 kernels, and
+    launches of each attention kernel by name, the launch calls of each
+    API (runtime, driver) and how many have no kernel record, the top 15
+    kernels, and
     device ms by the aten op that launched each kernel ("aten::bmm float";
     the dtype of its first input, where the run recorded shapes)."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -82,6 +91,18 @@ def trace_summary(prof, wall_ms: float) -> dict:
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         raise AssertionError("profiler recorded no device kernels")
+    # Each kernel record carries the correlation id of the host call that
+    # launched it; a launch call whose id no kernel record carries is a
+    # kernel the trace lost.
+    recorded = {e.get("args", {}).get("correlation") for e in kernels}
+    completeness = {}
+    for e in events:
+        cat, corr = e.get("cat"), e.get("args", {}).get("correlation")
+        if cat in ("cuda_runtime", "cuda_driver") and "Launch" in e.get("name", "") \
+                and corr is not None:
+            entry = completeness.setdefault(cat, {"launches": 0, "without_kernel": 0})
+            entry["launches"] += 1
+            entry["without_kernel"] += corr not in recorded
     # A kernel's "External id" is that of the innermost op that launched it.
     launcher = {}
     for e in events:
@@ -105,6 +126,7 @@ def trace_summary(prof, wall_ms: float) -> dict:
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "kernels": len(kernels), "attention_launches": attention,
+           "trace_completeness": completeness,
            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     out["top_kernels_ms"] = dict(top)

@@ -8,8 +8,8 @@ with exactly-once resume and shared-memory rails, serve observability,
 and the disaggregated-serving plane (prefill actors, prefix registry, live
 KV migration). Beside them, the fixed-slot and paged serving engines, the
 block allocator with its object-store arena, and `LLMDeployment`, which
-wraps an engine as a deployment. The deployment-graph DAG layer of
-`ray_tpu.dag` is ROADMAP queue A, item 10c-ii.
+wraps an engine as a deployment. A deployment's `bind` is serve's own; the
+task and actor DAGs are `ray_tpu_torch.dag`.
 """
 from ray_tpu_torch.serve.api import (delete, get_app_handle,
                                      get_deployment_handle, http_port,

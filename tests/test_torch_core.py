@@ -10,8 +10,8 @@ Around them: every exception class pickles as JAX's does, `TaskOptions`
 asks for "GPU" where JAX asks for "TPU", `resources.py`'s set math and
 detection (probe stubbed) match JAX's under the override knobs, a tensor
 comes back from the store as it went in, a task runs under its caller's
-grad and inference mode, what the port has not ported yet raises, and
-`init()` starts a multi-process cluster that an address joins.
+grad and inference mode, `register_cross_lang` and `.bind()` work as
+JAX's do, and `init()` starts a multi-process cluster that an address joins.
 
 Every run shuts its runtime down in `finally`, and a runtime left up by an
 earlier test file is shut down first: a leaked `init` poisons the xdist
@@ -697,10 +697,41 @@ def test_a_ref_dropped_inside_the_store_lock_does_not_deadlock():
     assert _in_local_mode(ray_tpu_torch, program) == (True, True, False)
 
 
+def _xlang_and_bind(rt):
+    """`register_cross_lang` writes the function's key under b"xlang", and
+    `.bind()` on a remote function, an actor class and an actor method
+    builds the DAG node that `execute`s to the call's value."""
+    worker = rt.api._global_worker()
+    proto = importlib.import_module(f"{rt.__name__}.core.distributed.protocol")
+
+    def add(a, b):
+        return a + b
+
+    rt.register_cross_lang("add", add)
+    xlang = worker.kv_get(b"xlang", b"add") == proto.function_key(add)[0]
+    f = rt.remote(add)
+
+    @rt.remote
+    class A:
+        def __init__(self, base=0):
+            self.base = base
+
+        def m(self, x=1):
+            return self.base + x
+
+    nodes = (f.bind(1, 2), A.bind(10), A.remote(5).m.bind(3))
+    kinds = [type(n).__name__ for n in nodes]
+    fn_value = rt.get(nodes[0].execute())
+    actor = nodes[1].execute()
+    method_value = rt.get(nodes[2].execute())
+    return xlang, kinds, fn_value, rt.get(actor.m.remote(4)), method_value
+
+
 def test_what_needs_the_multiprocess_runtime_raises(monkeypatch):
-    """What the port has not ported raises and names its ROADMAP item: the
-    cross-language registry (10a-iv), DAG nodes (10c-ii); a serve
-    deployment's `bind` runs. A ray-tpu:// address, given to `init` or
+    """What PRs before the DAG layer left raising now runs in both packages:
+    `register_cross_lang` writes its b"xlang" key and `.bind()` builds DAG
+    nodes that execute to JAX's values; a serve deployment's `bind` stays
+    serve's own. A ray-tpu:// address, given to `init` or
     through RAY_TPU_ADDRESS, connects through a client proxy (a proxy
     process that hosts its own cluster's driver). `init()` and an implicit
     init start a cluster instead
@@ -735,25 +766,22 @@ def test_what_needs_the_multiprocess_runtime_raises(monkeypatch):
         reset_config()
         assert not ray_tpu_torch.is_initialized()
 
-        @ray_tpu_torch.remote
-        def f():
-            return 1
-
         ray_tpu_torch.init(local_mode=True)
         with pytest.raises(RuntimeError, match="already been called"):
             ray_tpu_torch.init(local_mode=True)
         assert ray_tpu_torch.init(local_mode=True, ignore_reinit_error=True) is not None
-        with pytest.raises(NotImplementedError, match="item 10a-iv"):
-            ray_tpu_torch.register_cross_lang("f", lambda: 1)
+        got = _xlang_and_bind(ray_tpu_torch)
+        assert got == (True, ["FunctionNode", "ActorClassNode", "ActorMethodNode"],
+                       3, 14, 8), got
+        ray_tpu_torch.shutdown()
+        assert _in_local_mode(ray_tpu, _xlang_and_bind) == got
+        ray_tpu_torch.init(local_mode=True)
 
         @ray_tpu_torch.remote
         class A:
             def m(self):
                 return 1
 
-        for bind in (f.bind, A.bind, A.remote().m.bind):
-            with pytest.raises(NotImplementedError, match="item 10c-ii"):
-                bind()
         # A deployment's bind is serve's own: it builds the application.
         from ray_tpu_torch import serve
 

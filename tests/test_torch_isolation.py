@@ -27,7 +27,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "ray_tpu",
 # serve control plane with its channels and usage stats included, and the
 # train plane with its chaos injectors and state/timeline readers, and the
 # data layer with its streaming executor, and several nodes on one host with
-# the client proxy and the in-process daemon harnesses).
+# the client proxy and the in-process daemon harnesses, and the DAG layer,
+# cross-language calls and the GPU host gang).
 REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.collectives",
             "ray_tpu_torch.models.training", "ray_tpu_torch.models.hf_convert",
@@ -71,7 +72,11 @@ REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             "ray_tpu_torch.cluster_utils",
             "ray_tpu_torch.core.distributed.virtual_node",
             "ray_tpu_torch.util.client", "ray_tpu_torch.util.client.client",
-            "ray_tpu_torch.util.client.server")
+            "ray_tpu_torch.util.client.server",
+            *(f"ray_tpu_torch.dag.{m}" for m in (
+                "api", "dag_node", "compiled_dag")),
+            "ray_tpu_torch.dag", "ray_tpu_torch.util.cross_lang",
+            "ray_tpu_torch.util.gpu")
 
 _CHECK = r"""
 import importlib, importlib.abc, pkgutil, sys
