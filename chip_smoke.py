@@ -183,7 +183,11 @@ Run from a checkout of the repository on a machine with a Hopper card
    sampled batch under the same per-actor permutations and its broadcast,
    card against CPU, within RL_CARD_CPU_TOL (weights, metrics, Adam
    moments), and the remote evaluation runner's greedy returns equal;
-19. the multi-process runtime on one host (`ray_tpu_torch.init()`): (a)
+19. the multi-process runtime on one host (`ray_tpu_torch.init()`; one
+   cluster carries phases 19-22 and 25, in the order 19a, 20, 21-22,
+   19b-e, 25, because 20 and 21 hold the store to their baselines
+   exactly and 19c leaves a nested ref that its owner keeps for the
+   transit grace; `one_cluster_phases`): (a)
    the cluster's start (GCS, node daemon with its time-boxed GPU probe,
    the worker zygote) in seconds, and `cluster_resources()` with GPU 1.0
    and an `accelerator_type:` key naming the card; (b) this slice's main
@@ -298,6 +302,30 @@ Run from a checkout of the repository on a machine with a Hopper card
    actor on the head, each beside 1,000 no-op `.remote()` calls (median and
    p99 us), then `teardown()` and a normal call the actor answers; the gang
    is removed and the card free before (b) of phase 23.
+25. tune, workflows, the profiling plugin and the usage snapshot, on the
+   cluster of 19-22 before it shuts down: (a) `tune.Tuner` runs phase 4's
+   cell (bench-350m, 8 x 2048, AdamW with 10 warmup steps over 1,000,
+   remat "full", seed --seed) at each trial's peak lr over
+   `grid_search(TUNE_LRS)` for TUNE_STEPS steps, ASHA over the loss
+   (grace TUNE_RUNG, reduction factor 2, max_t TUNE_STEPS), two trials at
+   a time, each a trial actor in a worker process that sees the card: the
+   3e-4 trial's losses bit-equal to 19b's direct step's at 2L / L / L
+   launches a step counted there, at least one trial stopped before
+   max_t, the results a `tune.Callback` recorded replayed into a fresh
+   `ASHAScheduler` giving the Tuner's stops, the card's peak memory (all
+   processes) and its used memory back within 512 MiB once the Tuner
+   returns; (b) a durable workflow (a batch step, a num_gpus=1 step that
+   builds phase 4's state and takes one step, a record step) whose GPU
+   step fails its first attempt (FAILED); `workflow.resume` loads the
+   batch from storage (it ran once) and reruns the GPU step once: its loss
+   bit-equal to the direct step's first, 2L / L / L launches, SUCCESSFUL,
+   `get_output` and `list_all` agree; (c) a num_gpus=1 task under
+   `runtime_env={"tpu_profiling": {"jax_trace_dir": d}}` runs 23d's
+   `flash_attention` call (1/1/1 launches, within KERNEL_TOLERANCE); after
+   the cluster's shutdown `d` holds that worker's Chrome trace, naming the
+   three wgmma kernels; (d) the usage snapshot the shutdown wrote at
+   RAY_TPU_USAGE_STATS_PATH lists serve, train, data, rllib, tune and
+   workflow.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -315,8 +343,10 @@ as `launches_bench_350m_cluster_actor_train`, of phase 20's replica as
 as `launches_bench_350m_data_ingest`, of 23a's steps on a second node as
 `launches_bench_350m_multi_node`, of 23b's through the client as
 `launches_bench_350m_client`, of 23d's venv call as
-`launches_pip_env_attention` and of 24a's steps through the compiled DAG
-as `launches_bench_350m_compiled_dag`), and {"ok": true,
+`launches_pip_env_attention`, of 24a's steps through the compiled DAG
+as `launches_bench_350m_compiled_dag`, of 25a's 3e-4 trial as
+`launches_bench_350m_tune_trial` and of 25b's resumed workflow step as
+`launches_bench_350m_workflow_step`), and {"ok": true,
 "device": {...}}.
 """
 from __future__ import annotations
@@ -3709,49 +3739,51 @@ def _dump_node_logs(rt, lines: int = 25, node_ids=None) -> None:
                                         if "ray_tpu_torch.core" in l or "PID" in l))
 
 
-def cluster_phase(torch, models, attention, steps: int, seed: int, card: str,
-                  cfg=None, batch: int = 8, seq: int = 2048, device: str = "cuda",
-                  num_cpus: int = 16, trips: int = 1000) -> dict:
-    """Phase 19: the multi-process runtime on one host (a-e), shut down at
-    the end; then 19d's round trips on the in-process engine beside it.
-    `num_cpus` is the logical CPU count: 19e's card-vs-CPU pair holds ten
-    actors of one CPU at once."""
-    import ray_tpu_torch as rt
-
+def cluster_start(torch, rt, card: str, num_cpus: int, device: str) -> dict:
+    """Phase 19a: `init()` of the one-host runtime, its seconds and its
+    resources (GPU 1.0, an `accelerator_type:` naming the card)."""
     host = _host_state(torch)
     log(f"19 [{card}]: host before init: {host}")
     t0 = time.perf_counter()
     rt.init(num_cpus=num_cpus, num_gpus=None if device == "cuda" else 1)
     init_s = time.perf_counter() - t0
-    out = {"host": host}
-    try:
-        res = rt.cluster_resources()
-        types = [k.split(":", 1)[1] for k in res if k.startswith("accelerator_type:")]
-        out["init"] = {"seconds": init_s, "cluster_resources": res,
-                       "nodes": len(rt.nodes())}
-        log(f"19a [{card}]: ray_tpu_torch.init(num_cpus={num_cpus}) {init_s:.2f} s (GCS, "
-            f"node daemon with its GPU probe, zygote), cluster_resources() {res}")
-        if res.get("GPU") != 1.0 or (device == "cuda" and (
-                len(types) != 1 or types[0] not in torch.cuda.get_device_name(0))):
-            raise AssertionError(f"19a: cluster_resources {res} do not show one card")
-        train, actor, state = cluster_train_turns(torch, models, attention, rt, steps, seed,
-                                                  card, cfg=cfg, batch=batch, seq=seq,
-                                                  device=device)
-        out["actor_train"] = train
-        out["put_get"] = cluster_put_get(torch, models, rt, actor, state.params, card,
-                                         device=device)
-        rt.kill(actor)
-        del state
-        if device == "cuda":
-            torch.cuda.empty_cache()
-        out["round_trips"] = {"cluster": round_trips(rt, trips)}
-        out["ppo"] = remote_ppo(torch, rt, seed, card, device=device, label="19e")
-    except BaseException:
-        log(f"19 [{card}]: failed; host now: {_host_state(torch)}")
-        _dump_node_logs(rt)
-        raise
-    finally:
-        rt.shutdown()
+    res = rt.cluster_resources()
+    types = [k.split(":", 1)[1] for k in res if k.startswith("accelerator_type:")]
+    store = rt.api._global_worker().store
+    out = {"host": host, "seconds": init_s, "cluster_resources": res,
+           "nodes": len(rt.nodes()), "store": (store.used, store.num_objects)}
+    log(f"19a [{card}]: ray_tpu_torch.init(num_cpus={num_cpus}) {init_s:.2f} s (GCS, "
+        f"node daemon with its GPU probe, zygote), cluster_resources() {res}, store "
+        f"(used bytes, objects) {out['store']}")
+    if res.get("GPU") != 1.0 or (device == "cuda" and (
+            len(types) != 1 or types[0] not in torch.cuda.get_device_name(0))):
+        raise AssertionError(f"19a: cluster_resources {res} do not show one card")
+    return out
+
+
+def cluster_actor_parts(torch, models, attention, rt, steps: int, seed: int, card: str,
+                        cfg=None, batch: int = 8, seq: int = 2048, device: str = "cuda",
+                        trips: int = 1000) -> dict:
+    """Phases 19b-d on a running one-host cluster: the step in a worker
+    actor in turns with the direct step, the params both ways, the
+    round trips."""
+    train, actor, state = cluster_train_turns(torch, models, attention, rt, steps, seed,
+                                              card, cfg=cfg, batch=batch, seq=seq,
+                                              device=device)
+    out = {"actor_train": train,
+           "put_get": cluster_put_get(torch, models, rt, actor, state.params, card,
+                                      device=device)}
+    rt.kill(actor)
+    del state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["round_trips"] = {"cluster": round_trips(rt, trips)}
+    return out
+
+
+def local_round_trips(rt, out: dict, card: str, trips: int = 1000) -> None:
+    """Phase 19d's in-process side, once the cluster is down, and the lines
+    of 19d and 19e."""
     rt.init(local_mode=True)
     try:
         out["round_trips"]["local"] = round_trips(rt, trips)
@@ -3771,7 +3803,6 @@ def cluster_phase(torch, models, attention, steps: int, seed: int, card: str,
         f"{p['local']['env_steps_per_s']:.0f} env steps/s "
         f"({p['local']['env_steps_per_s_after_first']:.0f}), "
         f"{p['local']['median_iteration_ms']:.1f} ms")
-    return out
 
 
 def _http_token_stream(port: int, body: dict, rid: str):
@@ -3846,11 +3877,10 @@ def _wait_store(store, want: tuple, timeout: float = 60) -> tuple:
 
 
 def serve_plane_phase(torch, models, attention, seed: int, card: str, phase6=None,
-                      cfg=None, device: str = "cuda", num_cpus: int = 16,
-                      num_slots: int = 8, max_len: int = 2048,
-                      new_tokens: int = 64) -> dict:
+                      cfg=None, device: str = "cuda", num_slots: int = 8,
+                      max_len: int = 2048, new_tokens: int = 64) -> dict:
     """Phase 20: llama3-8b (`cfg`) deployed with the port's serve plane on
-    its one-host cluster, the replica a `num_gpus=1` actor in a worker
+    the running one-host cluster, the replica a `num_gpus=1` actor in a worker
     process: (a) `serve.run` until `serve.status()` shows it ready; (b)
     phase 6's eight requests at once, four streamed over HTTP as JSONL and
     four through the handle, with the transport of each; (e) the median
@@ -3862,7 +3892,7 @@ def serve_plane_phase(torch, models, attention, seed: int, card: str, phase6=Non
     `forward` on weights remade from the seed, whose digest must be the
     replica's. `phase6`: phase 6's results, printed beside these. Passing
     `cfg` (a TransformerConfig) and `device="cpu"` rehearses it on the
-    CPU."""
+    CPU (`one_cluster_phases` starts the cluster)."""
     import numpy as np
 
     import ray_tpu_torch as rt
@@ -3882,7 +3912,6 @@ def serve_plane_phase(torch, models, attention, seed: int, card: str, phase6=Non
         torch.cuda.empty_cache()
     out = {"config": cfg.name, "n_layers": cfg.n_layers, "num_slots": num_slots,
            "max_len": max_len}
-    rt.init(num_cpus=num_cpus, num_gpus=None if cuda else 1)
     try:
         store = rt.api._global_worker().store
         baseline = (store.used, store.num_objects)
@@ -4030,13 +4059,19 @@ def serve_plane_phase(torch, models, attention, seed: int, card: str, phase6=Non
         _dump_node_logs(rt)
         raise
     finally:
-        try:
-            serve.shutdown()
-        finally:
-            rt.shutdown()
+        serve.shutdown()
+        # The prefill actor is detached (it outlives the deployment, as in
+        # JAX): on the cluster that goes on it would keep its model on the
+        # card.
+        from ray_tpu_torch.util import state as rt_state
+
+        for a in rt_state.list_actors():
+            if (a.get("name") or "").startswith("serve:prefill:") and \
+                    a.get("state") == "ALIVE":
+                rt.kill(rt.get_actor(a["name"]))
 
     # The greedy tokens against forward on weights remade from the seed,
-    # once the cluster's processes have given the card back.
+    # once the replicas' processes have given the card back.
     if cuda:
         deadline = time.perf_counter() + 120
         while torch.cuda.mem_get_info()[0] < 0.75 * torch.cuda.mem_get_info()[1]:
@@ -4190,7 +4225,7 @@ def _gib_s(rec) -> float:
 def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
                       batch: int = 8, seq: int = 2048, device: str = "cuda",
                       reference=None, direct_step_ms=None, phase4_mfu=None,
-                      num_cpus: int = 16, then=None) -> dict:
+                      then=None) -> dict:
     """Phase 21: bench-350m (`cfg`) trained through `train.TorchTrainer` on
     the one-host runtime, one worker with the card: (a) a clean fit of
     TRAIN_PLANE_STEPS steps saving the whole state after step
@@ -4203,7 +4238,9 @@ def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
     2L / L / L. The store's (used bytes, objects) must be back at their
     baseline after (b). `then(rt=..., reference=..., direct_step_ms=...,
     storage=...)` runs on the same cluster before it shuts down (phase 22);
-    its result is out["then"]."""
+    its result is out["then"]. It runs on the cluster that
+    `one_cluster_phases` started with RAY_TPU_TRAIN_OBS_PEAK_FLOPS at
+    PEAK_BF16_FLOPS."""
     import tempfile
     from types import SimpleNamespace
 
@@ -4238,16 +4275,13 @@ def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
     card_name = torch.cuda.get_device_name(0) if cuda else "cpu"
     fpt = 6.0 * cfg.num_params + 6 * cfg.n_layers * cfg.d_model * seq
     flops_per_step = fpt * batch * seq
-    peak_var = "RAY_TPU_TRAIN_OBS_PEAK_FLOPS"
-    peak_before = os.environ.get(peak_var)
-    os.environ[peak_var] = repr(PEAK_BF16_FLOPS)
     storage = tempfile.mkdtemp(prefix="chip_smoke_train_")
     if cuda:
         torch.cuda.empty_cache()
     out = {"config": cfg.name, "batch": batch, "seq": seq, "steps": steps,
-           "flops_per_step": flops_per_step}
+           "flops_per_step": flops_per_step, "reference": reference,
+           "direct_step_ms": direct_step_ms}
     t_phase = time.perf_counter()
-    rt.init(num_cpus=num_cpus, num_gpus=None if cuda else 1)
     try:
         store = rt.api._global_worker().store
         baseline = (store.used, store.num_objects)
@@ -4414,12 +4448,7 @@ def train_plane_phase(torch, models, attention, seed: int, card: str, cfg=None,
         _dump_node_logs(rt)
         raise
     finally:
-        rt.shutdown()
         shutil.rmtree(storage, ignore_errors=True)
-        if peak_before is None:
-            os.environ.pop(peak_var, None)
-        else:
-            os.environ[peak_var] = peak_before
     return out
 
 
@@ -4756,31 +4785,34 @@ def _until(pred, timeout: float, period: float = 0.05) -> float:
     return time.perf_counter() - t0
 
 
-def pip_env_attention(seed: int, b: int, t: int, h: int, d: int, device: str) -> dict:
-    """Phase 23d's task, in a pip runtime env's venv worker: import the
-    package the env installed, run `flash_attention` forward and backward
-    (bf16, causal) with this process's own launch counts, then hold each
-    kernel against its plain version on the same inputs within
-    KERNEL_TOLERANCE, as phase 2 does."""
+def attention_task(seed: int, b: int, t: int, h: int, d: int, device: str) -> dict:
+    """`flash_attention` forward and backward (bf16, causal) with this
+    process's own launch counts, then each kernel held against its plain
+    version on the same inputs within KERNEL_TOLERANCE, as phase 2 does:
+    the body of 23d's and 25c's tasks."""
     import math as _math
     import os as _os
-    import sys as _sys
 
     import torch
 
-    import chip_pip_probe
     from ray_tpu_torch.core.distributed import worker_main
     from ray_tpu_torch.ops import attention
 
+    entered = time.perf_counter()
+    age_s = _process_age_s()
     dtype = torch.bfloat16 if device == "cuda" else torch.float32
     gen = torch.Generator(device=device).manual_seed(seed)
     q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device=device, dtype=dtype)
                    for _ in range(4))
+    _sync(torch, device)
+    inputs_s = time.perf_counter() - entered
     attention.reset_launches()
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     o = attention.flash_attention(*leaves, causal=True)
     o.backward(do)
     launches = dict(attention.launches)
+    _sync(torch, device)
+    kernels_s = time.perf_counter() - entered - inputs_s
     finite = all(bool(torch.isfinite(x).all()) for x in [o] + [x.grad for x in leaves])
     kw = dict(causal=True, sm_scale=1.0 / _math.sqrt(d))
     tols = attention.KERNEL_TOLERANCE
@@ -4795,12 +4827,36 @@ def pip_env_attention(seed: int, b: int, t: int, h: int, d: int, device: str) ->
               "fa_bwd_dq": max_err(attention.fa_bwd_dq(*stats, **kw),
                                    attention.fa_bwd_dq_plain(*stats, **kw), tol),
               "fa_bwd_dkv": max(max_err(dk, dk_ref, tol), max_err(dv, dv_ref, tol))}
+    _sync(torch, device)
     return {"launches": launches, "errors": errors, "finite": finite,
+            # The worker's age when the call began, and the call's parts.
+            "timing": {"process_age_at_call": age_s, "inputs": inputs_s,
+                        "flash_attention": kernels_s,
+                        "whole_call": time.perf_counter() - entered},
             # flash_attention's forward is fa_fwd on the same inputs.
             "forward_same": bool(torch.equal(o.detach(), o_k)),
-            "python": _sys.executable, "package_python": chip_pip_probe.where(),
             "visible": _os.environ.get("CUDA_VISIBLE_DEVICES"),
-            "torch_at_boot": worker_main.TORCH_AT_BOOT}
+            "torch_at_boot": worker_main.TORCH_AT_BOOT, "pid": _os.getpid()}
+
+
+def _process_age_s() -> float:
+    """Seconds since this process started (/proc: no psutil needed)."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+def pip_env_attention(seed: int, b: int, t: int, h: int, d: int, device: str) -> dict:
+    """Phase 23d's task, in a pip runtime env's venv worker: import the
+    package the env installed, then `attention_task`."""
+    import sys as _sys
+
+    import chip_pip_probe
+
+    return {**attention_task(seed, b, t, h, d, device), "python": _sys.executable,
+            "package_python": chip_pip_probe.where()}
 
 
 def cross_node_put_get(torch, models, rt, actor, direct_params, card: str,
@@ -5102,8 +5158,10 @@ def multi_node_phase(torch, models, attention, seed: int, card: str, cfg=None,
         del state, tokens, init_fn, step_fn
         torch.cuda.empty_cache()
     used_before = _card_used(torch, device)
-    saved = {k: os.environ.get(k) for k in MULTI_NODE_HEALTH}
-    os.environ.update(MULTI_NODE_HEALTH)
+    # This cluster's knobs: short health checks, and the zygotes' preload.
+    env = {**MULTI_NODE_HEALTH, "RAY_TPU_ZYGOTE_PRELOAD": ",".join(CLUSTER_PRELOAD)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     out = {"card_used_before_gib": None if used_before is None else used_before / 2**30}
     t0 = time.perf_counter()
     cluster = Cluster(head_node_args={"num_cpus": 4, "num_gpus": 0,
@@ -5353,6 +5411,498 @@ def multi_node_phase(torch, models, attention, seed: int, card: str, cfg=None,
     return out
 
 
+# Phase 25a: the Tuner's cell. Phase 4's step at each trial's peak lr, for
+# TUNE_STEPS steps. The lrs run from the highest down: on these first steps
+# a higher peak lr gives a lower loss, so the later trials are the worse
+# ones and ASHA stops them at the rung. The rung is step 3, the first whose
+# loss depends on the lr (the warmup starts at 0: steps 1 and 2 see the
+# same params in every trial).
+TUNE_STEPS = 4
+TUNE_LRS = [3e-3, 1e-3, 3e-4, 1e-4]
+TUNE_RUNG = 3
+TUNE_DIRECT_LR = 3e-4  # phase 4's (bench_train_step's) peak lr
+
+
+def tune_trainable(config) -> None:
+    """Phase 25a's trainable, run by `tune.Tuner` in a trial actor (a worker
+    process that sees the node's card): phase 4's step from the seed at
+    `config["lr"]` on 19b's batches; each step reports the loss, this
+    process's kernel launches, and step and host ms."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import models, tune
+    from ray_tpu_torch.ops import attention
+
+    entered, age_s = time.perf_counter(), _process_age_s()
+    cfg, device = config["cfg"], config["device"]
+    init_fn, step_fn = models.training.make_train_step(
+        cfg, device=device, optimizer=models.training.default_optimizer(
+            config["lr"], warmup=10, total_steps=1000))
+    state = init_fn(torch.Generator(device=device).manual_seed(config["seed"]))
+    corpus = torch.from_numpy(np.random.default_rng(config["seed"]).integers(
+        0, cfg.vocab_size, (config["corpus_steps"], config["batch"], config["seq"] + 1),
+        dtype=np.int32))
+    card = torch.cuda.get_device_name() if device == "cuda" else "cpu"
+    _sync(torch, device)
+    setup = {"process_age_at_entry": age_s, "setup": time.perf_counter() - entered,
+             "wall_at_entry": time.time() - (time.perf_counter() - entered)}
+    for i in range(config["steps"]):
+        tokens = corpus[i].to(device)
+        seen = dict(attention.launches)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        host_ms = (time.perf_counter() - t0) * 1e3
+        loss = float(metrics["loss"])
+        _sync(torch, device)
+        tune.report({"timing": setup if i == 0 else None,
+            "loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3, "host_ms": host_ms,
+            "launches": {n: attention.launches[n] - seen[n] for n in seen},
+            "device": card, "pid": os.getpid(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0})
+
+
+def wf_batch(seed: int, vocab: int, corpus_steps: int, batch: int, seq: int, counts: str):
+    """Phase 25b's first step: 19b's first batch, a CPU tensor of
+    batch x (seq + 1) int32 from the seed; it counts its executions."""
+    import numpy as np
+    import torch
+
+    with open(counts, "a") as f:
+        f.write("b")
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (corpus_steps, batch, seq + 1), dtype=np.int32)[0].copy())
+
+
+def wf_train_step(tokens, cfg, seed: int, device: str, marker: str, counts: str) -> dict:
+    """Phase 25b's GPU step: it raises on its first attempt (the marker file
+    is not there yet), else builds phase 4's state from the seed and takes
+    one step on `tokens`, with this process's launches."""
+    import torch
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.ops import attention
+
+    with open(counts, "a") as f:
+        f.write("s")
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError("25b: the GPU step's first attempt fails on purpose")
+    entered, age_s = time.perf_counter(), _process_age_s()
+    init_fn, step_fn = bench_train_step(models, cfg, device)
+    state = init_fn(torch.Generator(device=device).manual_seed(seed))
+    seen = dict(attention.launches)
+    _sync(torch, device)
+    setup_s = time.perf_counter() - entered
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, {"tokens": tokens.to(device)})
+    loss = float(metrics["loss"])
+    _sync(torch, device)
+    out = {"loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+           "timing": {"process_age_at_entry": age_s, "setup": setup_s},
+           "launches": {n: attention.launches[n] - seen[n] for n in seen},
+           "pid": os.getpid(),
+           "device": torch.cuda.get_device_name() if device == "cuda" else "cpu"}
+    del state
+    if device == "cuda":
+        torch.cuda.empty_cache()  # the task's worker stays in the pool
+    return out
+
+
+def wf_record(result: dict, counts: str) -> dict:
+    """Phase 25b's last step: the GPU step's result, marked recorded."""
+    with open(counts, "a") as f:
+        f.write("r")
+    return {**result, "recorded": True}
+
+
+def tune_phase(torch, models, attention, rt, seed: int, card: str, reference,
+               direct_step_ms, cfg=None, batch: int = 8, seq: int = 2048,
+               device: str = "cuda") -> dict:
+    """Phase 25a: bench-350m (`cfg`) tuned by ASHA over TUNE_LRS with
+    `tune.Tuner` on the running one-host cluster, two trials at a time, each
+    a trial actor in a worker process. `reference`: 19b's direct losses on
+    the same batches; the TUNE_DIRECT_LR trial must equal them bit for bit
+    at 2L / L / L launches a step. A `tune.Callback` records the results
+    in the Tuner's order; replayed into a fresh `ASHAScheduler` they must
+    give the Tuner's decisions, and at least one trial must stop before
+    max_t. The card's used memory must come back within CARD_MEMORY_SLACK
+    of its value before the Tuner."""
+    import tempfile
+
+    from ray_tpu_torch import tune
+
+    cfg = cfg or models.configs.BENCH_350M
+    cuda = device == "cuda"
+    per_step = 1 if cuda else 0  # the plain versions count nothing
+    expected = {"fa_fwd": 2 * cfg.n_layers * per_step,
+                "fa_bwd_dq": cfg.n_layers * per_step, "fa_bwd_dkv": cfg.n_layers * per_step}
+
+    class Recorder(tune.Callback):
+        def __init__(self):
+            self.seen = []
+
+        def on_trial_result(self, trial_id, config, result):
+            self.seen.append((trial_id, result["training_iteration"], result["loss"]))
+
+    def scheduler():
+        return tune.ASHAScheduler(metric="loss", mode="min", grace_period=TUNE_RUNG,
+                                  reduction_factor=2, max_t=TUNE_STEPS)
+
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    recorder = Recorder()
+    config = {"lr": tune.grid_search(TUNE_LRS), "cfg": cfg, "device": device,
+              "seed": seed, "steps": TUNE_STEPS, "corpus_steps": CLUSTER_STEPS,
+              "batch": batch, "seq": seq}
+    if cuda:
+        torch.cuda.empty_cache()
+    before = _card_used(torch, device)
+    mem = _CardMemory(torch) if cuda else None
+    t0, fit_wall = time.perf_counter(), time.time()
+    try:
+        grid = tune.Tuner(
+            tune_trainable, param_space=config,
+            tune_config=tune.TuneConfig(metric="loss", mode="min", scheduler=scheduler(),
+                                        max_concurrent_trials=2),
+            run_config=rt.train.RunConfig(name="bench350m_asha", storage_path=storage,
+                                          callbacks=[recorder])).fit()
+    finally:
+        peak = mem.stop() if mem else None
+    fit_s = time.perf_counter() - t0
+    shutil.rmtree(storage, ignore_errors=True)
+    back_s = (_until(lambda: _card_used(torch, device) <= before + CARD_MEMORY_SLACK, 120)
+              if cuda else 0.0)
+    trials = []
+    for t in grid._trials:
+        steps = t.history
+        trials.append({
+            "trial_id": t.trial_id, "lr": t.config["lr"], "state": t.state,
+            "iterations": t.iteration, "losses": [m["loss"] for m in steps],
+            "step_ms": [m["step_ms"] for m in steps], "host_ms": [m["host_ms"] for m in steps],
+            "launches_per_step": [m["launches"] for m in steps],
+            "device": {m["device"] for m in steps}, "pids": {m["pid"] for m in steps},
+            "peak_gib": max((m["peak_gib"] for m in steps), default=None),
+            "timing": steps[0]["timing"] if steps else None, "error": t.error})
+        log(f"25a trial {t.trial_id} lr {t.config['lr']:g}: {t.state} after {t.iteration} "
+            f"steps, losses {trials[-1]['losses']}, step ms "
+            f"{[round(x, 1) for x in trials[-1]['step_ms']]} (host "
+            f"{[round(x, 1) for x in trials[-1]['host_ms']]}), process peak "
+            f"{trials[-1]['peak_gib']} GiB, pid {sorted(trials[-1]['pids'])}, entered "
+            f"{(trials[-1]['timing'] or {}).get('wall_at_entry', fit_wall) - fit_wall:.2f} s "
+            f"into the fit: {trials[-1]['timing']}")
+    for tr in trials:
+        if tr["error"] or tr["iterations"] < 1:
+            raise AssertionError(f"25a: trial {tr['trial_id']} failed: {tr['error']}")
+        if tr["device"] != {torch.cuda.get_device_name(0) if cuda else "cpu"}:
+            raise AssertionError(f"25a: trial {tr['trial_id']} ran on {tr['device']}")
+        if tr["pids"] & {os.getpid()}:
+            raise AssertionError(f"25a: trial {tr['trial_id']} ran in the driver")
+        for i, launched in enumerate(tr["launches_per_step"]):
+            if launched != expected:
+                raise AssertionError(f"25a: trial {tr['trial_id']} step {i} launched "
+                                     f"{launched}, not {expected}")
+    (direct,) = [tr for tr in trials if tr["lr"] == TUNE_DIRECT_LR]
+    want = list(reference[:len(direct["losses"])])
+    if direct["losses"] != want:
+        raise AssertionError(f"25a: the lr {TUNE_DIRECT_LR:g} trial's losses "
+                             f"{direct['losses']} are not the direct step's {want}")
+    # The Tuner's decisions, replayed from what it saw.
+    replay = scheduler()
+    decisions = [replay.on_result(tid, {"training_iteration": it, "loss": v})
+                 for tid, it, v in recorder.seen]
+    stop_at = {tid: it for (tid, it, _), d in zip(recorder.seen, decisions) if d == "STOP"}
+    tuner_stops = {tr["trial_id"]: tr["iterations"] for tr in trials
+                   if tr["state"] == "STOPPED"}
+    if stop_at != tuner_stops or any(tr["state"] not in ("STOPPED", "TERMINATED")
+                                     for tr in trials):
+        raise AssertionError(f"25a: replayed stops {stop_at} != the Tuner's {tuner_stops} "
+                             f"({[tr['state'] for tr in trials]})")
+    if not any(it < TUNE_STEPS for it in tuner_stops.values()):
+        raise AssertionError(f"25a: no trial stopped before max_t: {tuner_stops}")
+    after = _card_used(torch, device)
+    trial_ms = [x for tr in trials for x in tr["step_ms"][1:]]
+    out = {"config": cfg.name, "batch": batch, "seq": seq, "lrs": TUNE_LRS,
+           "steps": TUNE_STEPS, "rung": TUNE_RUNG, "fit_s": fit_s, "trials": trials,
+           "decisions": list(zip(recorder.seen, decisions)), "stopped": tuner_stops,
+           "card_used_before_gib": before / 2**30 if cuda else None,
+           "card_used_after_gib": after / 2**30 if cuda else None,
+           "card_back_s": back_s, "card_peak_gib": peak,
+           "trial_median_step_ms": statistics.median(trial_ms) if trial_ms else None,
+           "direct_median_step_ms": direct_step_ms,
+           "launches": {n: sum(c[n] for c in direct["launches_per_step"]) for n in expected}}
+    for tr in trials:
+        tr["device"], tr["pids"] = sorted(tr["device"]), sorted(tr["pids"])
+    log(f"25a [{card}]: {cfg.name} {batch} x {seq} tuned by ASHA (rung {TUNE_RUNG}, "
+        f"max_t {TUNE_STEPS}) over lr {TUNE_LRS}, 2 trials at a time, in {fit_s:.1f} s; "
+        f"stopped {tuner_stops} (the replay agrees); the lr {TUNE_DIRECT_LR:g} trial "
+        f"bit-equal to the direct step over {len(direct['losses'])} steps at "
+        f"{direct['launches_per_step'][0]} a step; trial step "
+        f"{out['trial_median_step_ms']} ms median against the direct "
+        f"{direct_step_ms} ms; card peak {peak} GiB (all processes), used "
+        f"{out['card_used_before_gib']} GiB before, {out['card_used_after_gib']} GiB after "
+        f"({back_s:.2f} s to come back)")
+    return out
+
+
+def workflow_phase(torch, models, rt, seed: int, card: str, reference, cfg=None,
+                   batch: int = 8, seq: int = 2048, device: str = "cuda") -> dict:
+    """Phase 25b: a durable workflow over the running cluster: `wf_batch` ->
+    `wf_train_step` (num_gpus=1) -> `wf_record`. The first run fails in the
+    GPU step (FAILED); `workflow.resume` loads the batch from storage (it
+    ran once) and reruns the GPU step once: its loss must equal the direct
+    step's first loss bit for bit, at 2L / L / L launches."""
+    import tempfile
+
+    from ray_tpu_torch import workflow
+
+    cfg = cfg or models.configs.BENCH_350M
+    cuda = device == "cuda"
+    per_step = 1 if cuda else 0
+    expected = {"fa_fwd": 2 * cfg.n_layers * per_step,
+                "fa_bwd_dq": cfg.n_layers * per_step, "fa_bwd_dkv": cfg.n_layers * per_step}
+    storage = tempfile.mkdtemp(prefix="chip_smoke_workflow_")
+    counts = {k: os.path.join(storage, f"{k}.count") for k in ("batch", "step", "record")}
+    marker = os.path.join(storage, "first_attempt_failed")
+
+    def dag():
+        tokens = rt.remote(wf_batch).bind(seed, cfg.vocab_size, CLUSTER_STEPS, batch, seq,
+                                          counts["batch"])
+        step = rt.remote(num_gpus=1, max_retries=0)(wf_train_step).bind(
+            tokens, cfg, seed, device, marker, counts["step"])
+        return rt.remote(wf_record).bind(step, counts["record"])
+
+    wid = "bench350m_step"
+    t0 = time.perf_counter()
+    try:
+        workflow.run(dag(), workflow_id=wid, storage=storage)
+        raise AssertionError("25b: the first run did not fail")
+    except Exception as e:  # noqa: BLE001 the step's error, as the runtime raises it
+        if "fails on purpose" not in str(e):
+            raise
+    first_s = time.perf_counter() - t0
+    status = workflow.get_status(wid, storage=storage)
+    t0 = time.perf_counter()
+    result = workflow.resume(wid, dag(), storage=storage)
+    resume_s = time.perf_counter() - t0
+    ran = {k: _counts_of(p) for k, p in counts.items()}
+    out = {"first_run_s": first_s, "status_after_failure": status, "resume_s": resume_s,
+           "result": result, "status": workflow.get_status(wid, storage=storage),
+           "output_equal": workflow.get_output(wid, storage=storage) == result,
+           "listed": {"workflow_id": wid, "status": "SUCCESSFUL"} in workflow.list_all(
+               storage=storage),
+           "executions": ran, "steps_stored": sorted(os.listdir(os.path.join(
+               storage, wid, "steps"))),
+           "launches": result["launches"]}
+    shutil.rmtree(storage, ignore_errors=True)
+    log(f"25b [{card}]: workflow {wid}: first run {first_s:.1f} s -> {status}; resume "
+        f"{resume_s:.1f} s -> {out['status']}, loss {result['loss']!r} (direct "
+        f"{reference[0]!r}), {result['step_ms']:.1f} ms ({result['timing']}), launches "
+        f"{result['launches']}, "
+        f"executions {ran}, steps stored {out['steps_stored']}")
+    if status != "FAILED" or out["status"] != "SUCCESSFUL":
+        raise AssertionError(f"25b: statuses {status} then {out['status']}")
+    if ran != {"batch": 1, "step": 2, "record": 1}:
+        raise AssertionError(f"25b: step executions {ran} (the batch step must run once, "
+                             "the GPU step once more on resume)")
+    if result["loss"] != reference[0] or result["launches"] != expected:
+        raise AssertionError(f"25b: the resumed step {result} is not the direct step's "
+                             f"{reference[0]!r} at {expected}")
+    if not (out["output_equal"] and out["listed"] and result["recorded"]):
+        raise AssertionError(f"25b: get_output / list_all disagree: {out}")
+    return out
+
+
+def _counts_of(path: str) -> int:
+    return len(open(path).read()) if os.path.exists(path) else 0
+
+
+def profiling_env(trace_dir: str) -> dict:
+    """Phase 25c's runtime env: the profiling plugin tracing into `trace_dir`."""
+    return {"tpu_profiling": {"jax_trace_dir": trace_dir}}
+
+
+def profiled_task(rt, seed: int, card: str, trace_dir: str, device: str = "cuda") -> dict:
+    """Phase 25c, its task: 23d's `flash_attention` call at bench-350m's
+    shape in a num_gpus=1 worker under `runtime_env={"tpu_profiling":
+    {"jax_trace_dir": trace_dir}}`, within KERNEL_TOLERANCE at 1/1/1
+    launches. The trace lands at the cluster's shutdown (`profiled_trace`)."""
+    b, t, h, d = (8, 2048, 16, 64) if device == "cuda" else (1, 64, 2, 16)
+    task = rt.remote(num_gpus=1, runtime_env=profiling_env(trace_dir))(attention_task)
+    t0 = time.perf_counter()
+    got = rt.get(task.remote(seed, b, t, h, d, device), timeout=600)
+    got["call_s"] = time.perf_counter() - t0
+    per_call = {n: 1 if device == "cuda" else 0 for n in KERNELS}
+    log(f"25c [{card}]: flash_attention {b} x {t} x {h} x {d} fwd + bwd in a tpu_profiling "
+        f"worker (pid {got['pid']}, CUDA_VISIBLE_DEVICES {got['visible']}) in "
+        f"{got['call_s']:.1f} s ({got['timing']}): launches {got['launches']}, errors "
+        f"{got['errors']}")
+    if (got["launches"] != per_call or not got["finite"] or not got["forward_same"]
+            or max(share for _, share in got["errors"].values()) > 1.0):
+        raise AssertionError(f"25c: the profiled task's call is not right: {got}")
+    return got
+
+
+def profiled_trace(trace_dir: str, pid: int, card: str, device: str = "cuda") -> dict:
+    """Phase 25c, after the cluster's shutdown: the worker's Chrome trace
+    in `trace_dir` must name every kernel (on the CPU: the aten ops)."""
+    path = os.path.join(trace_dir, f"worker_{pid}.json")
+    if not os.path.exists(path):
+        raise AssertionError(f"25c: no trace at {path}: {os.listdir(trace_dir) if os.path.isdir(trace_dir) else None}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    want = list(WGMMA_KERNELS) if device == "cuda" else ["aten::bmm"]
+    found = {k: sum(1 for e in events if k in e.get("name", "")) for k in want}
+    out = {"path": path, "bytes": os.path.getsize(path), "events": len(events),
+           "kernel_events": found}
+    log(f"25c [{card}]: the worker's trace {path}: {out['bytes']} bytes, {len(events)} "
+        f"events, kernel events {found}")
+    if not all(found.values()):
+        raise AssertionError(f"25c: the trace lacks {[k for k, n in found.items() if not n]}"
+                             f" ({len(names)} names)")
+    return out
+
+
+def usage_snapshot(path: str, card: str) -> dict:
+    """Phase 25d: the snapshot the cluster's `shutdown()` wrote."""
+    with open(path) as f:
+        snap = json.load(f)
+    log(f"25d [{card}]: usage snapshot {path}: {json.dumps(snap)}")
+    want = {"serve", "train", "data", "rllib", "tune", "workflow"}
+    if not want <= set(snap.get("libraries_used", ())) or snap.get("num_nodes") != 1:
+        raise AssertionError(f"25d: the snapshot lacks {want - set(snap.get('libraries_used', ()))}"
+                             f" or a node: {snap}")
+    return snap
+
+
+# The logical CPUs of phases 19-22 and 25's cluster: 19e's card-vs-CPU pair
+# holds ten actors of one CPU at once.
+CLUSTER_CPUS = 16
+# What the zygotes of the clusters of phases 19-25 import before they fork
+# (RAY_TPU_ZYGOTE_PRELOAD): the libraries those phases' workers use. Each
+# is fork-safe (no thread, no CUDA at import), and a worker forked from
+# the zygote then starts without importing them itself.
+CLUSTER_PRELOAD = ("ray_tpu_torch.models", "ray_tpu_torch.ops.attention",
+                   "ray_tpu_torch.train", "ray_tpu_torch.tune", "ray_tpu_torch.workflow",
+                   "ray_tpu_torch.rllib", "ray_tpu_torch.serve.llm", "ray_tpu_torch.data")
+
+
+def one_cluster_phases(torch, models, attention, seed: int, card: str, serve_cfg,
+                       phase6=None, phase4_mfu=None, cfg=None, batch: int = 8,
+                       seq: int = 2048, device: str = "cuda", trips: int = 1000,
+                       new_tokens: int = 64, corpus_rows=None) -> dict:
+    """Phases 19-22 and 25 on one `init(num_cpus=CLUSTER_CPUS)` cluster:
+    19a its start, 20, 21-22, 19b-e and 25a-c; after its shutdown 25c's
+    trace and 25d's usage snapshot, then 19d's in-process round trips.
+    Returns each phase's results and its wall seconds.
+    `one_cluster_phases(torch, models, attention, 0, "cpu", serve_cfg=...,
+    cfg=TINY, batch=2, seq=32, device="cpu", new_tokens=16,
+    corpus_rows=4096, trips=100)` rehearses it on the CPU."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import config as rt_config
+
+    cuda = device == "cuda"
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    usage_path = os.path.join(scratch, "usage_stats.json")
+    trace_dir = os.path.join(scratch, "traces")
+    env = {"RAY_TPU_TRAIN_OBS_PEAK_FLOPS": repr(PEAK_BF16_FLOPS),
+           "RAY_TPU_USAGE_STATS_PATH": usage_path,
+           "RAY_TPU_ZYGOTE_PRELOAD": ",".join(CLUSTER_PRELOAD)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    rt_config.reset_config()
+    seconds = {}
+    out = {}
+    t_all = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        cluster = {"init": cluster_start(torch, rt, card, CLUSTER_CPUS, device)}
+        seconds["19a"] = time.perf_counter() - t0
+        try:
+            # 20 and 21 hold the store to their baselines exactly, so they
+            # run first: 19c leaves a ref nested in a message, which its
+            # owner keeps for the transit grace (up to ~90 s).
+            t0 = time.perf_counter()
+            serve_kw = {} if cuda else {"device": device, "new_tokens": new_tokens}
+            out["plane"] = serve_plane_phase(torch, models, attention, seed, card,
+                                             phase6=phase6, cfg=serve_cfg,
+                                             **serve_kw)
+            log(f"20 serve plane ({time.perf_counter() - t0:.1f} s): "
+                + json.dumps(out["plane"]))
+            seconds["20"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            data_kw = {} if corpus_rows is None else {"corpus_rows": corpus_rows}
+            shape = {} if cuda else {"cfg": cfg, "batch": batch, "seq": seq,
+                                     "device": device}
+            trainer = train_plane_phase(
+                torch, models, attention, seed, card, phase4_mfu=phase4_mfu, **shape,
+                then=functools.partial(data_plane_phase, torch, models, attention, seed,
+                                       card, **shape, **data_kw))
+            out["data"] = trainer.pop("then")
+            out["trainer"] = trainer
+            log(f"21 train plane ({trainer['phase_s']:.1f} s): " + json.dumps(trainer))
+            log(f"22 data plane ({out['data']['phase_s']:.1f} s; 21-22 "
+                f"{time.perf_counter() - t0:.1f} s): " + json.dumps(out["data"]))
+            seconds["21-22"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cluster.update(cluster_actor_parts(
+                torch, models, attention, rt, CLUSTER_STEPS, seed, card, cfg=cfg,
+                batch=batch, seq=seq, device=device, trips=trips))
+            direct = cluster["actor_train"]["direct"]
+            if CLUSTER_STEPS == TRAIN_PLANE_STEPS and direct["losses"] != trainer["reference"]:
+                raise AssertionError(f"19b: the direct losses {direct['losses']} are not "
+                                     f"21's {trainer['reference']}")
+            seconds["19b-d"] = time.perf_counter() - t0
+            # A runtime env gets a zygote of its own, booted on first use:
+            # boot 25c's now, behind 19e and 25a, so its GPU worker forks warm.
+            warm = rt.remote(runtime_env=profiling_env(trace_dir))(_noop).remote()
+            t0 = time.perf_counter()
+            cluster["ppo"] = remote_ppo(torch, rt, seed, card, device=device, label="19e")
+            seconds["19e"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tune_out = {"tune": tune_phase(
+                torch, models, attention, rt, seed, card, direct["losses"],
+                direct["median_step_ms"], cfg=cfg, batch=batch, seq=seq, device=device)}
+            tune_out["workflow"] = workflow_phase(torch, models, rt, seed, card,
+                                                  direct["losses"], cfg=cfg, batch=batch,
+                                                  seq=seq, device=device)
+            rt.get(warm, timeout=600)
+            tune_out["profiled_task"] = profiled_task(rt, seed, card, trace_dir,
+                                                      device=device)
+            seconds["25a-c"] = time.perf_counter() - t0
+        except BaseException:
+            log(f"19-25 [{card}]: failed; host now: {_host_state(torch)}")
+            _dump_node_logs(rt)
+            raise
+        finally:
+            t0 = time.perf_counter()
+            rt.shutdown()
+            seconds["shutdown"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tune_out["trace"] = profiled_trace(trace_dir, tune_out["profiled_task"]["pid"], card,
+                                           device=device)
+        tune_out["usage"] = usage_snapshot(usage_path, card)
+        seconds["25c-d after shutdown"] = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        rt_config.reset_config()
+        shutil.rmtree(scratch, ignore_errors=True)
+    t0 = time.perf_counter()
+    local_round_trips(rt, cluster, card, trips)
+    seconds["19d local"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_all
+    log(f"19-22, 25 on one cluster: seconds {json.dumps(seconds)}")
+    log(f"25 tune, workflow, profiling, usage: " + json.dumps(tune_out, default=str))
+    return {"cluster": cluster, **out, "tune": tune_out, "seconds": seconds}
+
+
 def import_and_rllib_phase(torch, models, attention, seed: int, card: str) -> dict:
     """Phases 15 and 16."""
     return {"tiny_padded": tiny_padded(torch, models, attention, card),
@@ -5461,37 +6011,25 @@ def main() -> int:
     log(f"18 task/actor core ({time.perf_counter() - t0:.1f} s): " + json.dumps(runtime))
     mark("18")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    cluster = cluster_phase(torch, models, attention, CLUSTER_STEPS, args.seed, card)
-    log(f"19 multi-process runtime ({time.perf_counter() - t0:.1f} s): "
-        + json.dumps(cluster))
-    mark("19")
-    t0 = time.perf_counter()
-    plane = serve_plane_phase(torch, models, attention, args.seed, card, phase6=serve_run,
-                              cfg=serve_cfg)
-    log(f"20 serve plane ({time.perf_counter() - t0:.1f} s): " + json.dumps(plane))
-    mark("20")
-    t0 = time.perf_counter()
-    direct = cluster["actor_train"]["direct"]
-    same = CLUSTER_STEPS == TRAIN_PLANE_STEPS  # 19b's direct run: the same steps
-    trainer = train_plane_phase(
-        torch, models, attention, args.seed, card,
-        reference=direct["losses"] if same else None,
-        direct_step_ms=direct["median_step_ms"] if same else None,
-        phase4_mfu=run["mfu_bf16_989"],
-        then=functools.partial(data_plane_phase, torch, models, attention, args.seed, card))
-    data = trainer.pop("then")
-    log(f"21 train plane ({trainer['phase_s']:.1f} s): " + json.dumps(trainer))
-    log(f"22 data plane ({data['phase_s']:.1f} s; 21-22 {time.perf_counter() - t0:.1f} s): "
-        + json.dumps(data))
-    mark("21-22")
+    one = one_cluster_phases(torch, models, attention, args.seed, card, serve_cfg,
+                             phase6=serve_run, phase4_mfu=run["mfu_bf16_989"])
+    cluster, plane, trainer, data, tuned = (one[k] for k in (
+        "cluster", "plane", "trainer", "data", "tune"))
+    log("19 multi-process runtime: " + json.dumps(cluster))
+    mark("19-22, 25")
     t0 = time.perf_counter()
     nodes = multi_node_phase(torch, models, attention, args.seed, card)
     log(f"23 several nodes ({time.perf_counter() - t0:.1f} s): " + json.dumps(nodes))
     mark("23")
+    sec = one["seconds"]
     log("phase seconds: " + json.dumps(
         {name: round(t - prev, 1) for (_, prev), (name, t) in zip(marks, marks[1:])}
-        | {"24 (within 23)": round(nodes["compiled_dag"]["phase_s"], 1),
+        | {"19 (within 19-22, 25)": round(sec["19a"] + sec["19b-d"] + sec["19e"]
+                                          + sec["19d local"], 1),
+           "20 (within)": round(sec["20"], 1), "21-22 (within)": round(sec["21-22"], 1),
+           "25 (within)": round(sec["25a-c"] + sec["25c-d after shutdown"], 1),
+           "cluster shutdown (within)": round(sec["shutdown"], 1),
+           "24 (within 23)": round(nodes["compiled_dag"]["phase_s"], 1),
            "total": round(marks[-1][1] - marks[0][1], 1)}))
 
     kernels = []
@@ -5545,6 +6083,11 @@ def main() -> int:
             # DAG, counted by that worker.
             "launches_bench_350m_compiled_dag":
                 nodes["compiled_dag"]["launches"][name],
+            # Phase 25a: the steps of the Tuner's lr 3e-4 trial, counted in
+            # its trial actor's process; 25b: the resumed workflow's GPU
+            # step, counted in its task's worker.
+            "launches_bench_350m_tune_trial": tuned["tune"]["launches"][name],
+            "launches_bench_350m_workflow_step": tuned["workflow"]["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

@@ -31,7 +31,11 @@ conda and container runtime envs; `dag` (`.bind()` graphs, executed by
 task submission or compiled into stage loops over shared-memory rings and
 cross-node pushes), cross-language calls (`util/cross_lang`,
 `register_cross_lang`) and the GPU host gang (`util/placement_group`,
-`util/gpu`). Tune and workflows are not ported yet.
+`util/gpu`); `tune` (searchers, schedulers, the Tuner over trial actors
+and `train`'s session), `air` (the event-driven actor manager),
+`workflow` (durable DAG runs over `dag`), the usage snapshot that
+`shutdown()` writes and the runtime env's profiling plugin
+(`tpu_profiling`, a torch.profiler trace of each worker).
 
 A bare `import ray_tpu_torch` stays light, as `import ray_tpu` does: the
 subpackages (`models`, `ops`, `serve`, ...) import on first touch, so the
@@ -60,8 +64,11 @@ from ray_tpu_torch.core.streaming import ObjectRefGenerator
 from ray_tpu_torch.remote_function import RemoteFunction
 from ray_tpu_torch.runtime_context import get_runtime_context
 
-_SUBPACKAGES = ("core", "dag", "data", "models", "ops", "parallel", "rllib",
-                "serve", "train", "util")
+__version__ = "0.1.0"
+
+_SUBPACKAGES = ("air", "core", "dag", "data", "experimental", "models", "ops",
+                "parallel", "rllib", "serve", "train", "tune", "util",
+                "workflow")
 
 
 def __getattr__(name):
@@ -77,7 +84,8 @@ def __getattr__(name):
 
 
 __all__ = [
-    "core", "dag", "data", "models", "ops", "parallel", "serve", "train",
+    "air", "core", "dag", "data", "models", "ops", "parallel", "serve",
+    "train", "tune", "workflow",
     "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
     "kill", "cancel", "get_actor", "register_cross_lang", "cluster_resources",
     "available_resources", "nodes", "ObjectRef", "ObjectRefGenerator",

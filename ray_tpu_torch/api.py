@@ -7,9 +7,8 @@ store) through `core/distributed/driver.py`, and `init(address=...)` or
 `RAY_TPU_ADDRESS` joins a running ray_tpu_torch cluster, and
 `init("ray-tpu://host:port")` drives one through its client proxy
 (`util/client`). `register_cross_lang` names a Python function for the C++
-worker API (`cpp/`, `util/cross_lang.py`). `shutdown` writes no usage
-snapshot yet (item 10d; `util/usage_stats` records library usage in
-memory).
+worker API (`cpp/`, `util/cross_lang.py`). `shutdown` writes the session's usage
+snapshot (`util/usage_stats.py`) and reports it only on opt-in.
 
 Analogue of the reference driver API (ref: python/ray/_private/worker.py —
 init :1217, get :2574, put :2686, wait :2751, remote :3144, shutdown :1795).
@@ -122,6 +121,24 @@ def shutdown() -> None:
     global _worker
     with _worker_lock:
         if _worker is not None:
+            # Persist the usage snapshot for this driver session (ref:
+            # usage_lib writes usage_stats.json at session end; local
+            # file only — report_usage() is a no-op unless the user
+            # explicitly opted in).
+            try:
+                import os as _os
+                import tempfile as _tf
+
+                from ray_tpu_torch.core.config import get_config as _get_config
+                from ray_tpu_torch.util import usage_stats as _us
+
+                path = _get_config().usage_stats_path or _os.path.join(
+                    _tf.gettempdir(),
+                    f"ray_tpu_torch_usage_{_os.getpid()}.json")
+                _us.write_usage_snapshot(path)
+                _us.report_usage()
+            except Exception:  # noqa: BLE001 — never block shutdown
+                pass
             _worker.shutdown()
             _worker = None
 

@@ -503,9 +503,16 @@ class Config:
     # CompiledDAG.teardown() wait on stage loops before raising with
     # the straggler list.
     dag_teardown_timeout_s: float = 10.0
+    # ---- workflow plane ----
+    # Root directory for workflow checkpoint storage.
+    workflow_storage: str = "/tmp/ray_tpu_workflows"
     # ---- usage stats (util/usage_stats.py; opt-in, off by default like
     # the reference's RAY_USAGE_STATS_ENABLED gate) ----
     usage_stats_enabled: bool = False
+    # Report endpoint; empty disables the network hop (local file only).
+    usage_stats_url: str = ""
+    # Local spool file for usage reports (empty = session temp dir).
+    usage_stats_path: str = ""
 
     # ---- client bootstrap / process-local paths ----
     # Cluster address used by ray_tpu.init() and the CLI when none is

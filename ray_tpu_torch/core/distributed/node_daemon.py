@@ -52,6 +52,9 @@ logger = logging.getLogger(__name__)
 # A zygote that has not listened this long after its launch is wedged in
 # its preload: replace it rather than cold-spawn past it forever.
 ZYGOTE_BOOT_LIMIT_S = 120.0
+# How long stop() waits for SIGTERMed tpu_profiling workers to write their
+# traces before it SIGKILLs them (inside the driver's 3 s wait for a daemon).
+TRACE_EXPORT_GRACE_S = 2.5
 
 
 class WorkerHandle:
@@ -75,6 +78,7 @@ class WorkerHandle:
         self.container: Optional[Tuple[str, str]] = None
         self.last_idle = time.monotonic()
         self.registered = asyncio.Event()
+        self.traced = False     # runs the tpu_profiling trace hook
 
     def kill(self, term: bool = False) -> None:
         """Stop this worker INCLUDING its container, if any."""
@@ -390,11 +394,22 @@ class NodeDaemon:
             srv.shutdown()
         for t in self._tasks:
             t.cancel()
+        tracing = []
         for w in list(self._workers.values()):
             try:
-                w.kill()
+                # A traced worker writes its trace on SIGTERM (worker_main);
+                # SIGKILL would lose it. The driver waits 3 s for a daemon.
+                w.kill(term=w.traced)
+                if w.traced:
+                    tracing.append(w)
             except Exception:  # noqa: BLE001
                 pass
+        deadline = time.monotonic() + TRACE_EXPORT_GRACE_S
+        while tracing and time.monotonic() < deadline:
+            await asyncio.sleep(0.05)
+            tracing = [w for w in tracing if w.proc.poll() is None]
+        for w in tracing:
+            w.kill()
         for zh in list(self._zygotes.values()):
             zh.kill()
         self._zygotes.clear()
@@ -801,13 +816,16 @@ class NodeDaemon:
     def _spawn_worker(self, actor_id: Optional[str] = None,
                       built_env=None, env_key: str = "",
                       gpu_ids=()) -> WorkerHandle:
+        handle = None
         if self._zygote_compatible(built_env):
             handle = self._try_fork_worker(actor_id, built_env, env_key,
                                            gpu_ids)
-            if handle is not None:
-                return handle
-        return self._cold_spawn_worker(actor_id, built_env, env_key,
-                                       gpu_ids)
+        if handle is None:
+            handle = self._cold_spawn_worker(actor_id, built_env, env_key,
+                                             gpu_ids)
+        handle.traced = bool(built_env is not None and built_env.env_vars.get(
+            "RAY_TPU_JAX_TRACE_DIR"))
+        return handle
 
     def _cold_spawn_worker(self, actor_id: Optional[str] = None,
                            built_env=None,

@@ -200,6 +200,25 @@ class RuntimeEnvBuilder:
         if conda:
             python = await self._build_conda(root, conda)
 
+        def merge_env(add: Dict[str, str]) -> None:
+            # XLA_FLAGS accumulate (node-process flags + user flags +
+            # profiling dump + plugin flags must coexist — the built
+            # value OVERWRITES the inherited one at spawn, so the
+            # inherited flags must be folded in here); everything else
+            # overwrites. torch reads none of them: the names are JAX's.
+            if "XLA_FLAGS" in add:
+                base = (env_vars.get("XLA_FLAGS")
+                        or os.environ.get("XLA_FLAGS"))
+                if base:
+                    add = dict(add)
+                    add["XLA_FLAGS"] = base + " " + add["XLA_FLAGS"]
+            env_vars.update(add)
+
+        prof = env.get("tpu_profiling")
+        if prof:
+            from ray_tpu_torch.runtime_env import profiling_env_vars
+
+            merge_env(profiling_env_vars(prof))
         for path, value in (env.get("plugins") or {}).items():
             from ray_tpu_torch.runtime_env import load_plugin
 
@@ -226,7 +245,7 @@ class RuntimeEnvBuilder:
             except Exception as e:  # noqa: BLE001
                 raise RuntimeEnvBuildError(
                     f"runtime_env plugin {path} failed: {e}") from e
-            env_vars.update(add)
+            merge_env(add)
         spec = None
         container = env.get("container")
         if container:

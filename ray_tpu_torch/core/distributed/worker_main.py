@@ -1458,7 +1458,16 @@ def boot_worker(args) -> None:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=activities)
+            # Tasks and actor calls run on the worker's executor threads,
+            # not this one: without profile_all_threads their ops are lost.
+            try:
+                from torch._C._profiler import _ExperimentalConfig
+
+                experimental = {"experimental_config": _ExperimentalConfig(
+                    profile_all_threads=True)}
+            except (ImportError, TypeError):  # an older torch: this thread
+                experimental = {}
+            prof = torch.profiler.profile(activities=activities, **experimental)
             prof.start()
             stopped = []
 

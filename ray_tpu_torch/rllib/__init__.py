@@ -14,8 +14,8 @@ rows.
 Remote env runners, remote evaluation runners and remote learner actors
 run on the task/actor core (`ray_tpu_torch.init(local_mode=True)` hosts
 them in-process). BC, MARWIL and CQL train on recorded shards read
-through the port's data layer (`offline.read_samples`). Not here yet: the
-usage-stats hook (ROADMAP queue A, item 10d).
+through the port's data layer (`offline.read_samples`). Importing it tags
+"rllib" in the usage stats, as JAX's does.
 """
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.appo import APPO, APPOConfig
@@ -97,3 +97,10 @@ __all__ = [
     "PrioritizedReplayBuffer",
     "register_env",
 ]
+
+# Usage tagging (ref: usage_lib.record_library_usage; local-only,
+# see ray_tpu_torch/util/usage_stats.py)
+from ray_tpu_torch.util.usage_stats import record_library_usage as _rlu
+
+_rlu("rllib")
+del _rlu

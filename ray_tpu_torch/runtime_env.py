@@ -25,9 +25,14 @@ Supported fields:
     container:   {"image": ..., "run_options": [...]} -> the worker
                  command is wrapped in podman/docker run
                  (ref: runtime_env/container.py)
-    tpu_profiling: the profiling plugin (its trace-dir variable is read
-                 by `worker_main`) is ROADMAP queue A, item 10d-ii: a spec
-                 that names it raises NotImplementedError
+    tpu_profiling: {"jax_trace_dir": d, "xla_dump_to": d2,
+                 "log_compiles": bool} -> worker env vars
+                 (`profiling_env_vars`; JAX's field and variable names):
+                 `jax_trace_dir` makes `worker_main` trace the whole
+                 worker with torch.profiler into a Chrome trace per pid
+                 in `d`; `xla_dump_to` (XLA_FLAGS) and `log_compiles`
+                 (JAX_LOG_COMPILES) are set as in JAX and read by
+                 nothing in torch
     plugins:     {"pkg.module:PluginClass": config} -> custom plugin
                  classes loaded BY THE NODE DAEMON and run at build
                  time (ref: _private/runtime_env/plugin.py — dynamic
@@ -81,15 +86,24 @@ def load_plugin(path: str) -> RuntimeEnvPlugin:
     return cls()
 
 
-_NO_PROFILING = ("runtime_env field 'tpu_profiling': the profiling plugin is "
-                 "not ported to ray_tpu_torch yet (ROADMAP queue A, item "
-                 "10d-ii)")
-
-
-def _refuse_unported(env) -> None:
-    """The profiling plugin waits for item 10d-ii."""
-    if env.get("tpu_profiling"):
-        raise NotImplementedError(_NO_PROFILING)
+def profiling_env_vars(spec: Dict[str, Any]) -> Dict[str, str]:
+    """tpu_profiling spec -> worker env vars (shared by the agent and
+    tests so the mapping cannot drift). The names are JAX's: the trace
+    directory feeds `worker_main`'s torch.profiler hook; XLA_FLAGS and
+    JAX_LOG_COMPILES are set for parity and do nothing in torch."""
+    out: Dict[str, str] = {}
+    flags = []
+    if spec.get("xla_dump_to"):
+        flags.append(f"--xla_dump_to={spec['xla_dump_to']}")
+    if flags:
+        out["XLA_FLAGS"] = " ".join(flags)
+    if spec.get("jax_trace_dir"):
+        # Consumed by worker_main: it starts a whole-process torch.profiler
+        # trace into this directory (exported at exit or SIGTERM).
+        out["RAY_TPU_JAX_TRACE_DIR"] = str(spec["jax_trace_dir"])
+    if spec.get("log_compiles"):
+        out["JAX_LOG_COMPILES"] = "1"
+    return out
 
 
 class RuntimeEnv(dict):
@@ -106,7 +120,6 @@ class RuntimeEnv(dict):
         unknown = set(extra) - set(_SUPPORTED)
         if unknown:
             raise ValueError(f"unsupported runtime_env fields: {unknown}")
-        _refuse_unported({"tpu_profiling": tpu_profiling})
         super().__init__()
         if env_vars:
             if not all(isinstance(k, str) and isinstance(v, str)
@@ -123,6 +136,8 @@ class RuntimeEnv(dict):
             self["conda"] = conda
         if container:
             self["container"] = dict(container)
+        if tpu_profiling:
+            self["tpu_profiling"] = dict(tpu_profiling)
         if plugins:
             self["plugins"] = dict(plugins)
 
@@ -173,7 +188,6 @@ def normalize(env: Optional[Dict[str, Any]], kv_put) -> Optional[dict]:
         raise ValueError(
             f"unsupported runtime_env fields: {sorted(unknown)} "
             f"(supported: {_SUPPORTED})")
-    _refuse_unported(env)
     out: dict = {}
     if env.get("env_vars"):
         out["env_vars"] = dict(env["env_vars"])
@@ -218,6 +232,16 @@ def normalize(env: Optional[Dict[str, Any]], kv_put) -> Optional[dict]:
             "run_options": [str(o) for o in
                             container.get("run_options") or ()],
         }
+    prof = env.get("tpu_profiling")
+    if prof:
+        if not isinstance(prof, dict):
+            raise ValueError("tpu_profiling must be a dict")
+        known = {"xla_dump_to", "jax_trace_dir", "log_compiles"}
+        bad = set(prof) - known
+        if bad:
+            raise ValueError(
+                f"tpu_profiling fields {sorted(bad)} not in {sorted(known)}")
+        out["tpu_profiling"] = dict(prof)
     plugins = env.get("plugins")
     if plugins:
         if not isinstance(plugins, dict):

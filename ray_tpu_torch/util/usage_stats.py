@@ -5,9 +5,11 @@ The port's copy of `ray_tpu/util/usage_stats.py`, importing
 
 ref: python/ray/_private/usage/usage_lib.py — the reference collects
 cluster metadata + library-usage tags and (opt-out) reports them.
-Divergences here: collection is in-memory + local-file only. The JAX
-package's opt-in network report (`report_usage`) and the session snapshot
-that `shutdown()` writes are not ported (ROADMAP queue A, item 10d).
+Divergences here: collection is in-memory + local-file only, and
+REPORTING IS OPT-IN (RAY_TPU_USAGE_STATS_ENABLED=1 AND an explicit
+report URL): silent egress from a GPU cluster is a bug, not a default.
+`shutdown()` writes the session snapshot (`usage_stats_path`, else a
+file in the temp dir).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import os
 import platform
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 _lock = threading.Lock()
 _library_usages: set = set()
@@ -55,8 +57,12 @@ def _get_extra_tags() -> Dict[str, str]:
 def collect_usage_snapshot() -> Dict[str, Any]:
     """Everything a report would contain — inspectable by the user
     BEFORE anything leaves the machine."""
+    from ray_tpu_torch import __version__
+
     snap: Dict[str, Any] = {
         "schema_version": 1,
+        # JAX's key name, so a reader of either package's snapshot finds it.
+        "ray_tpu_version": __version__,
         "python_version": platform.python_version(),
         "os": platform.system().lower(),
         "uptime_s": round(time.time() - _start_time, 1),
@@ -94,3 +100,30 @@ def write_usage_snapshot(path: str) -> str:
         json.dump(snap, f, indent=2)
     os.replace(tmp, path)
     return path
+
+
+def report_usage(url: Optional[str] = None,
+                 timeout_s: float = 10.0) -> bool:
+    """POST the snapshot to `url` (or RAY_TPU_USAGE_STATS_URL) —
+    ONLY when usage stats are explicitly enabled. Returns whether a
+    report was sent; failures are swallowed (reporting must never
+    break a workload, same rule as the reference)."""
+    if not usage_stats_enabled():
+        return False
+    from ray_tpu_torch.core.config import get_config
+
+    url = url or get_config().usage_stats_url or None
+    if not url:
+        return False
+    try:
+        import urllib.request
+
+        body = json.dumps(collect_usage_snapshot()).encode()
+        req = urllib.request.Request(
+            url, data=body, method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout_s):
+            pass
+        return True
+    except Exception:  # noqa: BLE001
+        return False

@@ -324,7 +324,8 @@ def test_runtime_env_validation_and_hash_match_jax(tmp_path, name):
 def test_unported_runtime_env_fields_name_their_item(tmp_path, field, value):
     """pip, conda and container envs are ported: a spec normalizes and
     validates as JAX's does (their builds: tests/test_torch_runtime_envs.py).
-    The one field still waiting, tpu_profiling, names its item."""
+    No field is left unported: tpu_profiling normalizes as JAX's too (its
+    cases: test_profiling_env_matches_jax)."""
     assert (tenv.normalize({field: value}, lambda *a: None)
             == jenv.normalize({field: value}, lambda *a: None))
     assert tenv.RuntimeEnv(**{field: value}) == jenv.RuntimeEnv(**{field: value})
@@ -333,6 +334,69 @@ def test_unported_runtime_env_fields_name_their_item(tmp_path, field, value):
             env.normalize({"pip": ["x"], "conda": "envname"}, lambda *a: None)
         with pytest.raises(ValueError, match="container"):
             env.normalize({"container": {"run_options": []}}, lambda *a: None)
-    with pytest.raises(NotImplementedError, match="item 10d-ii"):
-        tenv.normalize({"tpu_profiling": {"jax_trace_dir": "x"}},
-                       lambda *a: None)
+    spec = {field: value, "tpu_profiling": {"jax_trace_dir": "x"}}
+    if field == "conda":
+        assert (tenv.normalize(spec, lambda *a: None)
+                == jenv.normalize(spec, lambda *a: None))
+    assert tenv.RuntimeEnv(**spec) == jenv.RuntimeEnv(**spec)
+
+
+PROFILING_SPECS = {
+    "trace_dir": {"jax_trace_dir": "/t"},
+    "dump": {"xla_dump_to": "/d"},
+    "all": {"xla_dump_to": "/d", "jax_trace_dir": "/t", "log_compiles": True},
+    "falsy": {"xla_dump_to": "", "log_compiles": False},
+}
+
+
+@pytest.mark.parametrize("name", list(PROFILING_SPECS))
+def test_profiling_env_matches_jax(name):
+    """The tpu_profiling plugin: the same worker variables as JAX's, the
+    same normalized spec and hash."""
+    spec = PROFILING_SPECS[name]
+    assert tenv.profiling_env_vars(spec) == jenv.profiling_env_vars(spec)
+    env = {"tpu_profiling": spec, "env_vars": {"A": "1"}}
+    assert (tenv.normalize(env, lambda *a: None)
+            == jenv.normalize(env, lambda *a: None))
+    assert tenv.env_hash(tenv.normalize(env, lambda *a: None)) == jenv.env_hash(
+        jenv.normalize(env, lambda *a: None))
+    assert tenv.RuntimeEnv(**env) == jenv.RuntimeEnv(**env)
+
+
+@pytest.mark.parametrize("spec", [{"nsys": True}, {"jax_trace_dir": "/t", "ncu": 1},
+                                  "not-a-dict"])
+def test_profiling_env_rejects_what_jax_rejects(spec):
+    errors = []
+    for env in (tenv, jenv):
+        with pytest.raises(ValueError) as e:
+            env.normalize({"tpu_profiling": spec}, lambda *a: None)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+
+
+@pytest.mark.parametrize("inherited,own,want", [
+    (None, None, "--xla_dump_to=/d"),
+    ("--xla_cpu_x=1", None, "--xla_cpu_x=1 --xla_dump_to=/d"),
+    ("--xla_cpu_x=1", "--user=1", "--user=1 --xla_dump_to=/d")])
+def test_profiling_xla_flags_are_appended_as_jax(tmp_path, monkeypatch, inherited, own,
+                                                 want):
+    """The agent appends the plugin's dump flag to the env's own XLA_FLAGS,
+    else to the node's, as JAX's agent does (torch reads none of them)."""
+    import asyncio
+
+    from ray_tpu.core.distributed import runtime_env_agent as jagent
+    from ray_tpu_torch.core.distributed import runtime_env_agent as tagent
+
+    if inherited:
+        monkeypatch.setenv("XLA_FLAGS", inherited)
+    else:
+        monkeypatch.delenv("XLA_FLAGS", raising=False)
+    env = {"env_vars": {"XLA_FLAGS": own} if own else {"B": "2"},
+           "tpu_profiling": {"xla_dump_to": "/d", "jax_trace_dir": "/t"}}
+    built = []
+    for mod, sub in ((tagent, "t"), (jagent, "j")):
+        builder = mod.RuntimeEnvBuilder(None, str(tmp_path / sub))
+        built.append(asyncio.run(builder._build("k", env)).env_vars)
+    assert built[0] == built[1]
+    assert built[0]["XLA_FLAGS"] == want
+    assert built[0]["RAY_TPU_JAX_TRACE_DIR"] == "/t"

@@ -92,7 +92,9 @@ KNOBS = ("address", "kv_block_size", "kv_block_count", "kv_block_prefix_sharing"
          "serve_kv_migrate_linger_s", "serve_kv_migrate_ttl_s",
          "serve_startup_grace_s", "channel_backoff_us_min",
          "channel_backoff_us_max", "dag_teardown_timeout_s",
-         "usage_stats_enabled",
+         "usage_stats_enabled", "usage_stats_url", "usage_stats_path",
+         # durable workflows
+         "workflow_storage",
          # the train plane: elastic restarts and train observability
          "elastic_replace_timeout_s", "elastic_backoff_initial_s",
          "elastic_backoff_max_s", "elastic_backoff_multiplier",
