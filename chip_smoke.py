@@ -326,6 +326,28 @@ Run from a checkout of the repository on a machine with a Hopper card
    three wgmma kernels; (d) the usage snapshot the shutdown wrote at
    RAY_TPU_USAGE_STATS_PATH lists serve, train, data, rllib, tune and
    workflow.
+26. a job, the dashboard head and the CLI, on the cluster of 19-22 after
+   25 (`job_phase`): the port's `DashboardHead` (the standard library's
+   HTTP server) on the cluster's GCS; a job submitted to it over HTTP
+   (`JobSubmissionClient(<head URL>)`) whose entrypoint, `python -m
+   ray_tpu_torch.scripts.bench_job`, joins by RAY_TPU_ADDRESS and runs
+   bench-350m's first JOB_STEPS (3) steps on 19b's batches in a
+   num_gpus=1 task: SUCCEEDED, losses bit-equal to 19b's direct ones at
+   2L / L / L launches a step counted in the task's worker, the job's
+   driver without CUDA; `/api/nodes` lists the GPU and `/api/jobs` the
+   job, and so do `python -m ray_tpu_torch.scripts.cli status`, `job list`
+   and `list jobs` run as processes; a sleeping job stopped by `cli job
+   stop` ends STOPPED; submit-to-running, the entrypoint's seconds and the
+   task's first step.
+27. an autoscaled GPU node, after 23 (`autoscaler_phase`): the port's
+   `AutoscalingCluster` with a head of {CPU: 2} and no GPU and one node
+   type {CPU: 2, GPU: 1} (at most one, AUTOSCALER_IDLE_S idle timeout,
+   AUTOSCALER_TICK_S updates); a num_gpus=1 actor waits until the
+   autoscaler launches that node, runs there on card 0 and takes
+   bench-350m's first 3 steps bit-equal to 19b's at 2L / L / L; once the
+   actor is killed the idle node is terminated and the card's used memory
+   comes back within 512 MiB; demand to launch, launch to the actor
+   ready, the first step, and idle to terminated.
 
 Any failure exits nonzero and prints no result. The last lines are the
 card's name and power limit, the {"kernels": [...]} line (launches of
@@ -345,8 +367,10 @@ as `launches_bench_350m_data_ingest`, of 23a's steps on a second node as
 `launches_bench_350m_client`, of 23d's venv call as
 `launches_pip_env_attention`, of 24a's steps through the compiled DAG
 as `launches_bench_350m_compiled_dag`, of 25a's 3e-4 trial as
-`launches_bench_350m_tune_trial` and of 25b's resumed workflow step as
-`launches_bench_350m_workflow_step`), and {"ok": true,
+`launches_bench_350m_tune_trial`, of 25b's resumed workflow step as
+`launches_bench_350m_workflow_step`, of 26's job task as
+`launches_bench_350m_job` and of 27's actor on the launched node as
+`launches_bench_350m_autoscaled_node`), and {"ok": true,
 "device": {...}}.
 """
 from __future__ import annotations
@@ -3460,6 +3484,7 @@ class WorkerBench350mTrainer(Bench350mTrainer):
 
         leaves = models.training.tree_leaves(self.state.params)
         return {"pid": os.getpid(), "started_by": worker_main.STARTED_BY,
+                "process_age_s": _process_age_s(),
                 "node_id": rt.get_runtime_context().get_node_id(),
                 "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
                 "torch_at_boot": worker_main.TORCH_AT_BOOT,
@@ -5776,6 +5801,269 @@ def usage_snapshot(path: str, card: str) -> dict:
     return snap
 
 
+# Phase 26: the submitted job's steps (bench-350m's first, on 19b's batches).
+JOB_STEPS = 3
+
+
+def _cli(address: str, *argv: str) -> str:
+    """The port's CLI as an operator runs it: a process of its own."""
+    import subprocess
+
+    from ray_tpu_torch.core.distributed.driver import child_env
+
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.cli",
+                           "--address", address, *argv], env=child_env(),
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"26: `cli {' '.join(argv)}` exited {proc.returncode}: "
+                             f"{proc.stdout}{proc.stderr}")
+    return proc.stdout
+
+
+def job_phase(torch, models, rt, seed: int, card: str, reference, cfg=None,
+              batch: int = 8, seq: int = 2048, device: str = "cuda") -> dict:
+    """Phase 26 on the running one-host cluster: the port's `DashboardHead`
+    (the standard library's HTTP server) on the cluster's GCS, and a job
+    submitted to it over HTTP with `JobSubmissionClient(<head URL>)`. The
+    entrypoint, `python -m ray_tpu_torch.scripts.bench_job`, joins by
+    RAY_TPU_ADDRESS and runs `cfg`'s first JOB_STEPS steps in a num_gpus=1
+    task: the job must succeed, its losses equal 19b's direct ones (the
+    `reference`) bit for bit at 2L / L / L launches a step, and its driver
+    must not have initialised CUDA. `/api/nodes` must list the GPU and
+    `/api/jobs` the job; the CLI, run as processes, must list the same
+    (`status`, `job list`, `list jobs`); a sleeping job stopped by `cli job
+    stop` must end STOPPED."""
+    import urllib.request
+
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    cfg = cfg or models.configs.BENCH_350M
+    if models.configs.get(cfg.name) != cfg:
+        raise AssertionError(f"26: the job names its config, and {cfg.name!r} is not {cfg}")
+    per_step = 1 if device == "cuda" else 0
+    expected = {"fa_fwd": 2 * cfg.n_layers * per_step,
+                "fa_bwd_dq": cfg.n_layers * per_step, "fa_bwd_dkv": cfg.n_layers * per_step}
+    gcs = rt.api._global_worker().gcs_address
+    t0 = time.perf_counter()
+    head, port = start_dashboard(gcs)
+    url = f"http://127.0.0.1:{port}"
+    head_s = time.perf_counter() - t0
+    client = JobSubmissionClient(url)
+    entry = (f"{sys.executable} -m ray_tpu_torch.scripts.bench_job --config {cfg.name} "
+             f"--seed {seed} --steps {JOB_STEPS} --corpus-steps {CLUSTER_STEPS} "
+             f"--batch {batch} --seq {seq} --device {device}")
+    t0 = time.perf_counter()
+    sid = client.submit_job(entrypoint=entry, submission_id="bench350m_job")
+    running_s = _until(lambda: client.get_job_status(sid) != "PENDING", 120, 0.05)
+    info = client.wait_until_finished(sid, timeout=900)
+    job_s = time.perf_counter() - t0
+    logs = client.get_job_logs(sid)
+    lines = [ln for ln in logs.splitlines() if ln.startswith("BENCH_JOB ")]
+    if info.status != "SUCCEEDED" or not lines:
+        raise AssertionError(f"26: job {sid} {info.status} ({info.message}); logs:\n{logs}")
+    got = json.loads(lines[-1][len("BENCH_JOB "):])
+
+    def api(path: str):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return json.loads(r.read())
+
+    nodes, jobs = api("/api/nodes"), api("/api/jobs")
+    gpus = sum(n["total"].get("GPU", 0.0) for n in nodes if n["alive"])
+    listed = [j for j in jobs if j["id"] == sid]
+    status_out = _cli(gcs, "status")
+    job_list = _cli(gcs, "job", "list")
+    driver_jobs = _cli(gcs, "list", "jobs")
+    # A job that would sleep for ten minutes, stopped by the operator.
+    t1 = time.perf_counter()
+    sleeper = client.submit_job(entrypoint=f"{sys.executable} -c 'import time; "
+                                           f"time.sleep(600)'", submission_id="sleep_job")
+    _until(lambda: client.get_job_status(sleeper) == "RUNNING", 120, 0.05)
+    stop_out = _cli(gcs, "job", "stop", sleeper)
+    stopped = client.wait_until_finished(sleeper, timeout=120)
+    stop_s = time.perf_counter() - t1
+    out = {"head_s": head_s, "submission_id": sid, "status": info.status,
+           "submit_to_running_s": running_s, "job_s": job_s,
+           "entrypoint_s": info.end_time - info.start_time, "result": got,
+           "api_gpus": gpus, "api_job": listed, "sleep_job": stopped.status,
+           "stop_s": stop_s, "launches": {n: sum(c[n] for c in got["launches_per_step"])
+                                          for n in expected}}
+    log(f"26 [{card}]: dashboard head at {url} ({head_s:.2f} s); job {sid} submitted over "
+        f"HTTP: RUNNING after {running_s:.2f} s, {info.status} after {job_s:.1f} s (the "
+        f"entrypoint {out['entrypoint_s']:.1f} s: joined in {got['join_s']:.2f} s, its "
+        f"num_gpus=1 task {got['task_s']:.1f} s with setup {got['setup_s']:.1f} s, first "
+        f"step {got['step_ms'][0]:.1f} ms, then {[round(x, 1) for x in got['step_ms'][1:]]} "
+        f"ms); losses {got['losses']} (direct {list(reference[:JOB_STEPS])}), launches "
+        f"{got['launches_per_step']}, task pid {got['pid']} CUDA_VISIBLE_DEVICES "
+        f"{got['visible']} on {got['device']}; the job's driver initialised CUDA "
+        f"{got['driver_cuda_initialized']}, the driver {got['driver_cuda_driver_initialized']}; "
+        f"/api/nodes GPU {gpus}, /api/jobs {listed}; a sleeping job stopped by the CLI "
+        f"({stop_out.strip()!r}) -> {stopped.status} in {stop_s:.1f} s")
+    log(f"26 [{card}]: cli status:\n{status_out}cli job list:\n{job_list}"
+        f"cli list jobs:\n{driver_jobs}")
+    if got["losses"] != list(reference[:JOB_STEPS]):
+        raise AssertionError(f"26: the job's losses {got['losses']} are not the direct "
+                             f"step's {list(reference[:JOB_STEPS])}")
+    if any(c != expected for c in got["launches_per_step"]):
+        raise AssertionError(f"26: the job's task launched {got['launches_per_step']}, "
+                             f"not {expected} a step")
+    if got["driver_cuda_initialized"] or got["driver_cuda_driver_initialized"]:
+        raise AssertionError(f"26: the job's driver initialised CUDA: {got}")
+    if gpus != 1.0 or [j["state"] for j in listed] != ["SUCCEEDED"]:
+        raise AssertionError(f"26: /api/nodes lists GPU {gpus}, /api/jobs {listed}")
+    if (not any(ln.split(":")[0].strip() == "GPU" and ln.split("/")[-1].startswith("1 ")
+                for ln in status_out.splitlines())
+            or not any(ln.split()[:2] == [sid, "SUCCEEDED"] for ln in job_list.splitlines())
+            or not any("FINISHED" in ln for ln in driver_jobs.splitlines())):
+        raise AssertionError(f"26: the CLI does not list the GPU, the job and its driver")
+    if stopped.status != "STOPPED" or stop_out.strip() != "stopped":
+        raise AssertionError(f"26: the sleeping job ended {stopped.status} ({stop_out!r})")
+    return out
+
+
+# Phase 27: the autoscaled GPU node's type, idle timeout and update period,
+# and its daemon's environment: its zygote preloads what the actor imports,
+# and a lease waits for that zygote instead of cold-starting a worker
+# beside its imports (the default wait is 5 s; a cold-started actor was
+# ready 30.7 s after its node's launch on an H100 host, PERF.md §6).
+AUTOSCALED_NODE = {"CPU": 2, "GPU": 1}
+AUTOSCALER_IDLE_S = 2.0
+AUTOSCALER_TICK_S = 1.0
+AUTOSCALED_NODE_ENV = {"RAY_TPU_ZYGOTE_PRELOAD": "ray_tpu_torch.models,ray_tpu_torch.ops.attention",
+                       "RAY_TPU_ZYGOTE_BOOT_WAIT_S": "60"}
+
+
+def autoscaler_phase(torch, models, attention, seed: int, card: str, reference, cfg=None,
+                     batch: int = 8, seq: int = 2048, device: str = "cuda") -> dict:
+    """Phase 27: the port's `AutoscalingCluster`, a head of {CPU: 2} without
+    a GPU and one worker node type AUTOSCALED_NODE (at most one, its
+    daemon's environment AUTOSCALED_NODE_ENV through `node_config["env"]`,
+    as CLUSTER_PRELOAD reaches the other clusters' zygotes). A num_gpus=1
+    actor (19b's `WorkerBench350mTrainer`) waits until the autoscaler
+    launches that node through `FakeMultiNodeProvider`; it must run there on
+    card 0, and `cfg`'s first JOB_STEPS steps must equal 19b's direct losses
+    (`reference`) bit for bit at 2L / L / L launches a step. Then the actor
+    is killed, the idle node must be terminated, and the card's used memory,
+    which the actor's state raised, must come back within CARD_MEMORY_SLACK
+    of its value before the phase."""
+    import gc
+
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import AutoscalingCluster
+
+    cfg = cfg or models.configs.BENCH_350M
+    cuda = device == "cuda"
+    per_step = 1 if cuda else 0
+    expected = {"fa_fwd": 2 * cfg.n_layers * per_step,
+                "fa_bwd_dq": cfg.n_layers * per_step, "fa_bwd_dkv": cfg.n_layers * per_step}
+    if rt.is_initialized():
+        rt.shutdown()
+    # The baseline without what earlier phases left for the collector
+    # (11.3 GiB of it was once freed during the phase, PERF.md §6).
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    used_before = _card_used(torch, device)
+    t0 = time.perf_counter()
+    cluster = AutoscalingCluster(
+        head_resources={"CPU": 2},
+        worker_node_types={"gpu_node": {
+            "resources": dict(AUTOSCALED_NODE), "min_workers": 0, "max_workers": 1,
+            "node_config": {"env": dict(AUTOSCALED_NODE_ENV)}}},
+        idle_timeout_s=AUTOSCALER_IDLE_S, update_interval_s=AUTOSCALER_TICK_S)
+    provider = cluster.provider
+    events = {}
+    create, terminate = provider.create_node, provider.terminate_node
+
+    def create_node(node_type, node_config):
+        events.setdefault("create", []).append(time.perf_counter())
+        iid = create(node_type, node_config)
+        events.setdefault("created", []).append(time.perf_counter())
+        return iid
+
+    def terminate_node(instance_id):
+        events.setdefault("terminate", []).append(time.perf_counter())
+        return terminate(instance_id)
+
+    provider.create_node, provider.terminate_node = create_node, terminate_node
+    out = {}
+    try:
+        cluster.connect()
+        out["start_s"] = time.perf_counter() - t0
+        head_gpus = rt.cluster_resources().get("GPU", 0.0)
+        t_demand = time.perf_counter()
+        actor = rt.remote(num_gpus=1)(WorkerBench350mTrainer).remote(cfg, seed, device)
+        where = rt.get(actor.whereabouts.remote(), timeout=600)
+        t_ready = time.perf_counter()
+        corpus = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (CLUSTER_STEPS, batch, seq + 1), dtype=np.int32))
+        losses, step_ms, launches = [], [], []
+        for i in range(JOB_STEPS):
+            t1 = time.perf_counter()
+            loss, _, launched = rt.get(actor.step_from_host.remote(corpus[i]), timeout=600)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(loss)
+            launches.append(launched)
+        nodes = {n["NodeID"]: n for n in rt.nodes()}
+        used_live = _card_used(torch, device)
+        t_kill = time.perf_counter()
+        rt.kill(actor)
+        idle_s = _until(lambda: not provider.non_terminated_nodes() and sum(
+            n["Alive"] for n in rt.nodes()) == 1, 120, 0.1)
+        back_s = (_until(lambda: _card_used(torch, device) <= used_before
+                         + CARD_MEMORY_SLACK, 120) if cuda else 0.0)
+        used_after = _card_used(torch, device)
+    except BaseException:
+        log(f"27 [{card}]: failed; autoscaler {cluster.autoscaler.last_status}")
+        raise
+    finally:
+        cluster.shutdown()
+    launched_at = events.get("create", [None])[0]
+    out.update({
+        "head_gpus": head_gpus, "node_types_launched": len(events.get("create", [])),
+        "terminated": len(events.get("terminate", [])), "where": where,
+        "on_launched_node": where["node_id"] != cluster.head_info["node_id"],
+        "node_resources": nodes.get(where["node_id"], {}).get("Resources"),
+        "demand_to_launch_s": launched_at - t_demand,
+        "launch_s": events["created"][0] - launched_at,
+        "launch_to_ready_s": t_ready - launched_at,
+        "losses": losses, "step_ms": step_ms, "launches_per_step": launches,
+        "idle_to_terminated_s": events["terminate"][0] - t_kill if events.get(
+            "terminate") else None, "node_gone_s": idle_s, "card_back_s": back_s,
+        "card_used_before_gib": None if used_before is None else used_before / 2**30,
+        "card_used_live_gib": None if used_live is None else used_live / 2**30,
+        "card_used_after_gib": None if used_after is None else used_after / 2**30,
+        "launches": {n: sum(c[n] for c in launches) for n in expected}})
+    log(f"27 [{card}]: AutoscalingCluster(head {{CPU: 2}}, GPU {head_gpus}) up in "
+        f"{out['start_s']:.2f} s; a num_gpus=1 actor's demand -> the node's launch "
+        f"{out['demand_to_launch_s']:.2f} s (create_node {out['launch_s']:.2f} s), launch "
+        f"-> actor ready {out['launch_to_ready_s']:.2f} s (pid {where['pid']}, "
+        f"{where['started_by']}, {where['process_age_s']:.2f} s old when ready, "
+        f"CUDA_VISIBLE_DEVICES {where['visible']}, node "
+        f"{out['node_resources']}); steps {[round(x, 1) for x in step_ms]} ms, losses "
+        f"{losses} (direct {list(reference[:JOB_STEPS])}), launches {launches}; killed -> "
+        f"terminate_node {out['idle_to_terminated_s']} s, node gone {idle_s:.2f} s; card "
+        f"used {out['card_used_before_gib']} GiB before, {out['card_used_live_gib']} GiB "
+        f"with the actor, {out['card_used_after_gib']} GiB after ({back_s:.2f} s to come "
+        f"back)")
+    if head_gpus or not out["on_launched_node"] or out["node_types_launched"] != 1:
+        raise AssertionError(f"27: the actor did not get a launched node: {out}")
+    if cuda and where["visible"] != "0":
+        raise AssertionError(f"27: the actor is not on card 0: {where}")
+    if losses != list(reference[:JOB_STEPS]):
+        raise AssertionError(f"27: the autoscaled node's losses {losses} are not the "
+                             f"direct step's {list(reference[:JOB_STEPS])}")
+    if any(c != expected for c in launches):
+        raise AssertionError(f"27: the actor launched {launches}, not {expected} a step")
+    if out["terminated"] != 1:
+        raise AssertionError(f"27: the idle node was terminated {out['terminated']} times")
+    if cuda and used_live <= used_before + CARD_MEMORY_SLACK:
+        raise AssertionError(f"27: the actor's state did not show on the card: {out}")
+    return out
+
+
 # The logical CPUs of phases 19-22 and 25's cluster: 19e's card-vs-CPU pair
 # holds ten actors of one CPU at once.
 CLUSTER_CPUS = 16
@@ -5792,8 +6080,8 @@ def one_cluster_phases(torch, models, attention, seed: int, card: str, serve_cfg
                        phase6=None, phase4_mfu=None, cfg=None, batch: int = 8,
                        seq: int = 2048, device: str = "cuda", trips: int = 1000,
                        new_tokens: int = 64, corpus_rows=None) -> dict:
-    """Phases 19-22 and 25 on one `init(num_cpus=CLUSTER_CPUS)` cluster:
-    19a its start, 20, 21-22, 19b-e and 25a-c; after its shutdown 25c's
+    """Phases 19-22, 25 and 26 on one `init(num_cpus=CLUSTER_CPUS)` cluster:
+    19a its start, 20, 21-22, 19b-e, 25a-c and 26; after its shutdown 25c's
     trace and 25d's usage snapshot, then 19d's in-process round trips.
     Returns each phase's results and its wall seconds.
     `one_cluster_phases(torch, models, attention, 0, "cpu", serve_cfg=...,
@@ -5873,6 +6161,12 @@ def one_cluster_phases(torch, models, attention, seed: int, card: str, serve_cfg
             tune_out["profiled_task"] = profiled_task(rt, seed, card, trace_dir,
                                                       device=device)
             seconds["25a-c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["job"] = job_phase(torch, models, rt, seed, card, direct["losses"], cfg=cfg,
+                                   batch=batch, seq=seq, device=device)
+            log(f"26 job, dashboard and CLI ({time.perf_counter() - t0:.1f} s): "
+                + json.dumps(out["job"]))
+            seconds["26"] = time.perf_counter() - t0
         except BaseException:
             log(f"19-25 [{card}]: failed; host now: {_host_state(torch)}")
             _dump_node_logs(rt)
@@ -5898,7 +6192,7 @@ def one_cluster_phases(torch, models, attention, seed: int, card: str, serve_cfg
     local_round_trips(rt, cluster, card, trips)
     seconds["19d local"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - t_all
-    log(f"19-22, 25 on one cluster: seconds {json.dumps(seconds)}")
+    log(f"19-22, 25, 26 on one cluster: seconds {json.dumps(seconds)}")
     log(f"25 tune, workflow, profiling, usage: " + json.dumps(tune_out, default=str))
     return {"cluster": cluster, **out, "tune": tune_out, "seconds": seconds}
 
@@ -6013,21 +6307,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     one = one_cluster_phases(torch, models, attention, args.seed, card, serve_cfg,
                              phase6=serve_run, phase4_mfu=run["mfu_bf16_989"])
-    cluster, plane, trainer, data, tuned = (one[k] for k in (
-        "cluster", "plane", "trainer", "data", "tune"))
+    cluster, plane, trainer, data, tuned, job = (one[k] for k in (
+        "cluster", "plane", "trainer", "data", "tune", "job"))
     log("19 multi-process runtime: " + json.dumps(cluster))
-    mark("19-22, 25")
+    mark("19-22, 25, 26")
     t0 = time.perf_counter()
     nodes = multi_node_phase(torch, models, attention, args.seed, card)
     log(f"23 several nodes ({time.perf_counter() - t0:.1f} s): " + json.dumps(nodes))
     mark("23")
+    autoscaled = autoscaler_phase(torch, models, attention, args.seed, card,
+                                  cluster["actor_train"]["direct"]["losses"])
+    log("27 autoscaled GPU node: " + json.dumps(autoscaled))
+    mark("27")
     sec = one["seconds"]
     log("phase seconds: " + json.dumps(
         {name: round(t - prev, 1) for (_, prev), (name, t) in zip(marks, marks[1:])}
-        | {"19 (within 19-22, 25)": round(sec["19a"] + sec["19b-d"] + sec["19e"]
+        | {"19 (within 19-22, 25, 26)": round(sec["19a"] + sec["19b-d"] + sec["19e"]
                                           + sec["19d local"], 1),
            "20 (within)": round(sec["20"], 1), "21-22 (within)": round(sec["21-22"], 1),
            "25 (within)": round(sec["25a-c"] + sec["25c-d after shutdown"], 1),
+           "26 (within)": round(sec["26"], 1),
            "cluster shutdown (within)": round(sec["shutdown"], 1),
            "24 (within 23)": round(nodes["compiled_dag"]["phase_s"], 1),
            "total": round(marks[-1][1] - marks[0][1], 1)}))
@@ -6088,6 +6387,10 @@ def main() -> int:
             # step, counted in its task's worker.
             "launches_bench_350m_tune_trial": tuned["tune"]["launches"][name],
             "launches_bench_350m_workflow_step": tuned["workflow"]["launches"][name],
+            # Phase 26: the submitted job's num_gpus=1 task, counted in its
+            # worker; 27: the actor on the node the autoscaler launched.
+            "launches_bench_350m_job": job["launches"][name],
+            "launches_bench_350m_autoscaled_node": autoscaled["launches"][name],
             "max_abs_err": rows[name]["max_abs_err"],
             "tolerance": attention.KERNEL_TOLERANCE,
             "tolerance_share": rows[name]["tolerance_share"],

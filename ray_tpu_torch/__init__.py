@@ -66,7 +66,8 @@ from ray_tpu_torch.runtime_context import get_runtime_context
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("air", "core", "dag", "data", "experimental", "models", "ops",
+_SUBPACKAGES = ("air", "autoscaler", "core", "dag", "dashboard", "data",
+                "experimental", "job_submission", "models", "ops",
                 "parallel", "rllib", "serve", "train", "tune", "util",
                 "workflow")
 

@@ -9,11 +9,13 @@ driver connect worker.py:2176).
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import uuid
 from typing import Dict, List, Optional
@@ -24,6 +26,27 @@ from ray_tpu_torch.core.distributed.protocol import RUNTIME
 logger = logging.getLogger(__name__)
 
 _HANDSHAKE_TIMEOUT = 60
+
+
+def breadcrumb_path() -> str:
+    """The file naming the last cluster a driver on this host joined or
+    started, read by the CLI when it is given no address (the reference's
+    /tmp/ray/ray_current_cluster). The port's own, beside JAX's
+    `/tmp/ray_tpu_<uid>/`, so its CLI never finds a JAX head."""
+    return os.path.join(tempfile.gettempdir(),
+                        f"ray_tpu_torch_{os.getuid()}", "last_cluster.json")
+
+
+def write_breadcrumb(gcs_address: str) -> None:
+    """Per-uid dir with 0700, so another local user can't plant an
+    address the CLI would trust."""
+    path = breadcrumb_path()
+    try:
+        os.makedirs(os.path.dirname(path), mode=0o700, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"gcs_address": gcs_address, "ts": time.time()}, f)
+    except OSError:
+        pass
 
 
 def child_env() -> Dict[str, str]:
@@ -161,8 +184,6 @@ def start_node_daemon_process(
     extra_env: Optional[dict] = None,
     die_with_parent: bool = True,
 ) -> tuple:
-    import json
-
     cmd = [sys.executable, "-m", "ray_tpu_torch.core.distributed.node_daemon",
            "--gcs-address", gcs_address, "--host", host,
            "--resources", json.dumps(resources or {})]
@@ -262,6 +283,7 @@ def connect_or_start_cluster(
         log_to_driver=log_to_driver,
     )
     worker._spawned_processes = spawned
+    write_breadcrumb(gcs_address)
     worker.gcs.call("JobManager", "register_job", job_id=job_id,
                     driver_address=worker.address, runtime=RUNTIME,
                     timeout=30)

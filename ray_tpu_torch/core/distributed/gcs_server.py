@@ -32,6 +32,7 @@ from collections import OrderedDict, defaultdict, deque
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 from ray_tpu_torch.core.config import get_config
+from ray_tpu_torch.core.distributed import resources as rs
 from ray_tpu_torch.core.distributed.rpc import AsyncRpcClient, RpcServer
 from ray_tpu_torch.core.distributed.protocol import RUNTIME
 from ray_tpu_torch.core.distributed.scheduler import (
@@ -1918,6 +1919,14 @@ class AutoscalerStateManager:
         now = time.monotonic()
         nodes = []
         for n in self._gcs.nodes.view.nodes.values():
+            # A node is busy while its view shows queued demand or held
+            # resources, whether or not a report came since: the syncer
+            # sends changes only, so an actor holding a card for minutes
+            # sends none, and `last_busy` alone would call its node idle
+            # (and the autoscaler would drain it under the actor).
+            if n.alive and (n.queued or rs.utilization(
+                    n.total, n.available) > rs.EPS):
+                n.last_busy = now
             nodes.append({
                 "node_id": n.node_id,
                 "alive": n.alive,

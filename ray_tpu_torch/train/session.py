@@ -16,6 +16,14 @@ the checkpoint persist into the `checkpoint` phase, `step_phases()` /
 iterators so their blocking `next()` charges `data_wait`, and a
 background pusher federates the per-rank counters over the node-daemon
 gauge path.
+
+A Tuner trial installs its session for its own thread (`per_thread=True`):
+in local mode every trial is a thread of one process, so the lookup takes
+the calling thread's session first and falls back to the process-wide one
+that a train worker installs (whose helper threads, the feed and the
+pusher, see it from any thread). A trial whose scheduler stops it ends at
+its next `report`, which raises `TrialStopped` once `request_stop()` was
+called.
 """
 from __future__ import annotations
 
@@ -31,6 +39,13 @@ from ray_tpu_torch.train.checkpoint import Checkpoint
 
 _session_lock = threading.Lock()
 _session: Optional["TrainSession"] = None
+_thread_session = threading.local()
+
+
+class TrialStopped(BaseException):
+    """Raised by `report` in a session its Tuner stopped: ends the trial's
+    loop (a BaseException, so a loop's `except Exception` does not keep
+    it running)."""
 
 
 class TrainSession:
@@ -68,6 +83,11 @@ class TrainSession:
             attempt=int(meta.get("attempt", 0) or 0),
             flops_per_step=meta.get("flops_per_step"))
         self._pusher = train_obs.GaugePusher(self.recorder)
+        self._stop = threading.Event()
+
+    def request_stop(self) -> None:
+        """Make the next `report` end the loop with `TrialStopped`."""
+        self._stop.set()
 
     def _existing_ckpt_max(self) -> int:
         try:
@@ -87,6 +107,8 @@ class TrainSession:
     # -- user-facing ----------------------------------------------------
     def report(self, metrics: Dict[str, Any],
                checkpoint: Optional[Checkpoint] = None) -> None:
+        if self._stop.is_set():
+            raise TrialStopped()
         persisted = None
         if checkpoint is not None:
             t0 = time.perf_counter()
@@ -124,18 +146,34 @@ class TrainSession:
         return shard
 
 
-def install_session(s: TrainSession) -> None:
+def install_session(s: TrainSession, *, per_thread: bool = False) -> None:
+    """Install `s` for the process, or with `per_thread` for the calling
+    thread (a Tuner trial). A per-thread session also becomes the process
+    one when there is none, so a lone trial's helper threads see it."""
     global _session
     with _session_lock:
-        _session = s
+        if per_thread:
+            _thread_session.session = s
+            if _session is None:
+                _session = s
+        else:
+            _session = s
     train_obs.set_active(s.recorder)
     s._pusher.start()
 
 
 def uninstall_session() -> None:
+    """Remove the calling thread's session if it has one, else the
+    process-wide one."""
     global _session
     with _session_lock:
-        prev, _session = _session, None
+        prev = getattr(_thread_session, "session", None)
+        if prev is not None:
+            _thread_session.session = None
+            if _session is prev:
+                _session = None
+        else:
+            prev, _session = _session, None
     if prev is not None:
         # Close any step left open, then flush a final gauge push so
         # the GCS sees the rank's terminal counters — marked finished,
@@ -144,14 +182,16 @@ def uninstall_session() -> None:
         prev.recorder.step_end()
         prev.recorder.finished = True
         prev._pusher.stop(flush=True)
-    train_obs.set_active(None)
+        if train_obs.get_active() is prev.recorder:
+            train_obs.set_active(None)
 
 
 def _get() -> TrainSession:
-    if _session is None:
+    s = getattr(_thread_session, "session", None) or _session
+    if s is None:
         raise RuntimeError(
             "No training session active — call inside train_loop_per_worker")
-    return _session
+    return s
 
 
 # ---- public API (ray.train.* equivalents) -----------------------------

@@ -8,7 +8,12 @@ event loop over trial actors (ref: tune/execution/tune_controller.py:69,
 step :667).  Here each trial runs its function-trainable in a TrialActor
 (thread + result queue, same session machinery as ray_tpu_torch.train); the
 controller polls, feeds the scheduler, kills/STOPs, and executes PBT
-exploit/explore restarts from checkpoints. A trial's actor asks for no
+exploit/explore restarts from checkpoints. Each trial's session is its own
+thread's (`install_session(per_thread=True)`), so concurrent trials in
+local mode, threads of one process, do not share one; a trial the
+controller stops, parks or restarts is told to stop first and its loop
+ends at its next `report`, and `fit()` waits for those threads in its own
+process before it returns. A trial's actor asks for no
 resources (as JAX's): on a node with cards it sees them all
 (`node_daemon._visible_env` scopes only GPU leases), so concurrent trials
 share the node's cards.
@@ -26,12 +31,18 @@ import logging
 import ray_tpu_torch
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.config import Result, RunConfig
-from ray_tpu_torch.train.session import TrainSession, install_session, uninstall_session
+from ray_tpu_torch.train.session import (TrainSession, TrialStopped,
+                                         install_session, uninstall_session)
 from ray_tpu_torch.tune.schedulers import (PAUSE, STOP, FIFOScheduler,
                                            PopulationBasedTraining)
 from ray_tpu_torch.tune.search import generate_variants
 
 logger = logging.getLogger(__name__)
+
+# Threads of stopped trials by the token `TrialActor.stop` returned, in
+# the process that runs the trial: in local mode the Tuner's own.
+_stopped_threads: Dict[str, Any] = {}
+STOPPED_TRIAL_JOIN_S = 60.0
 
 
 @dataclasses.dataclass
@@ -70,9 +81,11 @@ class TrialActor:
             experiment_name=self.trial_id)
 
         def target():
-            install_session(self.session)
+            install_session(self.session, per_thread=True)
             try:
                 fn(config)
+            except TrialStopped:
+                pass
             except BaseException:  # noqa: BLE001
                 self._error = traceback.format_exc()
             finally:
@@ -82,6 +95,17 @@ class TrialActor:
         self._thread = self._threading.Thread(target=target, daemon=True)
         self._thread.start()
         return True
+
+    def stop(self) -> Optional[str]:
+        """End the trial's loop at its next `report`; returns a token by
+        which `fit()` joins the thread when it runs in the Tuner's
+        process."""
+        if self.session is None or self._thread is None:
+            return None
+        self.session.request_stop()
+        token = f"{os.getpid()}:{id(self._thread)}"
+        _stopped_threads[token] = self._thread
+        return token
 
     def poll(self) -> dict:
         out = []
@@ -258,6 +282,23 @@ class Tuner:
             if hasattr(scheduler, "on_trial_config"):
                 scheduler.on_trial_config(trial.trial_id, trial.config)
 
+        stopped_tokens: List[str] = []
+
+        def halt(trial: _Trial) -> None:
+            """Stop the trial's loop at its next report, then kill its
+            actor."""
+            try:
+                token = ray_tpu_torch.get(trial.actor.stop.remote(),
+                                          timeout=30)
+                if token:
+                    stopped_tokens.append(token)
+            except Exception:  # noqa: BLE001 the actor is already gone
+                pass
+            try:
+                ray_tpu_torch.kill(trial.actor)
+            except Exception:  # noqa: BLE001
+                pass
+
         def fill_slots():
             nonlocal spawned
             while pending and len(running) < tc.max_concurrent_trials:
@@ -365,10 +406,7 @@ class Tuner:
                         trial.state = "PAUSED"
                         running.remove(trial)
                         paused.append(trial)
-                        try:
-                            ray_tpu_torch.kill(trial.actor)
-                        except Exception:  # noqa: BLE001
-                            pass
+                        halt(trial)
                         break
                 if trial.state == "RUNNING":
                     if p["error"]:
@@ -391,10 +429,7 @@ class Tuner:
                             or victim.state != "RUNNING"
                             or not src.checkpoint):
                         continue
-                    try:
-                        ray_tpu_torch.kill(victim.actor)
-                    except Exception:  # noqa: BLE001
-                        pass
+                    halt(victim)
                     if victim in running:
                         running.remove(victim)
                     victim.config = scheduler.mutate(src.config)
@@ -414,7 +449,9 @@ class Tuner:
                                              trial.error)
                     except Exception:  # noqa: BLE001
                         self._warn_callback(cb)
-                if trial.actor is not None:
+                if trial.actor is not None and trial.state == "STOPPED":
+                    halt(trial)
+                elif trial.actor is not None:
                     try:
                         ray_tpu_torch.kill(trial.actor)
                     except Exception:  # noqa: BLE001
@@ -423,6 +460,17 @@ class Tuner:
             if running and not done:
                 time.sleep(0.05)
 
+        # Stopped trials whose threads ran in this process (local mode)
+        # end at their next report: wait for them.
+        deadline = time.monotonic() + STOPPED_TRIAL_JOIN_S
+        for token in stopped_tokens:
+            thread = _stopped_threads.pop(token, None)
+            if thread is not None:
+                thread.join(max(0.0, deadline - time.monotonic()))
+                if thread.is_alive():
+                    logger.warning("a stopped trial's thread is still "
+                                   "running after %.0f s",
+                                   STOPPED_TRIAL_JOIN_S)
         results = []
         for t in trials:
             err = RuntimeError(t.error) if t.error else None

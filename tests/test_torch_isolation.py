@@ -28,7 +28,8 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "ray_tpu",
 # train plane with its chaos injectors and state/timeline readers, and the
 # data layer with its streaming executor, and several nodes on one host with
 # the client proxy and the in-process daemon harnesses, and the DAG layer,
-# cross-language calls and the GPU host gang).
+# cross-language calls and the GPU host gang, and job submission, the
+# dashboard head on the standard library, the autoscaler and the CLI).
 REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             "ray_tpu_torch.parallel.pipeline", "ray_tpu_torch.parallel.collectives",
             "ray_tpu_torch.models.training", "ray_tpu_torch.models.hf_convert",
@@ -76,7 +77,15 @@ REQUIRED = ("ray_tpu_torch.ops.ring_attention", "ray_tpu_torch.ops.ulysses",
             *(f"ray_tpu_torch.dag.{m}" for m in (
                 "api", "dag_node", "compiled_dag")),
             "ray_tpu_torch.dag", "ray_tpu_torch.util.cross_lang",
-            "ray_tpu_torch.util.gpu")
+            "ray_tpu_torch.util.gpu",
+            *(f"ray_tpu_torch.job_submission.{m}" for m in ("client", "supervisor")),
+            "ray_tpu_torch.job_submission",
+            *(f"ray_tpu_torch.dashboard.{m}" for m in ("grafana", "head")),
+            "ray_tpu_torch.dashboard",
+            *(f"ray_tpu_torch.autoscaler.{m}" for m in (
+                "binpack", "node_provider", "autoscaler", "v2", "monitor", "sdk",
+                "launcher")),
+            "ray_tpu_torch.autoscaler", "ray_tpu_torch.scripts.cli")
 
 _CHECK = r"""
 import importlib, importlib.abc, pkgutil, sys

@@ -3,13 +3,21 @@ on the CPU.
 
 Scenarios of tests/test_tune_breadth.py and test_workflow_callbacks.py
 run through both packages, one runtime after the other, one trial at a
-time and with no trial stopped: in local mode every trial is a thread of
-one process sharing its one train session, and a stopped trial's thread
-runs on, so scenarios with concurrent or stopped trials run on a cluster
-(tests/test_torch_tune_cluster.py). Here: `Tuner.restore` after a crash
-and the JSON and CSV logger files. The outcome is deterministic, and the
-two packages' trials (configs, states, metric histories, the experiment
-state, logger files) must be equal.
+time and with no trial stopped: `Tuner.restore` after a crash and the JSON
+and CSV logger files. The outcome is deterministic, and the two packages'
+trials (configs, states, metric histories, the experiment state, logger
+files) must be equal.
+
+Then the port alone, on concurrent and stopped trials in local mode, where
+every trial is a thread of one process. The JAX package's trials share one
+process-wide train session there (its concurrent trials raise "No
+training session active", and a stopped trial's thread runs on), so these
+tests hold the port to its own claim and do not compare it with JAX: PBT
+with 2 concurrent trials of 10 reports (tests/test_tune.py's
+test_pbt_exploits_checkpoint) reaches a best score >= 4.0 with no trial
+error, and ASHA with 2 concurrent trials stops the trials that the same
+scenario stops on a cluster (tests/test_torch_tune_cluster.py), each
+stopped trial's thread having ended by the time `fit()` returns.
 """
 import csv
 import gc
@@ -145,3 +153,102 @@ TUNER_SCENARIOS = {"restore": s_restore, "loggers": s_loggers}
 def test_local_mode_tuner_matches_jax(name, tmp_path):
     got = _run_local(TUNER_SCENARIOS[name], tmp_path)
     assert got[0] == got[1], got
+
+
+# -- the port alone: concurrent and stopped trials in local mode ----------------
+
+def _trial_threads():
+    import threading
+
+    return {t for t in threading.enumerate() if t.name.startswith("Thread-")}
+
+
+def test_local_mode_pbt_with_concurrent_trials(tmp_path):
+    _shutdown_all()
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        tune = ray_tpu_torch.tune
+        ckpt_mod = _mod(ray_tpu_torch, "train.checkpoint")
+
+        def trainable(config):
+            ckpt = tune.get_checkpoint()
+            weight = 0.0
+            if ckpt:
+                with open(os.path.join(ckpt.path, "w.json")) as f:
+                    weight = json.load(f)["w"]
+            for i in range(10):
+                weight += config["lr"]
+                d = tempfile.mkdtemp()
+                with open(os.path.join(d, "w.json"), "w") as f:
+                    json.dump({"w": weight}, f)
+                tune.report({"score": weight, "training_iteration": i + 1},
+                            checkpoint=ckpt_mod.Checkpoint(d))
+
+        pbt = tune.PopulationBasedTraining(
+            metric="score", mode="max", perturbation_interval=4,
+            hyperparam_mutations={"lr": [0.1, 1.0]}, seed=0)
+        grid = tune.Tuner(
+            trainable, param_space={"lr": tune.grid_search([0.01, 1.0])},
+            tune_config=tune.TuneConfig(num_samples=1, max_concurrent_trials=2,
+                                        scheduler=pbt),
+            run_config=_run_config(ray_tpu_torch, str(tmp_path), "pbt")).fit()
+        assert grid.errors == [], grid.errors
+        assert len(grid) == 2
+        assert grid.get_best_result("score", "max").metrics["score"] >= 4.0
+    finally:
+        ray_tpu_torch.shutdown()
+        gc.collect()
+
+
+def test_local_mode_asha_stops_trials_and_their_threads(tmp_path):
+    """tests/test_torch_tune_cluster.py's ASHA scenario with 2 trials at a
+    time: a worse trial reports more slowly, so the better one of a pair
+    reaches each rung first, as in the cluster's sequential run, and the
+    same trials stop."""
+    _shutdown_all()
+    ray_tpu_torch.init(local_mode=True)
+    try:
+        tune = ray_tpu_torch.tune
+        from ray_tpu_torch.tune import tuner as tuner_mod
+
+        reports = {}
+
+        def trainable(config):
+            import time
+
+            if config["x"] == 99:
+                raise ValueError("boom")
+            for i in range(6):
+                time.sleep(0.4 / config["x"])
+                reports[config["x"]] = i + 1
+                tune.report({"loss": 1.0 / config["x"], "training_iteration": i + 1})
+
+        before = _trial_threads()
+        grid = tune.Tuner(
+            trainable, param_space={"x": tune.grid_search([4, 2, 1, 99])},
+            tune_config=tune.TuneConfig(
+                num_samples=1, max_concurrent_trials=2,
+                scheduler=tune.ASHAScheduler(metric="loss", mode="min", grace_period=2,
+                                             reduction_factor=2, max_t=6)),
+            run_config=_run_config(ray_tpu_torch, str(tmp_path), "asha")).fit()
+        after_fit = dict(reports)
+        new = [t for t in _trial_threads() - before]
+        for t in new:
+            t.join(10)
+        states = {t.trial_id: t.state for t in grid._trials}
+        assert states == {"trial_0000": "TERMINATED", "trial_0001": "STOPPED",
+                          "trial_0002": "STOPPED", "trial_0003": "ERROR"}, states
+        stopped = [t for t in grid._trials if t.state == "STOPPED"]
+        # The scheduler stopped each at its rung (step 2), and its loop
+        # ended at a report after that, short of its 6 steps.
+        for t in stopped:
+            assert t.iteration == 2, (t.trial_id, t.iteration)
+            assert 3 <= reports[t.config["x"]] < 6, reports
+        # Every trial thread ends (a finished one just after its last
+        # poll), and none reported after fit() returned: the stopped ones
+        # had ended by then.
+        assert not [t for t in new if t.is_alive()]
+        assert reports == after_fit and not tuner_mod._stopped_threads
+    finally:
+        ray_tpu_torch.shutdown()
+        gc.collect()
